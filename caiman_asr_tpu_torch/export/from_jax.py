@@ -1,0 +1,70 @@
+"""Carry weights from the JAX package's parameter tree into the port.
+
+The tree arrives as nested dicts of numpy arrays (``np.asarray`` over the
+JAX leaves), so nothing here imports JAX. Names follow the reference torch
+model; layouts are the same on both sides (LSTM ``[4H, in]`` with gates
+i, f, g, o; Linear ``[out, in]``), so the mapping is renaming only.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_STACKS = (("encoder", "pre_rnn"), ("encoder", "post_rnn"), ("prediction", "dec_rnn"))
+_LSTM = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih", "b_hh": "bias_hh"}
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_LINEARS = {"joint_enc": "joint_enc", "joint_pred": "joint_pred", "joint_fc": "joint_net.2"}
+_TREE = {"encoder": {"pre_rnn", "post_rnn"}, "prediction": {"embed", "dec_rnn"},
+         **{k: None for k in _LINEARS}}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX RNN-T parameter tree -> the port's ``state_dict``.
+
+    Raises on a leaf this mapping does not know, so nothing is dropped
+    silently."""
+    unknown = sorted(set(params) - set(_TREE)) + sorted(
+        f"{top}/{k}" for top, subs in _TREE.items() if subs
+        for k in set(params[top]) - subs
+    )
+    if unknown:
+        raise ValueError(f"parameters with no counterpart in the port: {unknown}")
+    out: Dict[str, torch.Tensor] = {}
+    for top, name in _STACKS:
+        stack = params[top][name]
+        prefix = f"{top}.{name}"
+        has_bn = any("bn" in layer for layer in stack.values())
+        for key, layer in stack.items():
+            i = int(key.removeprefix("layer_"))
+            extra = set(layer) - set(_LSTM) - {"bn"}
+            if extra:
+                raise ValueError(f"unknown leaves in {prefix}.{key}: {sorted(extra)}")
+            for src, dst in _LSTM.items():
+                if has_bn:
+                    out[f"{prefix}.lstms.{i}.{dst}_l0"] = _t(layer[src])
+                else:
+                    out[f"{prefix}.lstm.{dst}_l{i}"] = _t(layer[src])
+            if has_bn:
+                for src, dst in _BN.items():
+                    out[f"{prefix}.batch_norms.{i}.{dst}"] = _t(layer["bn"][src])
+                out[f"{prefix}.batch_norms.{i}.num_batches_tracked"] = torch.tensor(
+                    0, dtype=torch.int64
+                )
+    out["prediction.embed.weight"] = _t(params["prediction"]["embed"])
+    for src, dst in _LINEARS.items():
+        out[f"{dst}.weight"] = _t(params[src]["w"])
+        out[f"{dst}.bias"] = _t(params[src]["b"])
+    return out
+
+
+def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
+    """Load a JAX parameter tree (numpy leaves) into ``model``, strictly."""
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model

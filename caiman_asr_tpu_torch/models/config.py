@@ -1,0 +1,128 @@
+"""Model and feature configuration, mirroring the ``rnnt:``,
+``filterbank_features`` and ``frame_splicing`` parts of the JAX package's
+YAML configs (``caiman_asr_tpu/models/config.py``). Other sections of a
+config file are read by parts of the system not ported yet and are ignored
+here."""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
+
+
+@dataclass(frozen=True)
+class RNNTModelConfig:
+    """Model hyperparameters (the ``rnnt:`` block)."""
+
+    in_feats: int = 240
+    enc_n_hid: int = 1024
+    enc_pre_rnn_layers: int = 2
+    enc_post_rnn_layers: int = 6
+    enc_stack_time_factor: int = 2
+    enc_dropout: float = 0.1
+    enc_batch_norm: bool = False
+    enc_freeze: bool = False
+    pred_n_hid: int = 512
+    pred_rnn_layers: int = 2
+    pred_dropout: float = 0.3
+    pred_batch_norm: bool = False
+    joint_n_hid: int = 768
+    joint_dropout: float = 0.3
+    forget_gate_bias: Optional[float] = 1.0
+    custom_lstm: bool = True
+    quantize: bool = False
+    enc_rw_dropout: float = 0.0
+    pred_rw_dropout: float = 0.0
+    hidden_hidden_bias_scale: float = 0.0
+    weights_init_scale: float = 1.0
+    enc_lr_factor: float = 1.0
+    pred_lr_factor: float = 1.0
+    joint_enc_lr_factor: float = 1.0
+    joint_pred_lr_factor: float = 1.0
+    joint_net_lr_factor: float = 1.0
+    hard_activations: bool = False
+
+
+@dataclass(frozen=True)
+class FrameSplicingConfig:
+    frame_stacking: int = 3
+    frame_subsampling: int = 3
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The feature half of ``input_train`` / ``input_val``."""
+
+    logmel: LogMelConfig = LogMelConfig()
+    splicing: FrameSplicingConfig = FrameSplicingConfig()
+
+
+@dataclass(frozen=True)
+class Config:
+    rnnt: RNNTModelConfig = RNNTModelConfig()
+    input_train: PipelineConfig = PipelineConfig()
+    input_val: PipelineConfig = PipelineConfig()
+    stats_path: Optional[str] = None
+
+
+def _fill(cls, d: Optional[dict], where: str):
+    """Construct dataclass ``cls`` from ``d``, rejecting unknown keys."""
+    d = dict(d or {})
+    unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+    if unknown:
+        raise ValueError(f"Unknown config keys in {where}: {sorted(unknown)}")
+    return cls(**d)
+
+
+# filterbank_features key -> LogMelConfig field
+_LOGMEL_KEYMAP = {
+    "sample_rate": "sample_rate",
+    "window_size": "window_size",
+    "window_stride": "window_stride",
+    "n_fft": "n_fft",
+    "n_filt": "n_mels",
+    "dither": "dither",
+}
+_LOGMEL_IGNORED = {"normalize", "window", "stats_path"}
+# reference-only toggles with no counterpart here
+_RNNT_IGNORED = {
+    "joint_apex_transducer", "joint_apex_relu_dropout", "custom_lstm",
+    "gpu_unavailable",
+}
+
+
+def _pipeline(d: Optional[dict]) -> tuple[PipelineConfig, Optional[str]]:
+    d = dict(d or {})
+    fb = dict(d.get("filterbank_features") or {})
+    logmel = {}
+    for k, v in fb.items():
+        if k in _LOGMEL_IGNORED:
+            continue
+        if k not in _LOGMEL_KEYMAP:
+            raise ValueError(f"Unknown filterbank_features key: {k}")
+        logmel[_LOGMEL_KEYMAP[k]] = v
+    splicing = _fill(FrameSplicingConfig, d.get("frame_splicing"), "frame_splicing")
+    return PipelineConfig(LogMelConfig(**logmel), splicing), fb.get("stats_path")
+
+
+def load_config(path: str | Path) -> Config:
+    """Load the model and feature parts of a YAML config (anchors and
+    merges supported)."""
+    import yaml  # only the config loader needs it
+
+    with open(path) as f:
+        raw = copy.deepcopy(yaml.safe_load(f))
+    train, stats_train = _pipeline(raw.get("input_train"))
+    val, stats_val = _pipeline(raw.get("input_val"))
+    rnnt = {k: v for k, v in (raw.get("rnnt") or {}).items() if k not in _RNNT_IGNORED}
+    return Config(
+        rnnt=_fill(RNNTModelConfig, rnnt, "rnnt"),
+        input_train=train,
+        input_val=val,
+        stats_path=stats_train or stats_val,
+    )

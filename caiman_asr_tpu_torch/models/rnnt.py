@@ -1,0 +1,269 @@
+"""RNN-T model (encoder / prediction / joint) as an ``nn.Module``, mirroring
+``caiman_asr_tpu/models/rnnt.py`` for inference.
+
+  encoder:    pre_rnn (LSTM stack) -> StackTime(factor) -> post_rnn (LSTM
+              stack) -> joint_enc Linear(H_enc -> H_joint)        [f: B,T,Hj]
+  prediction: Embedding(n_classes-1) -> SOS prepend -> dec_rnn ->
+              joint_pred Linear(H_pred -> H_joint)                [g: B,U+1,Hj]
+  joint:      relu(f + g) -> joint_net.2 Linear(H_joint -> n_classes)
+
+The blank token is the last index and has no embedding row. Parameter names
+follow the reference torch model (``encoder.pre_rnn.lstm.weight_ih_l0``,
+``joint_net.2.weight``, ...; batch-norm stacks use ``lstms.{i}`` and
+``batch_norms.{i}``). Parameters stay in fp32; each call computes in the
+dtype of its input, casting weights as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from caiman_asr_tpu_torch.device import resolve_device
+from caiman_asr_tpu_torch.models.config import RNNTModelConfig
+from caiman_asr_tpu_torch.models.state import EncoderState
+from caiman_asr_tpu_torch.ops.features import stack_time
+from caiman_asr_tpu_torch.ops.lstm import Params, dot_f32, lstm_step, run_lstm
+
+
+class LSTMWeights(nn.Module):
+    """An L-layer LSTM's parameters under ``torch.nn.LSTM``'s names."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, device):
+        super().__init__()
+        H = hidden_size
+        for i in range(num_layers):
+            in_size = input_size if i == 0 else H
+            for name, shape in (
+                ("weight_ih", (4 * H, in_size)), ("weight_hh", (4 * H, H)),
+                ("bias_ih", (4 * H,)), ("bias_hh", (4 * H,)),
+            ):
+                self.register_parameter(
+                    f"{name}_l{i}", nn.Parameter(torch.empty(shape, device=device))
+                )
+
+    def layer(self, i: int) -> Params:
+        return {
+            "w_ih": getattr(self, f"weight_ih_l{i}"),
+            "w_hh": getattr(self, f"weight_hh_l{i}"),
+            "b_ih": getattr(self, f"bias_ih_l{i}"),
+            "b_hh": getattr(self, f"bias_hh_l{i}"),
+        }
+
+
+class LSTMStack(nn.Module):
+    """A stack of LSTM layers, with eval batch-norm after each layer when
+    ``batch_norm`` (then one 1-layer LSTM per layer, as the reference)."""
+
+    def __init__(self, input_size, hidden_size, num_layers, batch_norm, device):
+        super().__init__()
+        self.num_layers = num_layers
+        self.batch_norm = batch_norm
+        if batch_norm:
+            self.lstms = nn.ModuleList(
+                LSTMWeights(input_size if i == 0 else hidden_size, hidden_size, 1, device)
+                for i in range(num_layers)
+            )
+            self.batch_norms = nn.ModuleList(
+                nn.BatchNorm1d(hidden_size, device=device) for _ in range(num_layers)
+            )
+        else:
+            self.lstm = LSTMWeights(input_size, hidden_size, num_layers, device)
+
+    def params(self) -> Params:
+        """The stack as ``{"layer_i": {...}}`` for ``ops/lstm.py``."""
+        out = {}
+        for i in range(self.num_layers):
+            if self.batch_norm:
+                bn = self.batch_norms[i]
+                out[f"layer_{i}"] = dict(
+                    self.lstms[i].layer(0),
+                    bn={"scale": bn.weight, "bias": bn.bias,
+                        "mean": bn.running_mean, "var": bn.running_var},
+                )
+            else:
+                out[f"layer_{i}"] = self.lstm.layer(i)
+        return out
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return (dot_f32(x, lin.weight.t()) + lin.bias.float()).to(x.dtype)
+
+
+class RNNT(nn.Module):
+    """RNN-T model for inference. Built on ``device`` ("cuda" unless the
+    caller asks for "cpu"); weights come from :meth:`init_weights` or
+    ``export/from_jax.load_jax_params``."""
+
+    def __init__(self, config: RNNTModelConfig, n_classes: int, *, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        cfg = config
+        self.cfg = cfg
+        self.n_classes = n_classes
+        self.encoder = nn.ModuleDict({
+            "pre_rnn": LSTMStack(cfg.in_feats, cfg.enc_n_hid, cfg.enc_pre_rnn_layers,
+                                 cfg.enc_batch_norm, dev),
+            "post_rnn": LSTMStack(cfg.enc_stack_time_factor * cfg.enc_n_hid,
+                                  cfg.enc_n_hid, cfg.enc_post_rnn_layers,
+                                  cfg.enc_batch_norm, dev),
+        })
+        self.prediction = nn.ModuleDict({
+            "embed": nn.Embedding(n_classes - 1, cfg.pred_n_hid, device=dev),
+            "dec_rnn": LSTMStack(cfg.pred_n_hid, cfg.pred_n_hid, cfg.pred_rnn_layers,
+                                 cfg.pred_batch_norm, dev),
+        })
+        self.joint_enc = nn.Linear(cfg.enc_n_hid, cfg.joint_n_hid, device=dev)
+        self.joint_pred = nn.Linear(cfg.pred_n_hid, cfg.joint_n_hid, device=dev)
+        # the reference's layout: ReLU, dropout, Linear (only index 2 has weights)
+        self.joint_net = nn.Sequential(
+            nn.ReLU(), nn.Dropout(cfg.joint_dropout),
+            nn.Linear(cfg.joint_n_hid, n_classes, device=dev),
+        )
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "RNNT":
+        """Draw every weight from ``generator`` with the JAX package's init
+        distributions: LSTMs U(-1/sqrt(H), 1/sqrt(H)) times
+        ``weights_init_scale`` with the forget-gate bias policy, Linears
+        U(-1/sqrt(in), 1/sqrt(in)), the embedding N(0, 1)."""
+        cfg = self.cfg
+
+        def draw(p, fn):
+            p.copy_(fn(p.shape))
+
+        def uniform(bound):
+            return lambda shape: (
+                torch.rand(shape, generator=generator, device=generator.device) * 2 - 1
+            ) * bound
+
+        stacks = (self.encoder["pre_rnn"], self.encoder["post_rnn"],
+                  self.prediction["dec_rnn"])
+        for stack in stacks:
+            for layer in stack.params().values():
+                H = layer["w_hh"].shape[1]
+                for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                    draw(layer[k], uniform(1.0 / math.sqrt(H)))
+                    layer[k].mul_(cfg.weights_init_scale)
+                if cfg.forget_gate_bias is not None:
+                    layer["b_ih"][H:2 * H] = cfg.forget_gate_bias
+                    layer["b_hh"][H:2 * H] *= cfg.hidden_hidden_bias_scale
+                if "bn" in layer:
+                    layer["bn"]["scale"].fill_(1.0)
+                    layer["bn"]["bias"].zero_()
+                    layer["bn"]["mean"].zero_()
+                    layer["bn"]["var"].fill_(1.0)
+        draw(self.prediction["embed"].weight, lambda shape: torch.randn(
+            shape, generator=generator, device=generator.device))
+        for lin in (self.joint_enc, self.joint_pred, self.joint_net[2]):
+            bound = 1.0 / math.sqrt(lin.in_features)
+            draw(lin.weight, uniform(bound))
+            draw(lin.bias, uniform(bound))
+        return self
+
+    # ----------------------------------------------------------- encode
+    @torch.no_grad()
+    def encode(
+        self,
+        x: torch.Tensor,
+        x_lens: torch.Tensor,
+        enc_state: Optional[EncoderState] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, EncoderState]:
+        """x: [T, B, in_feats] time-major; x_lens: [B]. Returns (f [B, T', Hj],
+        f_lens [B], state), the state being every layer's (h, c) at each
+        utterance's last non-padded frame."""
+        cfg = self.cfg
+        out, _, (all_h0, all_c0) = run_lstm(
+            self.encoder["pre_rnn"].params(), x,
+            enc_state.pre_rnn if enc_state is not None else None,
+            hard=cfg.hard_activations, quantize=cfg.quantize,
+        )
+        pre_state = _last_nonpadded_state(all_h0, all_c0, x_lens)
+        out, out_lens = stack_time(out, x_lens, cfg.enc_stack_time_factor)
+        out, _, (all_h1, all_c1) = run_lstm(
+            self.encoder["post_rnn"].params(), out,
+            enc_state.post_rnn if enc_state is not None else None,
+            hard=cfg.hard_activations, quantize=cfg.quantize,
+        )
+        post_state = _last_nonpadded_state(all_h1, all_c1, out_lens)
+        f = _linear(self.joint_enc, out.transpose(0, 1))
+        return f, out_lens, EncoderState(pre_rnn=pre_state, post_rnn=post_state)
+
+    # ---------------------------------------------------------- predict
+    @torch.no_grad()
+    def predict(
+        self,
+        y: Optional[torch.Tensor],
+        pred_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        *,
+        add_sos: bool = True,
+        special_sos: Optional[torch.Tensor] = None,
+        sos_gate: Optional[torch.Tensor] = None,
+        batch_size: int = 1,
+    ):
+        """Prediction network over labels y [B, U] (None: a lone zero-vector
+        SOS step). Returns (g [B, U+1, Hj], final (h, c) [L, B, Hp],
+        all (h, c) [L, U+1, B, Hp]). ``sos_gate`` [B] 0/1 selects per sample
+        between the embedded ``special_sos`` (1) and the zero SOS (0)."""
+        cfg = self.cfg
+        embed = self.prediction["embed"].weight
+        if y is not None:
+            emb = embed[y.long()]
+        else:
+            B = batch_size if pred_state is None else pred_state[0].shape[1]
+            emb = embed.new_zeros((B, 1, cfg.pred_n_hid))
+        if add_sos:
+            B = emb.shape[0]
+            if special_sos is None:
+                start = emb.new_zeros((B, 1, cfg.pred_n_hid))
+            else:
+                start = embed[torch.clamp(special_sos.reshape(B, 1).long(), 0, embed.shape[0] - 1)]
+                if sos_gate is not None:
+                    start = start * sos_gate.reshape(B, 1, 1).to(start.dtype)
+            emb = torch.cat([start, emb], dim=1)
+        out, hid, all_hid = run_lstm(
+            self.prediction["dec_rnn"].params(), emb.transpose(0, 1), pred_state,
+            hard=cfg.hard_activations, quantize=cfg.quantize,
+        )
+        return _linear(self.joint_pred, out.transpose(0, 1)), hid, all_hid
+
+    @torch.no_grad()
+    def pred_step(
+        self,
+        token: Optional[torch.Tensor],
+        state: Tuple[torch.Tensor, torch.Tensor],
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """One prediction-net step: token [B] (None: zero-vector SOS),
+        state (h, c) [L, B, Hp]. Returns (g [B, Hj], new state)."""
+        embed = self.prediction["embed"].weight
+        h, c = state
+        if token is None:
+            emb = embed.new_zeros((h.shape[1], self.cfg.pred_n_hid))
+        else:
+            emb = embed[torch.clamp(token.long(), 0, embed.shape[0] - 1)]
+        y, h_new, c_new = lstm_step(
+            self.prediction["dec_rnn"].params(), emb, h, c,
+            hard=self.cfg.hard_activations, quantize=self.cfg.quantize,
+        )
+        return _linear(self.joint_pred, y), (h_new, c_new)
+
+    # ------------------------------------------------------------ joint
+    @torch.no_grad()
+    def joint(self, f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """Dense joint: f [B, T, Hj], g [B, U+1, Hj] -> logits [B, T, U+1, K]."""
+        return _linear(self.joint_net[2], torch.relu(f[:, :, None, :] + g[:, None, :, :]))
+
+    @torch.no_grad()
+    def joint_step(self, f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """Single-frame joint: f, g [B, Hj] -> logits [B, K]."""
+        return _linear(self.joint_net[2], torch.relu(f + g))
+
+
+def _last_nonpadded_state(all_h, all_c, lens):
+    """Per-sample state at t = len - 1. all_h, all_c: [L, T, B, H] -> [L, B, H]."""
+    idx = torch.clamp(lens.long() - 1, min=0)
+    bix = torch.arange(all_h.shape[2], device=all_h.device)
+    return all_h[:, idx, bix], all_c[:, idx, bix]

@@ -1,0 +1,162 @@
+"""Time-major multi-layer LSTM (inference), mirroring
+``caiman_asr_tpu/ops/lstm.py``.
+
+A layer's parameters are a dict ``{"w_ih" [4H, I], "w_hh" [4H, H],
+"b_ih" [4H], "b_hh" [4H]}`` with gate order i, f, g, o, plus an optional
+``"bn"`` dict (``scale``, ``bias``, ``mean``, ``var``) for eval batch-norm;
+a stack is ``{"layer_0": {...}, ...}`` — the JAX package's parameter tree
+with tensors for leaves.
+
+``run_lstm_layer`` computes the input projection for all time steps as one
+matmul, rounds it to the compute dtype, and hands the sequential part to
+``ops/lstm_kernel.lstm_recurrence``: the Hopper kernel for CUDA tensors, its
+plain version for CPU tensors. h and c are carried in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+Params = Dict[str, Any]
+
+BN_EPS = 1e-5
+
+
+def hard_sigmoid(z: torch.Tensor) -> torch.Tensor:
+    """FPGA-parity hard sigmoid: clip(0.5 + z/8, 0, 1)."""
+    return torch.clamp(0.5 + z * 0.125, 0.0, 1.0)
+
+
+def hard_tanh(z: torch.Tensor) -> torch.Tensor:
+    """FPGA-parity hard tanh: clip(z, -1, 1)."""
+    return torch.clamp(z, -1.0, 1.0)
+
+
+def gate_math(
+    gates: torch.Tensor, c: torch.Tensor, hard: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused LSTM gate computation. gates: [..., 4H] fp32; c: [..., H] fp32.
+    Returns (h_new, c_new) in fp32."""
+    H = c.shape[-1]
+    i, f, g, o = (gates[..., k * H:(k + 1) * H] for k in range(4))
+    sig = hard_sigmoid if hard else torch.sigmoid
+    tnh = hard_tanh if hard else torch.tanh
+    c_new = sig(f) * c + sig(i) * tnh(g)
+    h_new = sig(o) * tnh(c_new)
+    return h_new, c_new
+
+
+def dot_f32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+    """``x @ w_t`` in the dtype of x, returned in fp32. Both accumulate in
+    fp32; in bf16 the product is rounded to bf16 once before the caller adds
+    its fp32 bias (the JAX package rounds after the bias add)."""
+    return torch.matmul(x, w_t.to(x.dtype)).float()
+
+
+def run_lstm_layer(
+    params: Params,
+    x: torch.Tensor,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    *,
+    hard: bool = False,
+    quantize: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run one LSTM layer over x [T, B, I] from (h0, c0) [B, H].
+
+    Returns (ys, cs): every hidden and cell state, each [T, B, H] in x.dtype.
+    """
+    if quantize:
+        raise NotImplementedError("the quantized (FPGA arithmetic) LSTM is not ported yet")
+    # imported here: lstm_kernel imports gate_math from this module
+    from caiman_asr_tpu_torch.ops import lstm_kernel
+
+    T, B, _ = x.shape
+    dtype = x.dtype
+    bias = (params["b_ih"] + params["b_hh"]).float()
+    gates_x = (
+        dot_f32(x.reshape(T * B, -1), params["w_ih"].t()).reshape(T, B, -1) + bias
+    ).to(dtype)
+    return lstm_kernel.lstm_recurrence(
+        gates_x, params["w_hh"].to(dtype).contiguous(), h0.to(dtype), c0.to(dtype),
+        hard,
+    )
+
+
+def batch_norm_apply(bn: Params, y: torch.Tensor) -> torch.Tensor:
+    """Eval batch-norm over the feature axis of y [..., H] with the running
+    stats: a per-feature affine, computed in fp32."""
+    yf = y.float()
+    out = (yf - bn["mean"]) * torch.rsqrt(bn["var"] + BN_EPS) * bn["scale"] + bn["bias"]
+    return out.to(y.dtype)
+
+
+def run_lstm(
+    params: Params,
+    x: torch.Tensor,
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    *,
+    hard: bool = False,
+    quantize: bool = False,
+):
+    """Run a multi-layer LSTM stack (inference: no dropout).
+
+    Returns ``(output [T, B, H], (h_n, c_n) [L, B, H], (all_h, all_c)
+    [L, T, B, H])``. Batch-norm applies to the layer output only; the
+    recurrent state stays raw.
+    """
+    num_layers = len(params)
+    T, B, _ = x.shape
+    H = params["layer_0"]["w_hh"].shape[1]
+    all_h, all_c = [], []
+    out = x
+    for i in range(num_layers):
+        if state is None:
+            h0 = x.new_zeros((B, H))
+            c0 = x.new_zeros((B, H))
+        else:
+            h0, c0 = state[0][i], state[1][i]
+        layer = params[f"layer_{i}"]
+        ys, cs = run_lstm_layer(layer, out, h0, c0, hard=hard, quantize=quantize)
+        all_h.append(ys)
+        all_c.append(cs)
+        out = ys
+        if "bn" in layer:
+            out = batch_norm_apply(layer["bn"], out)
+    h_n = torch.stack([h[-1] for h in all_h])
+    c_n = torch.stack([c[-1] for c in all_c])
+    return out, (h_n, c_n), (torch.stack(all_h), torch.stack(all_c))
+
+
+def lstm_step(
+    params: Params,
+    x: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    hard: bool = False,
+    quantize: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One frame through the whole stack: x [B, I], h and c [L, B, H].
+    Returns (y [B, H], h_new, c_new [L, B, H])."""
+    if quantize:
+        raise NotImplementedError("the quantized (FPGA arithmetic) LSTM is not ported yet")
+    hs, cs = [], []
+    out = x
+    for i in range(h.shape[0]):
+        p = params[f"layer_{i}"]
+        dtype = out.dtype
+        gates = (
+            dot_f32(out, p["w_ih"].t())
+            + dot_f32(h[i].to(dtype), p["w_hh"].t())
+            + (p["b_ih"] + p["b_hh"]).float()
+        )
+        h_new, c_new = gate_math(gates, c[i].float(), hard)
+        out = h_new.to(dtype)
+        hs.append(out)
+        cs.append(c_new.to(dtype))
+        if "bn" in p:
+            out = batch_norm_apply(p["bn"], out)
+    return out, torch.stack(hs), torch.stack(cs)

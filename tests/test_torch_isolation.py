@@ -1,0 +1,64 @@
+"""The port imports neither JAX nor the JAX package, and its entry points
+never fall back to the CPU on their own."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import caiman_asr_tpu_torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "caiman_asr_tpu_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any "import jax" now raises
+import caiman_asr_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(caiman_asr_tpu_torch.__path__,
+                                               "caiman_asr_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "caiman_asr_tpu" or m.startswith("caiman_asr_tpu."))
+print(len(names), leaked)
+assert not leaked, leaked
+assert len(names) >= 15, names
+"""
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax\b|caiman_asr_tpu\b(?!_torch))", re.M)
+    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    offenders += ["chip_smoke.py"] if pattern.search((REPO / "chip_smoke.py").read_text()) else []
+    assert not offenders
+
+
+def test_entry_points_without_a_device_raise_when_there_is_no_gpu(monkeypatch):
+    from caiman_asr_tpu_torch import offline
+    from caiman_asr_tpu_torch.data.featurize import FeaturePipeline
+    from caiman_asr_tpu_torch.models.config import RNNTModelConfig
+    from caiman_asr_tpu_torch.models.rnnt import RNNT
+    from caiman_asr_tpu_torch.ops.logmel import LogMelFrontend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RNNTModelConfig(in_feats=12, enc_n_hid=8, enc_pre_rnn_layers=1,
+                          enc_post_rnn_layers=1, pred_n_hid=8, pred_rnn_layers=1,
+                          joint_n_hid=8)
+    for entry in (lambda: RNNT(cfg, 5), LogMelFrontend, FeaturePipeline):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry()
+    model = RNNT(cfg, 5, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        offline.transcribe(model, torch.zeros(1, 8000), torch.tensor([8000]))
