@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's parameter tree into the port.
+"""Carry weights (and a train state) from the JAX package into the port.
 
 The tree arrives as nested dicts of numpy arrays (``np.asarray`` over the
 JAX leaves), so nothing here imports JAX. Names follow the reference torch
@@ -8,7 +8,7 @@ i, f, g, o; Linear ``[out, in]``), so the mapping is renaming only.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -68,3 +68,31 @@ def load_jax_params(model: torch.nn.Module, params: Mapping) -> torch.nn.Module:
     """Load a JAX parameter tree (numpy leaves) into ``model``, strictly."""
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return model
+
+
+def train_state_from_jax(model: torch.nn.Module, params: Mapping, ema_params: Mapping,
+                         mu: Mapping, nu: Mapping, count: int, sched_count: int,
+                         step: Optional[int] = None):
+    """A JAX train state -> the port's ``TrainState`` around ``model``.
+
+    ``params`` is loaded into ``model`` (its parameters become the state's
+    master weights); ``ema_params`` and the Adam moments ``mu`` / ``nu``
+    (numpy trees of the parameters' layout, as the caller takes them from
+    the optax state) become fp32 tensors on the model's device; ``count``
+    and ``sched_count`` are the Adam and schedule counts; ``step`` the taken
+    steps (default: ``count``)."""
+    from caiman_asr_tpu_torch.training.optimizer import LambState
+    from caiman_asr_tpu_torch.training.step import TrainState
+    from caiman_asr_tpu_torch.training.tree import tree_map
+
+    load_jax_params(model, params)
+    tree = model.param_tree()
+    dev = next(model.parameters()).device
+
+    def like(src: Mapping):
+        return tree_map(lambda p, a: _t(a).to(dev, torch.float32).reshape(p.shape), tree,
+                        dict(src))
+
+    return TrainState(tree, like(ema_params), LambState(like(mu), like(nu), int(count),
+                                                        int(sched_count)),
+                      int(count if step is None else step))

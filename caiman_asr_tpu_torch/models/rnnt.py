@@ -1,5 +1,5 @@
 """RNN-T model (encoder / prediction / joint) as an ``nn.Module``, mirroring
-``caiman_asr_tpu/models/rnnt.py`` for inference.
+``caiman_asr_tpu/models/rnnt.py``.
 
   encoder:    pre_rnn (LSTM stack) -> StackTime(factor) -> post_rnn (LSTM
               stack) -> joint_enc Linear(H_enc -> H_joint)        [f: B,T,Hj]
@@ -12,12 +12,19 @@ follow the reference torch model (``encoder.pre_rnn.lstm.weight_ih_l0``,
 ``joint_net.2.weight``, ...; batch-norm stacks use ``lstms.{i}`` and
 ``batch_norms.{i}``). Parameters stay in fp32; each call computes in the
 dtype of its input, casting weights as the JAX package does.
+
+``param_tree()`` gives the parameters in the JAX package's tree layout
+(``{"encoder": {"pre_rnn": {"layer_0": {"w_ih", ...}}}, "joint_fc": {"w",
+"b"}, ...}``), with the module's own tensors as leaves. The training entry
+points (``enc_pred``) take such a tree explicitly, as the JAX functions take
+``params``, so the train step can hand them compute-dtype copies of the fp32
+master weights. The inference methods read the module's own parameters.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -89,8 +96,13 @@ class LSTMStack(nn.Module):
         return out
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return (dot_f32(x, lin.weight.t()) + lin.bias.float()).to(x.dtype)
+def _node(lin: nn.Linear) -> Params:
+    return {"w": lin.weight, "b": lin.bias}
+
+
+def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A Linear over a {"w" [out, in], "b" [out]} tree node, in x's dtype."""
+    return (dot_f32(x, p["w"].t()) + p["b"].float()).to(x.dtype)
 
 
 class RNNT(nn.Module):
@@ -164,7 +176,56 @@ class RNNT(nn.Module):
             draw(lin.bias, uniform(bound))
         return self
 
+    def param_tree(self) -> Params:
+        """The parameters (and eval batch-norm statistics) in the JAX
+        package's tree layout; the leaves are this module's tensors."""
+        return {
+            "encoder": {"pre_rnn": self.encoder["pre_rnn"].params(),
+                        "post_rnn": self.encoder["post_rnn"].params()},
+            "prediction": {"embed": self.prediction["embed"].weight,
+                           "dec_rnn": self.prediction["dec_rnn"].params()},
+            "joint_enc": _node(self.joint_enc),
+            "joint_pred": _node(self.joint_pred),
+            "joint_fc": _node(self.joint_net[2]),
+        }
+
+    def param_lr_factors(self) -> Dict[str, float]:
+        """Per-module learning-rate factors, keyed like ``param_tree``."""
+        cfg = self.cfg
+        return {
+            "encoder": cfg.enc_lr_factor,
+            "prediction": cfg.pred_lr_factor,
+            "joint_enc": cfg.joint_enc_lr_factor,
+            "joint_pred": cfg.joint_pred_lr_factor,
+            "joint_fc": cfg.joint_net_lr_factor,
+        }
+
+    @property
+    def has_batch_norm(self) -> bool:
+        return self.cfg.enc_batch_norm or self.cfg.pred_batch_norm
+
     # ----------------------------------------------------------- encode
+    def _encode(self, p: Params, x, x_lens, enc_state=None, *, train=False, generator=None):
+        cfg = self.cfg
+        kw = dict(hard=cfg.hard_activations, quantize=cfg.quantize, train=train,
+                  dropout=cfg.enc_dropout, rw_dropout=cfg.enc_rw_dropout,
+                  generator=generator)
+        out, _, (all_h0, all_c0) = run_lstm(
+            p["encoder"]["pre_rnn"], x,
+            enc_state.pre_rnn if enc_state is not None else None, **kw,
+        )
+        pre_state = _last_nonpadded_state(all_h0, all_c0, x_lens)
+        out, out_lens = stack_time(out, x_lens, cfg.enc_stack_time_factor)
+        out, _, (all_h1, all_c1) = run_lstm(
+            p["encoder"]["post_rnn"], out,
+            enc_state.post_rnn if enc_state is not None else None, **kw,
+        )
+        post_state = _last_nonpadded_state(all_h1, all_c1, out_lens)
+        f = _linear(p["joint_enc"], out.transpose(0, 1))
+        if cfg.enc_freeze:
+            f = f.detach()
+        return f, out_lens, EncoderState(pre_rnn=pre_state, post_rnn=post_state)
+
     @torch.no_grad()
     def encode(
         self,
@@ -175,41 +236,13 @@ class RNNT(nn.Module):
         """x: [T, B, in_feats] time-major; x_lens: [B]. Returns (f [B, T', Hj],
         f_lens [B], state), the state being every layer's (h, c) at each
         utterance's last non-padded frame."""
-        cfg = self.cfg
-        out, _, (all_h0, all_c0) = run_lstm(
-            self.encoder["pre_rnn"].params(), x,
-            enc_state.pre_rnn if enc_state is not None else None,
-            hard=cfg.hard_activations, quantize=cfg.quantize,
-        )
-        pre_state = _last_nonpadded_state(all_h0, all_c0, x_lens)
-        out, out_lens = stack_time(out, x_lens, cfg.enc_stack_time_factor)
-        out, _, (all_h1, all_c1) = run_lstm(
-            self.encoder["post_rnn"].params(), out,
-            enc_state.post_rnn if enc_state is not None else None,
-            hard=cfg.hard_activations, quantize=cfg.quantize,
-        )
-        post_state = _last_nonpadded_state(all_h1, all_c1, out_lens)
-        f = _linear(self.joint_enc, out.transpose(0, 1))
-        return f, out_lens, EncoderState(pre_rnn=pre_state, post_rnn=post_state)
+        return self._encode(self.param_tree(), x, x_lens, enc_state)
 
     # ---------------------------------------------------------- predict
-    @torch.no_grad()
-    def predict(
-        self,
-        y: Optional[torch.Tensor],
-        pred_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-        *,
-        add_sos: bool = True,
-        special_sos: Optional[torch.Tensor] = None,
-        sos_gate: Optional[torch.Tensor] = None,
-        batch_size: int = 1,
-    ):
-        """Prediction network over labels y [B, U] (None: a lone zero-vector
-        SOS step). Returns (g [B, U+1, Hj], final (h, c) [L, B, Hp],
-        all (h, c) [L, U+1, B, Hp]). ``sos_gate`` [B] 0/1 selects per sample
-        between the embedded ``special_sos`` (1) and the zero SOS (0)."""
+    def _predict(self, p: Params, y, pred_state=None, *, add_sos=True, special_sos=None,
+                 sos_gate=None, batch_size=1, train=False, generator=None):
         cfg = self.cfg
-        embed = self.prediction["embed"].weight
+        embed = p["prediction"]["embed"]
         if y is not None:
             emb = embed[y.long()]
         else:
@@ -225,10 +258,57 @@ class RNNT(nn.Module):
                     start = start * sos_gate.reshape(B, 1, 1).to(start.dtype)
             emb = torch.cat([start, emb], dim=1)
         out, hid, all_hid = run_lstm(
-            self.prediction["dec_rnn"].params(), emb.transpose(0, 1), pred_state,
-            hard=cfg.hard_activations, quantize=cfg.quantize,
+            p["prediction"]["dec_rnn"], emb.transpose(0, 1), pred_state,
+            hard=cfg.hard_activations, quantize=cfg.quantize, train=train,
+            dropout=cfg.pred_dropout, rw_dropout=cfg.pred_rw_dropout, generator=generator,
         )
-        return _linear(self.joint_pred, out.transpose(0, 1)), hid, all_hid
+        return _linear(p["joint_pred"], out.transpose(0, 1)), hid, all_hid
+
+    @torch.no_grad()
+    def predict(
+        self,
+        y: Optional[torch.Tensor],
+        pred_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        *,
+        add_sos: bool = True,
+        special_sos: Optional[torch.Tensor] = None,
+        sos_gate: Optional[torch.Tensor] = None,
+        batch_size: int = 1,
+    ):
+        """Prediction network over labels y [B, U] (None: a lone zero-vector
+        SOS step). Returns (g [B, U+1, Hj], final (h, c) [L, B, Hp],
+        all (h, c) [L, U+1, B, Hp]). ``sos_gate`` [B] 0/1 selects per sample
+        between the embedded ``special_sos`` (1) and the zero SOS (0)."""
+        return self._predict(self.param_tree(), y, pred_state, add_sos=add_sos,
+                             special_sos=special_sos, sos_gate=sos_gate,
+                             batch_size=batch_size)
+
+    # ---------------------------------------------------------- forward
+    def enc_pred(
+        self,
+        x: torch.Tensor,
+        x_lens: torch.Tensor,
+        y: torch.Tensor,
+        y_lens: torch.Tensor,
+        *,
+        params: Optional[Params] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Encoder and prediction nets over a whole batch
+        (``caiman_asr_tpu/models/rnnt.py:316-372`` without the carried
+        streaming state of random state passing, not ported yet).
+
+        x: [T, B, in_feats]; y: [B, U] labels. ``params`` is a tree as
+        :meth:`param_tree` gives (default: this module's own), e.g. the
+        train step's compute-dtype copies. With ``train`` the configured
+        dropouts are drawn from ``generator``. Differentiable. Returns
+        ((f [B, T', Hj], f_lens), (g [B, U+1, Hj], g_lens = y_lens + 1)).
+        """
+        p = self.param_tree() if params is None else params
+        f, f_lens, _ = self._encode(p, x, x_lens, train=train, generator=generator)
+        g, _, _ = self._predict(p, y, train=train, generator=generator)
+        return (f, f_lens), (g, y_lens + 1)
 
     @torch.no_grad()
     def pred_step(
@@ -248,18 +328,18 @@ class RNNT(nn.Module):
             self.prediction["dec_rnn"].params(), emb, h, c,
             hard=self.cfg.hard_activations, quantize=self.cfg.quantize,
         )
-        return _linear(self.joint_pred, y), (h_new, c_new)
+        return _linear(_node(self.joint_pred), y), (h_new, c_new)
 
     # ------------------------------------------------------------ joint
     @torch.no_grad()
     def joint(self, f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         """Dense joint: f [B, T, Hj], g [B, U+1, Hj] -> logits [B, T, U+1, K]."""
-        return _linear(self.joint_net[2], torch.relu(f[:, :, None, :] + g[:, None, :, :]))
+        return _linear(_node(self.joint_net[2]), torch.relu(f[:, :, None, :] + g[:, None, :, :]))
 
     @torch.no_grad()
     def joint_step(self, f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         """Single-frame joint: f, g [B, Hj] -> logits [B, K]."""
-        return _linear(self.joint_net[2], torch.relu(f + g))
+        return _linear(_node(self.joint_net[2]), torch.relu(f + g))
 
 
 def _last_nonpadded_state(all_h, all_c, lens):

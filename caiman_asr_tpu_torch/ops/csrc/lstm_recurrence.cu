@@ -1,5 +1,8 @@
 // LSTM forward recurrence for Hopper (sm_90a): the counterpart of the Pallas
-// TPU kernel caiman_asr_tpu/ops/pallas_lstm.py::_kernel.
+// TPU kernels caiman_asr_tpu/ops/pallas_lstm.py::_kernel (K1) and, with the
+// kStoreGates flag, ::_kernel_sg (K3a), which also writes the full
+// pre-activations gs[t] = gx[t] + h_{t-1} @ w_hh^T in the compute dtype for
+// the backward recurrence (pallas_lstm.py:108).
 //
 // One layer, time-major: for t in [0, T)
 //   gates = gx[t] + h_{t-1} @ w_hh^T          (fp32 accumulation)
@@ -77,7 +80,7 @@ __host__ __device__ constexpr size_t h_stage_bytes(int H, size_t esize) {
   return ((static_cast<size_t>(kBatch) * H * esize) + 15) / 16 * 16;
 }
 
-template <typename T>
+template <typename T, bool kStoreGates>
 __global__ void __launch_bounds__(kThreads)
 lstm_step_kernel(const T* __restrict__ gx,       // [B, 4H] step t
                  const T* __restrict__ w_hh,     // [4H, H]
@@ -87,6 +90,7 @@ lstm_step_kernel(const T* __restrict__ gx,       // [B, 4H] step t
                  float* __restrict__ c_out,      // [B, H]
                  T* __restrict__ ys,             // [B, H] step t
                  T* __restrict__ cs,             // [B, H] step t
+                 T* __restrict__ gs,             // [B, 4H] step t (kStoreGates only)
                  int B, int H, int hard) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* h_s = reinterpret_cast<T*>(smem);                                     // [kBatch, H]
@@ -166,6 +170,13 @@ lstm_step_kernel(const T* __restrict__ gx,       // [B, 4H] step t
       const float gf = to_f32(gxb[1 * H + unit]) + g_s[(1 * kUnits + u) * kBatch + b];
       const float gg = to_f32(gxb[2 * H + unit]) + g_s[(2 * kUnits + u) * kBatch + b];
       const float go = to_f32(gxb[3 * H + unit]) + g_s[(3 * kUnits + u) * kBatch + b];
+      if (kStoreGates) {
+        T* gsb = gs + row * 4 * H;
+        gsb[0 * H + unit] = from_f32<T>(gi);
+        gsb[1 * H + unit] = from_f32<T>(gf);
+        gsb[2 * H + unit] = from_f32<T>(gg);
+        gsb[3 * H + unit] = from_f32<T>(go);
+      }
       const size_t idx = row * H + unit;
       const float c_new = act_sig(gf, hard) * c_in[idx] + act_sig(gi, hard) * act_tanh(gg, hard);
       const float h_new = act_sig(go, hard) * act_tanh(c_new, hard);
@@ -178,26 +189,46 @@ lstm_step_kernel(const T* __restrict__ gx,       // [B, 4H] step t
   }
 }
 
-template <typename T>
-int run(const T* gx, const T* w_hh, float* h_buf, float* c_buf, T* ys, T* cs,
+template <typename T, bool kStoreGates>
+int run(const T* gx, const T* w_hh, float* h_buf, float* c_buf, T* ys, T* cs, T* gs,
         int T_steps, int B, int H, int hard, cudaStream_t stream) {
   const size_t smem = h_stage_bytes(H, sizeof(T)) + sizeof(float) * kRows * kBatch;
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      lstm_step_kernel<T, kStoreGates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((H + kUnits - 1) / kUnits, (B + kBatch - 1) / kBatch);
   const size_t bh = static_cast<size_t>(B) * H;
   for (int t = 0; t < T_steps; ++t) {
     const size_t cur = (t & 1) * bh;
     const size_t nxt = ((t + 1) & 1) * bh;
-    lstm_step_kernel<T><<<grid, kThreads, smem, stream>>>(
+    lstm_step_kernel<T, kStoreGates><<<grid, kThreads, smem, stream>>>(
         gx + static_cast<size_t>(t) * B * 4 * H, w_hh, h_buf + cur, c_buf + cur,
         h_buf + nxt, c_buf + nxt, ys + static_cast<size_t>(t) * bh,
-        cs + static_cast<size_t>(t) * bh, B, H, hard);
+        cs + static_cast<size_t>(t) * bh,
+        kStoreGates ? gs + static_cast<size_t>(t) * B * 4 * H : nullptr, B, H, hard);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+template <bool kStoreGates>
+int dispatch(const void* gx, const void* w_hh, void* h_buf, void* c_buf, void* ys, void* cs,
+             void* gs, int T, int B, int H, int hard, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run<float, kStoreGates>(
+        static_cast<const float*>(gx), static_cast<const float*>(w_hh),
+        static_cast<float*>(h_buf), static_cast<float*>(c_buf), static_cast<float*>(ys),
+        static_cast<float*>(cs), static_cast<float*>(gs), T, B, H, hard, s);
+  if (dtype == 1)
+    return run<__nv_bfloat16, kStoreGates>(
+        static_cast<const __nv_bfloat16*>(gx), static_cast<const __nv_bfloat16*>(w_hh),
+        static_cast<float*>(h_buf), static_cast<float*>(c_buf),
+        static_cast<__nv_bfloat16*>(ys), static_cast<__nv_bfloat16*>(cs),
+        static_cast<__nv_bfloat16*>(gs), T, B, H, hard, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -216,17 +247,15 @@ size_t lstm_recurrence_fwd_smem_bytes(int H, int dtype) {
 int lstm_recurrence_fwd(const void* gx, const void* w_hh, void* h_buf, void* c_buf,
                         void* ys, void* cs, int T, int B, int H, int hard, int dtype,
                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run<float>(static_cast<const float*>(gx), static_cast<const float*>(w_hh),
-                      static_cast<float*>(h_buf), static_cast<float*>(c_buf),
-                      static_cast<float*>(ys), static_cast<float*>(cs), T, B, H, hard, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(gx), static_cast<const __nv_bfloat16*>(w_hh),
-        static_cast<float*>(h_buf), static_cast<float*>(c_buf),
-        static_cast<__nv_bfloat16*>(ys), static_cast<__nv_bfloat16*>(cs), T, B, H, hard, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(gx, w_hh, h_buf, c_buf, ys, cs, nullptr, T, B, H, hard, dtype,
+                         stream);
+}
+
+// The same, also writing gs [T, B, 4H] (K3a, the VJP forward).
+int lstm_recurrence_fwd_sg(const void* gx, const void* w_hh, void* h_buf, void* c_buf,
+                           void* ys, void* cs, void* gs, int T, int B, int H, int hard,
+                           int dtype, void* stream) {
+  return dispatch<true>(gx, w_hh, h_buf, c_buf, ys, cs, gs, T, B, H, hard, dtype, stream);
 }
 
 const char* caiman_cuda_error_string(int err) {

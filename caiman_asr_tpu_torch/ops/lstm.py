@@ -1,5 +1,4 @@
-"""Time-major multi-layer LSTM (inference), mirroring
-``caiman_asr_tpu/ops/lstm.py``.
+"""Time-major multi-layer LSTM, mirroring ``caiman_asr_tpu/ops/lstm.py``.
 
 A layer's parameters are a dict ``{"w_ih" [4H, I], "w_hh" [4H, H],
 "b_ih" [4H], "b_hh" [4H]}`` with gate order i, f, g, o, plus an optional
@@ -9,8 +8,10 @@ with tensors for leaves.
 
 ``run_lstm_layer`` computes the input projection for all time steps as one
 matmul, rounds it to the compute dtype, and hands the sequential part to
-``ops/lstm_kernel.lstm_recurrence``: the Hopper kernel for CUDA tensors, its
-plain version for CPU tensors. h and c are carried in fp32.
+``ops/lstm_kernel.recurrence``: the Hopper kernels for CUDA tensors (K1, or
+under a gradient K3a forward and K3b backward), their plain versions for CPU
+tensors. h and c are carried in fp32. ``run_lstm`` with ``train=True`` adds
+the training-time dropouts.
 """
 
 from __future__ import annotations
@@ -48,6 +49,29 @@ def gate_math(
     return h_new, c_new
 
 
+def gate_activations(gates: torch.Tensor, hard: bool):
+    """Activated gates and their derivatives from fp32 pre-activations
+    [..., 4H]: ((i, f, g, o), (i', f', g', o')). Hard derivatives are the
+    clip windows of ``pallas_lstm.py:215-223``."""
+    H = gates.shape[-1] // 4
+    gi, gf, gg, go = (gates[..., k * H:(k + 1) * H] for k in range(4))
+    if hard:
+        window = lambda z, lim, slope: torch.where((z > -lim) & (z < lim), slope, 0.0)
+        acts = (hard_sigmoid(gi), hard_sigmoid(gf), hard_tanh(gg), hard_sigmoid(go))
+        return acts, (window(gi, 4.0, 0.125), window(gf, 4.0, 0.125),
+                      window(gg, 1.0, 1.0), window(go, 4.0, 0.125))
+    i, f, g, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)
+    return (i, f, g, o), (i * (1.0 - i), f * (1.0 - f), 1.0 - g * g, o * (1.0 - o))
+
+
+def cell_activation(c: torch.Tensor, hard: bool):
+    """(tnh(c), tnh'(c)) for the fp32 cell state."""
+    if hard:
+        return hard_tanh(c), torch.where((c > -1.0) & (c < 1.0), 1.0, 0.0)
+    t = torch.tanh(c)
+    return t, 1.0 - t * t
+
+
 def dot_f32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     """``x @ w_t`` in the dtype of x, returned in fp32. Both accumulate in
     fp32; in bf16 the product is rounded to bf16 once before the caller adds
@@ -67,6 +91,8 @@ def run_lstm_layer(
     """Run one LSTM layer over x [T, B, I] from (h0, c0) [B, H].
 
     Returns (ys, cs): every hidden and cell state, each [T, B, H] in x.dtype.
+    Differentiable: under a gradient the recurrence goes through
+    ``lstm_kernel.LSTMRecurrence``.
     """
     if quantize:
         raise NotImplementedError("the quantized (FPGA arithmetic) LSTM is not ported yet")
@@ -79,7 +105,7 @@ def run_lstm_layer(
     gates_x = (
         dot_f32(x.reshape(T * B, -1), params["w_ih"].t()).reshape(T, B, -1) + bias
     ).to(dtype)
-    return lstm_kernel.lstm_recurrence(
+    return lstm_kernel.recurrence(
         gates_x, params["w_hh"].to(dtype).contiguous(), h0.to(dtype), c0.to(dtype),
         hard,
     )
@@ -93,6 +119,12 @@ def batch_norm_apply(bn: Params, y: torch.Tensor) -> torch.Tensor:
     return out.to(y.dtype)
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1 - rate, scale by 1/(1 - rate)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def run_lstm(
     params: Params,
     x: torch.Tensor,
@@ -100,31 +132,54 @@ def run_lstm(
     *,
     hard: bool = False,
     quantize: bool = False,
+    train: bool = False,
+    dropout: float = 0.0,
+    rw_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ):
-    """Run a multi-layer LSTM stack (inference: no dropout).
+    """Run a multi-layer LSTM stack.
 
     Returns ``(output [T, B, H], (h_n, c_n) [L, B, H], (all_h, all_c)
     [L, T, B, H])``. Batch-norm applies to the layer output only; the
-    recurrent state stays raw.
+    recurrent state stays raw, and the initial state is detached.
+
+    With ``train`` (``caiman_asr_tpu/ops/lstm.py:309-389``): ``dropout`` is
+    applied between layers and to the output, ``rw_dropout`` is DropConnect
+    on ``w_hh`` (a fresh mask per layer per call), all drawn from
+    ``generator``. The masks are not the JAX package's bits: the same seed
+    gives other numbers. Training a batch-norm stack is not ported yet.
     """
     num_layers = len(params)
     T, B, _ = x.shape
     H = params["layer_0"]["w_hh"].shape[1]
+    use_dropout = train and dropout > 0.0
+    use_rw = train and rw_dropout > 0.0
+    if (use_dropout or use_rw) and generator is None:
+        raise ValueError("dropout requires a generator")
+    if train and any("bn" in layer for layer in params.values()):
+        raise NotImplementedError("training a batch-norm LSTM stack is not ported yet")
     all_h, all_c = [], []
     out = x
     for i in range(num_layers):
+        if i > 0 and use_dropout:
+            out = _dropout(out, dropout, generator)
         if state is None:
             h0 = x.new_zeros((B, H))
             c0 = x.new_zeros((B, H))
         else:
-            h0, c0 = state[0][i], state[1][i]
+            h0, c0 = state[0][i].detach(), state[1][i].detach()
         layer = params[f"layer_{i}"]
-        ys, cs = run_lstm_layer(layer, out, h0, c0, hard=hard, quantize=quantize)
+        if use_rw:
+            layer = dict(layer, w_hh=_dropout(layer["w_hh"], rw_dropout, generator))
+        ys, cs = run_lstm_layer(layer, out, h0, c0, hard=hard,
+                                quantize=quantize and not train)
         all_h.append(ys)
         all_c.append(cs)
         out = ys
         if "bn" in layer:
             out = batch_norm_apply(layer["bn"], out)
+    if use_dropout:
+        out = _dropout(out, dropout, generator)
     h_n = torch.stack([h[-1] for h in all_h])
     c_n = torch.stack([c[-1] for c in all_c])
     return out, (h_n, c_n), (torch.stack(all_h), torch.stack(all_c))

@@ -62,3 +62,26 @@ def test_entry_points_without_a_device_raise_when_there_is_no_gpu(monkeypatch):
     model = RNNT(cfg, 5, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         offline.transcribe(model, torch.zeros(1, 8000), torch.tensor([8000]))
+
+
+def test_training_entry_points_raise_when_there_is_no_gpu(monkeypatch):
+    from caiman_asr_tpu_torch.models.config import RNNTModelConfig
+    from caiman_asr_tpu_torch.models.rnnt import RNNT
+    from caiman_asr_tpu_torch.training.optimizer import Lamb, OptimizerConfig
+    from caiman_asr_tpu_torch.training.step import (
+        init_train_state, make_train_step, make_val_loss_step,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RNNTModelConfig(in_feats=12, enc_n_hid=8, enc_pre_rnn_layers=1,
+                          enc_post_rnn_layers=1, pred_n_hid=8, pred_rnn_layers=1,
+                          joint_n_hid=8)
+    model = RNNT(cfg, 5, device="cpu")
+    opt = Lamb(OptimizerConfig())
+    for entry in (lambda: make_train_step(model, opt, 4), lambda: make_val_loss_step(model, 4),
+                  lambda: init_train_state(model, opt)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry()
+    make_train_step(model, opt, 4, device="cpu")
+    make_val_loss_step(model, 4, device="cpu")
+    init_train_state(model, opt, device="cpu")
