@@ -8,13 +8,14 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases:
   1. set-up: card name and power limit, kernel build (nvcc, into
      build/kernels/), TF32 off;
-  2. every kernel against its plain PyTorch version at the shapes the main
-     path gives it, with times beside the bound and the library call;
+  2. every kernel against its plain PyTorch version at small unaligned
+     shapes, at large-196M's LSTM widths, and every joint kernel once past
+     2^31 slab elements (N = 131,072 rows at large-196M's Hj and K);
   3. the slice at full width: base-85M (random weights from a seeded
      generator) transcribes 16 synthetic utterances offline with greedy
      decoding, in fp32 and bf16; the launch counts must equal the expected
      number and the fp32 result must equal the plain path's;
-  4. the train step at full width: base-85M with its dropouts takes 5 LAMB
+  4. the train step at full width: base-85M with its dropouts takes LAMB
      steps on one batch of the same 16 utterances with random transcripts,
      in bf16 and in fp32 compute; every loss finite, none skipped, the loss
      falling; every kernel of the path launched; a timed breakdown of one
@@ -23,7 +24,12 @@ Phases:
      dropout off, the loss and every gradient from the kernels against the
      same with every kernel swapped for its plain version;
   6. the validation loss through K2 against the plain route;
-  7. every kernel at the main path's shapes against its plain version, with
+  7. large-196M at full width on that batch and on it tiled 2x and 4x: the
+     store policy's route at each batch size (bf16 slab, int8 slab, no
+     slab) shown by the launch counts, bf16 steps and one fp32 step each,
+     breakdowns, the routes against each other and each against its plain
+     path, the validation loss and offline transcription;
+  8. every kernel at the main path's shapes against its plain version, with
      times beside the bound and the library call.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
@@ -33,6 +39,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import difflib
 import json
 import math
@@ -49,11 +56,27 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # bf16: reordered bf16 sums over H=1024
 
+# The two product models with their numbers written out (the machine with
+# the card has no YAML reader): `__graft_entry__.py:14-27` /
+# `configs/base-8703sp.yaml` and `configs/large-17407sp.yaml`; the classes
+# are the sentencepieces plus the blank.
+MODELS = {
+    "base-85M": (dict(
+        in_feats=240, enc_n_hid=1024, enc_pre_rnn_layers=2, enc_post_rnn_layers=6,
+        enc_stack_time_factor=2, pred_n_hid=512, pred_rnn_layers=2, joint_n_hid=768), 8704),
+    "large-196M": (dict(
+        in_feats=240, enc_n_hid=1536, enc_pre_rnn_layers=2, enc_post_rnn_layers=6,
+        enc_stack_time_factor=2, enc_dropout=0.1, enc_batch_norm=False, enc_freeze=False,
+        pred_n_hid=768, pred_rnn_layers=2, pred_dropout=0.3, pred_batch_norm=False,
+        joint_n_hid=1024, joint_dropout=0.3, joint_net_lr_factor=0.243, forget_gate_bias=1.0,
+        quantize=False, enc_rw_dropout=0.0, pred_rw_dropout=0.0), 17408),
+}
+
 B, H = 16, 1024
 N_UTTS, MIN_S, MAX_S, SR = 16, 2.0, 8.0, 16000
 SEED = 0
-# A random joint almost never ranks blank first among 8,704 classes, so
-# greedy decoding would emit the maximum number of symbols on every frame.
+# A random joint almost never ranks blank first among thousands of classes,
+# so greedy decoding would emit the maximum number of symbols on every frame.
 # The blank bias is raised so that blank wins all but EMIT_SHARE of
 # the decisions, near what a trained model emits; it also keeps
 # most greedy decisions far from ties between the kernel and plain paths.
@@ -63,21 +86,37 @@ MIN_START_EMIT = 0.01
 
 # the train phase: transcripts of U_MIN..U_MAX random tokens, A = 1
 U_MIN, U_MAX = 16, 64
-TRAIN_STEPS = 5
+TRAIN_STEPS = 5        # base-85M, per dtype
+LARGE_STEPS = 3        # large-196M, bf16, per batch size (and one fp32 step)
+LARGE_TILES = (1, 2, 4)  # the batch of 16 tiled to B = 16, 32, 64
 SCALARS = {"delay_penalty": 0.0, "star_penalty": 0.0}
 # the whole-step check: the first CHECK_B utterances, fp32, dropout off.
 # Tolerances: the loss 1e-5 relative (sums in another order); a gradient
 # 1e-3 of its largest magnitude (both paths round u = exp(z) to bf16 for the
 # backward, and a rounding that falls the other way moves a term by one bf16
-# ulp, 2^-8, of a softmax numerator)
+# ulp, 2^-8, of a softmax numerator; on the int8 route one step, 1/127)
 CHECK_B = 4
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
+# the routes against each other, each gradient against the bf16-slab route's,
+# of its largest magnitude: the no-slab route differs by the bf16 rounding of
+# u; the int8 route quantises u to 1/127 of each tile's maximum (the JAX
+# package's own bound for that route, tests/ops/test_pallas_joint.py)
+ROUTE_RTOL = {"i8": 5e-2, None: 1e-3}
 # the joint kernels against their plain versions: 1e-4 of the output's scale
-# (fp32 accumulation in another order); u one bf16 ulp (2^-7 relative)
-JOINT_RTOL, U_RTOL = 1e-4, 2 ** -7
+# (fp32 accumulation in another order); u one bf16 ulp (2^-7 relative);
+# K6-fused with bf16 inputs 1e-3, since it rounds u and dz to bf16 inside
+# from values that differ in their last fp32 bits from the plain version's,
+# and a rounding that falls the other way moves one term by 2^-8
+JOINT_RTOL, U_RTOL, FUSED_BF16_RTOL = 1e-4, 2 ** -7, 1e-3
+# the int8 slab: entries equal to the plain version's or one step apart on at
+# most Q_SHARE of them (u * (127 / m) differs in its last bit at a rounding
+# boundary); the scales, each one value of u, as the row sums
+Q_SHARE, SCALE_RTOL = 1e-3, 1e-5
 # the validation loss, K2 route against the plain route (sums in another
-# order over H and over the 8,704 classes)
+# order over H and over the classes)
 VAL_RTOL = 1e-5
+# past 2^31 elements of an [N, K] slab at large-196M's widths
+BIG_N, BIG_HJ, BIG_K = 131072, 1024, 17408
 
 # (name, module, wrapper, CUDA source, the Pallas kernel it replaces)
 KERNELS = [
@@ -95,9 +134,21 @@ KERNELS = [
      "caiman_asr_tpu/ops/pallas_joint.py:369"),
     ("K5-B joint_bwd_dw", "joint_kernel", "joint_bwd_dw", "joint_bwd.cu",
      "caiman_asr_tpu/ops/pallas_joint.py:408"),
+    ("K7-store8 joint_fwd_store8", "joint_kernel", "joint_fwd_store8", "joint_fwd.cu",
+     "caiman_asr_tpu/ops/pallas_joint.py:110"),
+    ("K7-fused-u8 joint_bwd_fused_u8", "joint_kernel", "joint_bwd_fused_u8",
+     "joint_bwd_fused.cu", "caiman_asr_tpu/ops/pallas_joint.py:314"),
+    ("K6-fused joint_bwd_fused", "joint_kernel", "joint_bwd_fused", "joint_bwd_fused.cu",
+     "caiman_asr_tpu/ops/pallas_joint.py:190"),
 ]
-TRAIN_KERNELS = ("lstm_recurrence_sg", "lstm_recurrence_bwd", "joint_fwd_store",
-                 "joint_bwd_dh", "joint_bwd_dw")
+LSTM_TRAIN_KERNELS = ("lstm_recurrence_sg", "lstm_recurrence_bwd")
+# the joint kernels of a train step by the slab its plan stores
+ROUTE_KERNELS = {"bf16": ("joint_fwd_store", "joint_bwd_dh", "joint_bwd_dw"),
+                 "i8": ("joint_fwd_store8", "joint_bwd_fused_u8"),
+                 None: ("joint_fwd", "joint_bwd_fused")}
+ROUTE_NAME = {"bf16": "bf16 slab (K5-store, K5-A, K5-B)",
+              "i8": "int8 slab (K7-store8, K7-fused-u8)", None: "no slab (K2, K6-fused)"}
+JOINT_KERNELS = ("K2", "K5-store", "K7-store8", "K5-A", "K5-B", "K7-fused-u8", "K6-fused")
 
 
 def log(msg: str) -> None:
@@ -143,23 +194,23 @@ def read_counts() -> dict:
 
 def plain_path():
     """A context in which every kernel wrapper is its plain version."""
-    import contextlib
-
-    from caiman_asr_tpu_torch.ops import joint_kernel as jk
-    from caiman_asr_tpu_torch.ops import lstm_kernel as lk
-
     stack = contextlib.ExitStack()
-    for mod, name, plain in (
-        (lk, "lstm_recurrence", lk.lstm_recurrence_plain),
-        (lk, "lstm_recurrence_sg", lk.lstm_recurrence_sg_plain),
-        (lk, "lstm_recurrence_bwd", lk.lstm_recurrence_bwd_plain),
-        (jk, "joint_fwd", jk.joint_fwd_plain),
-        (jk, "joint_fwd_store", jk.joint_fwd_store_plain),
-        (jk, "joint_bwd_dh", jk.joint_bwd_dh_plain),
-        (jk, "joint_bwd_dw", jk.joint_bwd_dw_plain),
-    ):
-        stack.enter_context(mock.patch.object(mod, name, plain))
+    for _, mod, wrapper, _, _ in KERNELS:
+        stack.enter_context(mock.patch.object(module(mod), wrapper,
+                                              getattr(module(mod), wrapper + "_plain")))
     return stack
+
+
+@contextlib.contextmanager
+def forced_route(store):
+    """The store policy forced to a slab ("bf16", "i8" or None for no slab)
+    through the policy attributes, whatever the batch's size."""
+    from caiman_asr_tpu_torch.ops import joint_kernel as jk
+
+    limit, dtype = {"bf16": (1 << 62, "bf16"), "i8": (1 << 62, "i8"), None: (0, "auto")}[store]
+    with mock.patch.object(jk, "Z_STORE_LIMIT_BYTES", limit), \
+            mock.patch.object(jk, "_ZSTORE_DTYPE", dtype):
+        yield
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -169,7 +220,7 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def recurrence_bound_ms(T: int, dtype: str) -> tuple[float, str]:
+def recurrence_bound_ms(T: int, dtype: str, B: int = B, H: int = H) -> tuple[float, str]:
     """Least time for one layer's recurrence: w_hh read once, gx read, ys and
     cs written, h0/c0 read, against HBM rate; 2*B*H*4H FLOPs per step against
     the peak for the type. Returns (ms, what bounds it)."""
@@ -178,7 +229,8 @@ def recurrence_bound_ms(T: int, dtype: str) -> tuple[float, str]:
     return bound_ms(nbytes, 2.0 * B * H * 4 * H * T, dtype)
 
 
-def check_recurrence(T: int, dtype_name: str, hard: bool, timed: bool) -> dict:
+def check_recurrence(T: int, dtype_name: str, hard: bool, timed: bool, B: int = B,
+                     H: int = H) -> dict:
     """Kernel vs plain version on the card at [T, B, 4H]."""
     import torch
 
@@ -207,7 +259,7 @@ def check_recurrence(T: int, dtype_name: str, hard: bool, timed: bool) -> dict:
         res["ms"] = cuda_ms(lambda: lstm_kernel.lstm_recurrence(gx, w_hh, h0, c0, hard))
         res["plain_ms"] = cuda_ms(
             lambda: lstm_kernel.lstm_recurrence_plain(gx, w_hh, h0, c0, hard), reps=3, warmup=1)
-        res["bound_ms"], res["bound_by"] = recurrence_bound_ms(T, dtype_name)
+        res["bound_ms"], res["bound_by"] = recurrence_bound_ms(T, dtype_name, B, H)
         # library yardstick: one cuDNN LSTM layer (input width H), which also
         # does the input GEMM — so compare it with kernel + that GEMM
         x = torch.randn((T, B, H), generator=g, device="cuda").to(dtype)
@@ -248,18 +300,20 @@ def synthetic_audio(seed: int):
     return audio, lens.astype(np.int64)
 
 
-def base_85m(device: str):
-    """base-85M exactly as `__graft_entry__.py:14-27` builds it."""
+def model_config(name: str):
+    """The ``rnnt`` configuration of one of MODELS."""
+    from caiman_asr_tpu_torch.models.config import RNNTModelConfig
+
+    return RNNTModelConfig(**MODELS[name][0])
+
+
+def build_model(name: str, device: str):
+    """One of MODELS at full width and depth, weights drawn from SEED."""
     import torch
 
-    from caiman_asr_tpu_torch.models.config import RNNTModelConfig
     from caiman_asr_tpu_torch.models.rnnt import RNNT
 
-    cfg = RNNTModelConfig(
-        in_feats=240, enc_n_hid=1024, enc_pre_rnn_layers=2, enc_post_rnn_layers=6,
-        enc_stack_time_factor=2, pred_n_hid=512, pred_rnn_layers=2, joint_n_hid=768,
-    )
-    model = RNNT(cfg, 8704, device=device)
+    model = RNNT(model_config(name), MODELS[name][1], device=device)
     return model.init_weights(torch.Generator(device=device).manual_seed(SEED))
 
 
@@ -294,8 +348,7 @@ def tokens(responses):
     return [frame_responses_to_tokens(r) for r in responses]
 
 
-def run_slice() -> dict:
-    import numpy as np
+def run_slice(name: str = "base-85M") -> dict:
     import torch
 
     from caiman_asr_tpu_torch import offline
@@ -305,11 +358,11 @@ def run_slice() -> dict:
     from caiman_asr_tpu_torch.ops import lstm_kernel
     from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
 
-    model = base_85m("cuda")
+    model = build_model(name, "cuda")
     n_params = sum(p.numel() for p in model.parameters())
     if not all(p.device.type == "cuda" for p in model.parameters()):
         raise AssertionError("model parameters are not all on the GPU")
-    log(f"  base-85M: {n_params} parameters, all on {torch.cuda.get_device_name(0)}")
+    log(f"  {name}: {n_params} parameters, all on {torch.cuda.get_device_name(0)}")
 
     audio_np, lens_np = synthetic_audio(SEED)
     audio = torch.from_numpy(audio_np).cuda()
@@ -330,21 +383,21 @@ def run_slice() -> dict:
 
     out = {"T_pre": T_pre, "T_post": T_post, "expected_launches": expected}
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).removeprefix("torch.")
+        dname = str(dtype).removeprefix("torch.")
         torch.cuda.synchronize()
-        lstm_kernel.lstm_recurrence.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         responses = offline.transcribe(model, audio, lens, device="cuda", dtype=dtype,
                                        pipeline=pipe)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = lstm_kernel.lstm_recurrence.launches
-        log(f"  transcribe {name}: {wall * 1e3:.1f} ms, "
+        log(f"  transcribe {dname}: {wall * 1e3:.1f} ms, "
             f"{audio_secs / wall:.1f} audio-s/s; lstm_recurrence_fwd launches "
             f"{launches} (expected {expected})")
         if launches != expected:
-            raise AssertionError(f"{name}: {launches} launches, expected {expected}")
-        out[name] = {"responses": responses, "launches": launches, "wall_s": wall}
+            raise AssertionError(f"{dname}: {launches} launches, expected {expected}")
+        out[dname] = {"responses": responses, "launches": launches, "wall_s": wall}
 
         # layer times of this run's path, each ending in a synchronise
         with torch.inference_mode():
@@ -358,8 +411,8 @@ def run_slice() -> dict:
             t2 = time.perf_counter()
             decoder.decode_encs(encs, enc_lens)
             t3 = time.perf_counter()
-        out[name].update(featurize_ms=1e3 * (t1 - t0), encode_ms=1e3 * (t2 - t1),
-                         decode_ms=1e3 * (t3 - t2), encs=encs, enc_lens=enc_lens)
+        out[dname].update(featurize_ms=1e3 * (t1 - t0), encode_ms=1e3 * (t2 - t1),
+                          decode_ms=1e3 * (t3 - t2), encs=encs, enc_lens=enc_lens)
         log(f"    featurize {1e3 * (t1 - t0):.2f} ms | encode {1e3 * (t2 - t1):.2f} ms"
             f" | greedy decode {1e3 * (t3 - t2):.2f} ms")
 
@@ -381,10 +434,10 @@ def run_slice() -> dict:
         raise AssertionError("fp32 greedy tokens differ from the plain path's")
     if n_tok == 0:
         raise AssertionError("the slice emitted no tokens: the comparison is vacuous")
-    for name in ("float32", "bfloat16"):
-        e = out[name]["encs"]
+    for dname in ("float32", "bfloat16"):
+        e = out[dname]["encs"]
         if not (torch.isfinite(e).all() and e.shape == (N_UTTS, T_post, model.cfg.joint_n_hid)):
-            raise AssertionError(f"{name} encoder output is not finite or has shape {e.shape}")
+            raise AssertionError(f"{dname} encoder output is not finite or has shape {e.shape}")
 
     toks_bf = tokens(out["bfloat16"]["responses"])
     same = sum(a == b for a, b in zip(toks_k, toks_bf))
@@ -396,11 +449,14 @@ def run_slice() -> dict:
         f"sequence similarity {ratio:.4f}")
     out["bf16_identical_utts"] = same
     out["bf16_similarity"] = ratio
+    for dname in ("float32", "bfloat16"):
+        for k in ("encs", "enc_lens", "responses"):
+            out[dname].pop(k)
     return out
 
 
 # ------------------------------------------------------------ train path
-def lstm_inputs(T: int, dtype, seed: int):
+def lstm_inputs(T: int, dtype, seed: int, B: int = B, H: int = H):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -418,7 +474,8 @@ def max_err(got, want) -> float:
     return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
 
 
-def check_lstm_train(T: int, dtype_name: str, hard: bool, timed: bool) -> dict:
+def check_lstm_train(T: int, dtype_name: str, hard: bool, timed: bool, B: int = B,
+                     H: int = H) -> dict:
     """K3a and K3b against their plain versions on the card at [T, B, 4H];
     timed, also their times, bounds and the cuDNN yardsticks."""
     import torch
@@ -426,7 +483,7 @@ def check_lstm_train(T: int, dtype_name: str, hard: bool, timed: bool) -> dict:
     from caiman_asr_tpu_torch.ops import lstm_kernel as lk
 
     dtype = getattr(torch, dtype_name)
-    gx, w_hh, h0, c0, dys, dcs = lstm_inputs(T, dtype, 11 * T + int(hard))
+    gx, w_hh, h0, c0, dys, dcs = lstm_inputs(T, dtype, 11 * T + int(hard), B, H)
     sg = lk.lstm_recurrence_sg(gx, w_hh, h0, c0, hard)
     torch.cuda.synchronize()
     sg_ref = lk.lstm_recurrence_sg_plain(gx, w_hh, h0, c0, hard)
@@ -494,42 +551,111 @@ def rel_err(got, want) -> float:
         want.float().abs().max().item(), 1e-30)
 
 
-def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool) -> dict:
-    """K2, K5-store, K5-A and K5-B against their plain versions on the card;
-    timed, also their times, bounds and library yardsticks."""
+def slab_errs(got, want, rows: int = 16384) -> tuple[float, float, float]:
+    """(largest absolute, largest relative difference, share of entries that
+    differ) of two [N, K] slabs, walked in row chunks so that the fp32
+    copies stay small."""
+    worst_abs = worst_rel = differ = 0.0
+    for lo in range(0, got.shape[0], rows):
+        a, b = got[lo:lo + rows].float(), want[lo:lo + rows].float()
+        d = (a - b).abs()
+        worst_abs = max(worst_abs, d.max().item())
+        worst_rel = max(worst_rel, (d / b.abs().clamp_min(1e-30)).max().item())
+        differ += (d != 0).sum().item()
+    return worst_abs, worst_rel, differ / got.numel()
+
+
+def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
+                only: tuple = JOINT_KERNELS, reps: int = 5) -> dict:
+    """The joint kernels named in ``only`` against their plain versions on
+    the card at [N, Hj] x [Hj, K]; timed, also their times, bounds and
+    library yardsticks. Slabs are made once, by the plain versions, and every
+    backward kernel and its plain version read the same one."""
     import torch
 
     from caiman_asr_tpu_torch.ops import joint_kernel as jk
 
     dtype = getattr(torch, dtype_name)
     h, wt, b, labels, cb, cl = joint_inputs(N, Hj, K, dtype, N + K)
-    sums, _ = jk.joint_fwd(h, wt, b)
-    sums_s, u = jk.joint_fwd_store(h, wt, b)
-    torch.cuda.synchronize()
-    ref_sums, ref_u = jk.joint_fwd_store_plain(h, wt, b)
-    cs = (cb + cl) / ref_sums  # the softmax row scale folded in, as the backward does
     w = wt.t().contiguous()
-    smear = jk.joint_bwd_dh(ref_u, w, cs)
-    dw, db = jk.joint_bwd_dw(h, ref_u, cs, cl, labels)
-    torch.cuda.synchronize()
-    ref_smear = jk.joint_bwd_dh_plain(ref_u, w, cs)
-    ref_dw, ref_db = jk.joint_bwd_dw_plain(h, ref_u, cs, cl, labels)
-    out = {
-        "K2": {"rel_err": rel_err(sums, ref_sums), "tol": JOINT_RTOL,
-               "max_abs_err": (sums.log() - ref_sums.log()).abs().max().item(),
-               "err_of": "log of the row sums"},
-        "K5-store": {"rel_err": max(rel_err(sums_s, ref_sums),
-                                    ((u.float() - ref_u.float()).abs()
-                                     / ref_u.float().abs().clamp_min(1e-30)).max().item()),
-                     "tol": U_RTOL, "max_abs_err": (u.float() - ref_u.float()).abs().max().item(),
-                     "err_of": "u"},
-        "K5-A": {"rel_err": rel_err(smear, ref_smear), "tol": JOINT_RTOL,
-                 "max_abs_err": (smear - ref_smear).abs().max().item(), "err_of": "smear"},
-        "K5-B": {"rel_err": max(rel_err(dw, ref_dw), rel_err(db, ref_db)), "tol": JOINT_RTOL,
-                 "max_abs_err": max((dw - ref_dw).abs().max().item(),
-                                    (db - ref_db).abs().max().item()), "err_of": "dw, db"},
-    }
-    for name, r in out.items():
+    kt = jk._tiles(Hj)[1]
+    n_kt = -(-K // kt)
+    ref_sums, _ = jk.joint_fwd_plain(h, wt, b)
+    cs = (cb + cl) / ref_sums  # the softmax row scale folded in, as the backward does
+    ref_u = (jk.joint_fwd_store_plain(h, wt, b)[1]
+             if {"K5-store", "K5-A", "K5-B"} & set(only) else None)
+    ref_q, ref_s = (jk.joint_fwd_store8_plain(h, wt, b, kt)[1:]
+                    if {"K7-store8", "K7-fused-u8"} & set(only) else (None, None))
+    fused_tol = JOINT_RTOL if dtype_name == "float32" else FUSED_BF16_RTOL
+
+    def three(got, want, tol):
+        return {"rel_err": max(rel_err(g, r) for g, r in zip(got, want)), "tol": tol,
+                "max_abs_err": max((g - r).abs().max().item() for g, r in zip(got, want)),
+                "err_of": "smear, dw, db"}
+
+    def k2():
+        sums, _ = jk.joint_fwd(h, wt, b)
+        return {"rel_err": rel_err(sums, ref_sums), "tol": JOINT_RTOL,
+                "max_abs_err": (sums.log() - ref_sums.log()).abs().max().item(),
+                "err_of": "log of the row sums"}
+
+    def k5_store():
+        sums, u = jk.joint_fwd_store(h, wt, b)
+        u_abs, u_rel, _ = slab_errs(u, ref_u)
+        return {"rel_err": max(rel_err(sums, ref_sums), u_rel), "tol": U_RTOL,
+                "max_abs_err": u_abs, "err_of": "u"}
+
+    def k7_store8():
+        sums, q, s = jk.joint_fwd_store8(h, wt, b, kt)
+        q_abs, _, share = slab_errs(q, ref_q)
+        s_rel = ((s - ref_s).abs() / ref_s.abs().clamp_min(1e-30)).max().item()
+        ok = (rel_err(sums, ref_sums) <= JOINT_RTOL and s_rel <= SCALE_RTOL and q_abs <= 1
+              and share <= Q_SHARE and int(q.max()) == 127 and int(q.min()) >= 0)
+        log(f"    K7-store8: scales relative err {s_rel:.3g} (tol {SCALE_RTOL}); q differs by "
+            f"at most {q_abs:.0f} step on a share {share:.3g} of entries (tol {Q_SHARE})")
+        # rel_err: the share of entries one step apart, against Q_SHARE
+        return {"rel_err": share if ok else float("inf"), "tol": Q_SHARE,
+                "max_abs_err": q_abs, "err_of": "q (int8 steps)"}
+
+    def k5_a():
+        smear, ref = jk.joint_bwd_dh(ref_u, w, cs), jk.joint_bwd_dh_plain(ref_u, w, cs)
+        return {"rel_err": rel_err(smear, ref), "tol": JOINT_RTOL,
+                "max_abs_err": (smear - ref).abs().max().item(), "err_of": "smear"}
+
+    def k5_b():
+        got = jk.joint_bwd_dw(h, ref_u, cs, cl, labels)
+        want = jk.joint_bwd_dw_plain(h, ref_u, cs, cl, labels)
+        return {**three(got, want, JOINT_RTOL), "err_of": "dw, db"}
+
+    def k7_fused_u8():
+        return three(jk.joint_bwd_fused_u8(h, ref_q, ref_s, w, cs, cl, labels, kt),
+                     jk.joint_bwd_fused_u8_plain(h, ref_q, ref_s, w, cs, cl, labels, kt),
+                     JOINT_RTOL)
+
+    def k6_fused():
+        # what one call allocates: its outputs, w transposed and the fixed
+        # workspace, and no array of N x K elements
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = jk.joint_bwd_fused(h, w, b, cs, cl, labels)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        limit = (jk.FUSED_WS_BYTES + 4 * (N * Hj + Hj * K + K) + h.element_size() * Hj * K
+                 + (64 << 20))
+        log(f"    K6-fused: one call allocated {extra / 2**20:.0f} MiB at its peak (limit "
+            f"{limit / 2**20:.0f} MiB: workspace, outputs, w transposed; an [N, K] fp32 array "
+            f"would be {4 * N * K / 2**20:.0f} MiB)")
+        if extra > limit:
+            raise AssertionError(f"K6-fused allocated {extra} bytes, more than {limit}")
+        return three(got, jk.joint_bwd_fused_plain(h, w, b, cs, cl, labels), fused_tol)
+
+    checks = {"K2": k2, "K5-store": k5_store, "K7-store8": k7_store8, "K5-A": k5_a,
+              "K5-B": k5_b, "K7-fused-u8": k7_fused_u8, "K6-fused": k6_fused}
+    out = {}
+    for name in only:
+        r = out[name] = checks[name]()
+        torch.cuda.synchronize()
         log(f"  {name} N={N} Hj={Hj} K={K} {dtype_name}: relative err {r['rel_err']:.3g} "
             f"(tol {r['tol']:.3g}), max abs err of {r['err_of']} {r['max_abs_err']:.3g}")
         if not r["rel_err"] <= r["tol"]:
@@ -539,40 +665,65 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool) -> dict:
     es = 4 if dtype_name == "float32" else 2
     flops = 2.0 * N * Hj * K
     fwd_bytes = es * (N * Hj + K * Hj) + 4 * (K + N)
+    i8_bytes = N * K + 4 * n_kt * N
+    bwd_out = 4 * (N * Hj + Hj * K + K)
     bounds = {
-        "K2": bound_ms(fwd_bytes, flops, dtype_name),
-        "K5-store": bound_ms(fwd_bytes + 2 * N * K, flops, dtype_name),
-        "K5-A": bound_ms(2 * N * K + es * Hj * K + 4 * N + 4 * N * Hj, flops, dtype_name),
-        "K5-B": bound_ms(es * N * Hj + 2 * N * K + 12 * N + 4 * (Hj * K + K), flops,
-                         dtype_name),
+        "K2": (fwd_bytes, flops),
+        "K5-store": (fwd_bytes + 2 * N * K, flops),
+        "K7-store8": (fwd_bytes + i8_bytes, flops),
+        "K5-A": (2 * N * K + es * Hj * K + 4 * N + 4 * N * Hj, flops),
+        "K5-B": (es * N * Hj + 2 * N * K + 12 * N + 4 * (Hj * K + K), flops),
+        "K7-fused-u8": (es * (N * Hj + Hj * K) + i8_bytes + 12 * N + bwd_out, 2 * flops),
+        "K6-fused": (es * (N * Hj + Hj * K) + 4 * K + 12 * N + bwd_out, 3 * flops),
     }
     runs = {
         "K2": (lambda: jk.joint_fwd(h, wt, b), lambda: jk.joint_fwd_plain(h, wt, b)),
         "K5-store": (lambda: jk.joint_fwd_store(h, wt, b),
                      lambda: jk.joint_fwd_store_plain(h, wt, b)),
+        "K7-store8": (lambda: jk.joint_fwd_store8(h, wt, b, kt),
+                      lambda: jk.joint_fwd_store8_plain(h, wt, b, kt)),
         "K5-A": (lambda: jk.joint_bwd_dh(ref_u, w, cs),
                  lambda: jk.joint_bwd_dh_plain(ref_u, w, cs)),
         "K5-B": (lambda: jk.joint_bwd_dw(h, ref_u, cs, cl, labels),
                  lambda: jk.joint_bwd_dw_plain(h, ref_u, cs, cl, labels)),
+        "K7-fused-u8": (
+            lambda: jk.joint_bwd_fused_u8(h, ref_q, ref_s, w, cs, cl, labels, kt),
+            lambda: jk.joint_bwd_fused_u8_plain(h, ref_q, ref_s, w, cs, cl, labels, kt)),
+        "K6-fused": (lambda: jk.joint_bwd_fused(h, w, b, cs, cl, labels),
+                     lambda: jk.joint_bwd_fused_plain(h, w, b, cs, cl, labels)),
     }
-    b_c, w_bf, u_c = b.to(dtype), w.to(torch.bfloat16), ref_u.to(dtype)
+    # library yardsticks, one PyTorch call per product: the forwards
+    # logsumexp(addmm); the backwards their matmuls on a bf16 u (the fused
+    # ones both, K6-fused also the addmm + exp that makes u)
+    b_c, w_bf = b.to(dtype), w.to(torch.bfloat16)
+    lib_u = ref_u
+    if lib_u is None and {"K7-fused-u8", "K6-fused"} & set(only):
+        lib_u = jk.joint_fwd_store_plain(h, wt, b)[1]
+    u_c = lib_u.to(dtype) if lib_u is not None else None
     lse = lambda: torch.logsumexp(torch.addmm(b_c, h, wt.t()), 1)
-    library = {"K2": lse, "K5-store": lse, "K5-A": lambda: torch.matmul(ref_u, w_bf.t()),
-               "K5-B": lambda: torch.matmul(h.t(), u_c)}
-    for name, r in out.items():
+    mm_a = lambda: torch.matmul(lib_u, w_bf.t())
+    mm_b = lambda: torch.matmul(h.t(), u_c)
+    library = {"K2": lse, "K5-store": lse, "K7-store8": lse, "K5-A": mm_a, "K5-B": mm_b,
+               "K7-fused-u8": lambda: (mm_a(), mm_b()),
+               "K6-fused": lambda: (torch.addmm(b_c, h, wt.t()).exp_(), mm_a(), mm_b())}
+    for name in only:
+        r = out[name]
         kernel, plain = runs[name]
-        r["ms"] = cuda_ms(kernel, reps=5, warmup=1)
+        r["ms"] = cuda_ms(kernel, reps=reps, warmup=1)
         r["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
-        r["bound_ms"], r["bound_by"] = bounds[name]
-        r["library_ms"] = cuda_ms(library[name], reps=5, warmup=1)
-        log(f"    {name}: kernel {r['ms']:.3f} ms | plain {r['plain_ms']:.3f} ms | bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | library {r['library_ms']:.3f} ms")
+        r["bound_ms"], r["bound_by"] = bound_ms(*bounds[name], dtype_name)
+        r["library_ms"] = cuda_ms(library[name], reps=reps, warmup=1)
+        r["tflops"] = bounds[name][1] / r["ms"] / 1e9
+        log(f"    {name}: kernel {r['ms']:.3f} ms ({r['tflops']:.1f} TFLOP/s of the function's "
+            f"operations) | plain {r['plain_ms']:.3f} ms | bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) | library {r['library_ms']:.3f} ms")
     return out
 
 
 def check_fused_joint_lse() -> None:
-    """The whole joint forward + backward on the card, kernels against the
-    plain route, N and K unaligned, the blank in a non-final tile."""
+    """The whole joint forward + backward on the card on each route, kernels
+    against the plain route, N and K unaligned, the blank in a non-final
+    tile."""
     import torch
 
     from caiman_asr_tpu_torch.ops import joint_kernel as jk
@@ -586,18 +737,25 @@ def check_fused_joint_lse() -> None:
         loss = (lb * cb).sum() + (ll * cl).sum()
         return (lb, ll) + torch.autograd.grad(loss, leaves)
 
-    got = run()
-    with plain_path():
-        want = run()
-    err = max(rel_err(g.detach(), w.detach()) for g, w in zip(got, want))
-    log(f"  fused_joint_lse N={N} Hj={Hj} K={K} blank={blank} fp32, kernels vs plain "
-        f"route: relative err {err:.3g} (tol {GRAD_RTOL})")
-    if not err <= GRAD_RTOL:
-        raise AssertionError(f"fused_joint_lse kernels vs plain route: {err}")
+    for store in ("bf16", "i8", None):
+        with forced_route(store):
+            reset_counts()
+            got = run()
+            counts = read_counts()
+            with plain_path():
+                want = run()
+        err = max(rel_err(g.detach(), w.detach()) for g, w in zip(got, want))
+        log(f"  fused_joint_lse N={N} Hj={Hj} K={K} blank={blank} fp32, {ROUTE_NAME[store]}, "
+            f"kernels vs plain route: relative err {err:.3g} (tol {GRAD_RTOL})")
+        if not err <= GRAD_RTOL:
+            raise AssertionError(f"fused_joint_lse kernels vs plain route, {store}: {err}")
+        if any(counts[k] == 0 for k in ROUTE_KERNELS[store]):
+            raise AssertionError(f"route {store} did not launch its kernels: {counts}")
 
 
-def train_batch(fp, n_classes: int, seed: int) -> dict:
-    """The smoke utterances with U_MIN..U_MAX random tokens each, A = 1."""
+def train_batch(fp, n_classes: int, seed: int, tile: int = 1) -> dict:
+    """The smoke utterances with U_MIN..U_MAX random tokens each, A = 1,
+    the batch repeated ``tile`` times along B."""
     import numpy as np
     import torch
 
@@ -607,9 +765,9 @@ def train_batch(fp, n_classes: int, seed: int) -> dict:
     u_lens = rng.integers(U_MIN, U_MAX + 1, N_UTTS)
     u_lens[0] = U_MAX
     txt = rng.integers(0, n_classes - 1, (N_UTTS, U_MAX))
-    return {"feats": feats[None], "feat_lens": feat_lens[None],
-            "txt": torch.from_numpy(txt).cuda()[None],
-            "txt_lens": torch.from_numpy(u_lens).cuda()[None]}
+    return {"feats": feats.repeat(1, tile, 1)[None], "feat_lens": feat_lens.repeat(tile)[None],
+            "txt": torch.from_numpy(txt).cuda().repeat(tile, 1)[None],
+            "txt_lens": torch.from_numpy(u_lens).cuda().repeat(tile)[None]}
 
 
 def lattice_rows(batch, stack_time_factor: int) -> int:
@@ -618,24 +776,37 @@ def lattice_rows(batch, stack_time_factor: int) -> int:
     return batch["feats"].shape[2] * T_post * (batch["txt"].shape[2] + 1)
 
 
-def run_train(batch, dtype_name: str) -> dict:
-    """TRAIN_STEPS steps of base-85M on ``batch``; per step its time, loss,
-    gradient norm, skip flag and kernel launches."""
+def batch_plan(name: str, batch) -> tuple[int, dict]:
+    """(lattice rows, the store policy's plan) of ``batch`` for model ``name``."""
+    from caiman_asr_tpu_torch.ops.joint_kernel import store_plan
+
+    cfg = model_config(name)
+    N = lattice_rows(batch, cfg.enc_stack_time_factor)
+    return N, store_plan(N, cfg.joint_n_hid, MODELS[name][1])
+
+
+def run_train(batch, dtype_name: str, name: str = "base-85M", steps: int = TRAIN_STEPS,
+              store="bf16") -> dict:
+    """``steps`` steps of model ``name`` on ``batch``; per step its time,
+    loss, gradient norm, skip flag and kernel launches. ``store``: the slab
+    the store policy keeps for this batch, whose kernels, and no other
+    route's, must have been launched."""
     import torch
 
     from caiman_asr_tpu_torch.training.optimizer import Lamb, OptimizerConfig
     from caiman_asr_tpu_torch.training.step import init_train_state, make_train_step
 
-    model = base_85m("cuda")
+    model = build_model(name, "cuda")
     opt = Lamb(OptimizerConfig(warmup_steps=0), model.param_lr_factors())
     state = init_train_state(model, opt, device="cuda")
     compute = None if dtype_name == "float32" else getattr(torch, dtype_name)
     step = make_train_step(model, opt, model.n_classes - 1, compute_dtype=compute,
                            device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tag = f"{name} B={batch['feats'].shape[2]} {dtype_name}"
     rows = []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -645,32 +816,42 @@ def run_train(batch, dtype_name: str) -> dict:
         row = {"ms": ms, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                "skipped": int(m["skipped"]), "launches": read_counts()}
         rows.append(row)
-        log(f"  train {dtype_name} step {i + 1}: {ms:.1f} ms, loss {row['loss']:.4f}, "
+        log(f"  train {tag} step {i + 1}: {ms:.1f} ms, loss {row['loss']:.4f}, "
             f"grad_norm {row['grad_norm']:.4f}, skipped {row['skipped']}")
     peak = torch.cuda.max_memory_allocated()
     losses = [r["loss"] for r in rows]
     if not all(math.isfinite(x) for x in losses) or any(r["skipped"] for r in rows):
-        raise AssertionError(f"{dtype_name}: a loss is not finite or a step was skipped: {rows}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"{dtype_name}: the loss did not fall: {losses}")
+        raise AssertionError(f"{tag}: a loss is not finite or a step was skipped: {rows}")
+    if steps > 1 and not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: the loss did not fall: {losses}")
     counts = rows[-1]["launches"]
-    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
-    log(f"  train {dtype_name}: launches per step {counts}; peak memory {peak / 2**30:.2f} GiB")
-    if missing:
-        raise AssertionError(f"{dtype_name}: kernels not launched by the train step: {missing}")
+    log(f"  train {tag}: launches per step {counts}; peak memory {peak / 2**30:.2f} GiB")
+    check_route(counts, store, tag)
     return {"rows": rows, "model": model, "opt": opt, "state": state, "gen": gen,
             "compute": compute, "peak_bytes": peak, "step": step}
+
+
+def check_route(counts: dict, store, tag: str) -> None:
+    """The train step launched the LSTM train kernels and the joint kernels
+    of the route ``store`` names, and no other route's."""
+    want = LSTM_TRAIN_KERNELS + ROUTE_KERNELS[store]
+    missing = [k for k in want if counts[k] == 0]
+    other = [k for kernels in ROUTE_KERNELS.values() for k in kernels
+             if k not in want and counts[k]]
+    if missing or other:
+        raise AssertionError(f"{tag}: expected the route {ROUTE_NAME[store]}; not launched: "
+                             f"{missing}; launched from another route: {other}")
 
 
 def step_breakdown(run: dict, batch) -> dict:
     """Two more steps of ``run``'s model, phase by phase, each phase ending
     in a synchronise: ms per phase of the second (the first pays one-time
-    allocations: it measured 3.8 s in the joint backward where the second
-    measured 0.2 s)."""
+    allocations)."""
     _step_phases(run, batch)
     times = _step_phases(run, batch)
     total = sum(times.values())
-    log(f"  step breakdown, {'bf16' if run['compute'] is not None else 'fp32'} (ms, share): "
+    log(f"  step breakdown, B={batch['feats'].shape[2]} "
+        f"{'bf16' if run['compute'] is not None else 'fp32'} (ms, share): "
         + "; ".join(f"{k} {v:.1f} ({v / total:.0%})" for k, v in times.items()))
     return times
 
@@ -703,7 +884,7 @@ def _step_phases(run: dict, batch) -> dict:
     w_fc, b_fc = p["joint_fc"]["w"], p["joint_fc"]["b"]
     lp_b, lp_l = tl._fused_joint_scores(f, g, w_fc, b_fc, mb["txt"], blank, run["gen"],
                                         model.cfg.joint_dropout)
-    mark("joint forward (K5-store)")
+    mark("joint forward")
     null, emit = tl._penalised_scores(lp_b, lp_l, mb["txt"], f_lens, tl.LossModifiers())
     loss = tl.rnnt_lattice(null, emit, f_lens, mb["txt_lens"]).sum() / mb["feats"].shape[1]
     mark("lattice forward")
@@ -711,7 +892,7 @@ def _step_phases(run: dict, batch) -> dict:
     mark("lattice backward")
     joint_in = (f, g, w_fc, b_fc)
     d_joint = torch.autograd.grad((lp_b, lp_l), joint_in, d_lp)
-    mark("joint backward (K5-A, K5-B)")
+    mark("joint backward")
     grads = torch.autograd.grad(joint_in, leaves, d_joint, allow_unused=True)
     mark("encoder + predictor backward (K3b)")
     run["opt"].update(state.params, state.ema_params, state.opt_state,
@@ -738,59 +919,102 @@ def profile_step(run: dict, batch) -> dict:
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    log(f"  profiled step, {'bf16' if run['compute'] is not None else 'fp32'}: wall "
+    log(f"  profiled step, B={batch['feats'].shape[2]} "
+        f"{'bf16' if run['compute'] is not None else 'fp32'}: wall "
         f"{wall_ms:.1f} ms, device busy {busy:.1f} ms ({busy / wall_ms:.0%}); top kernels: "
         + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top))
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "busy_share": busy / wall_ms,
             "top_kernels_ms": dict(top)}
 
 
-def whole_step_check(batch) -> dict:
-    """The loss and every gradient of one fp32 step with dropout off, at
-    CHECK_B utterances: kernels against the plain path, on the card."""
-    import dataclasses
+def release(run: dict) -> dict:
+    """Drop what holds device memory from a finished run."""
+    for k in ("model", "opt", "state", "step", "gen"):
+        run.pop(k, None)
+    return run
 
+
+def step_grads(model, mb, n_utts: int):
+    """(loss, gradients by parameter name) of one fp32 microbatch."""
     import torch
 
     from caiman_asr_tpu_torch.ops.transducer_loss import LossModifiers
     from caiman_asr_tpu_torch.training.step import _micro_loss
     from caiman_asr_tpu_torch.training.tree import tree_items
 
-    model = base_85m("cuda")
+    items = list(tree_items(model.param_tree()))
+    loss = _micro_loss(model, model.param_tree(), mb, None, LossModifiers(), n_utts,
+                       model.n_classes - 1)
+    grads = torch.autograd.grad(loss, [leaf for _, leaf in items])
+    return loss.detach(), {".".join(path): g for (path, _), g in zip(items, grads)}
+
+
+def no_dropout(name: str):
+    import dataclasses
+
+    model = build_model(name, "cuda")
     model.cfg = dataclasses.replace(model.cfg, enc_dropout=0.0, pred_dropout=0.0,
                                     joint_dropout=0.0)
+    return model
+
+
+def whole_step_check(batch, name: str = "base-85M", store="bf16", model=None) -> dict:
+    """The loss and every gradient of one fp32 step with dropout off, at
+    CHECK_B utterances, on the route ``store`` names: kernels against the
+    plain path, on the card."""
+    model = model or no_dropout(name)
     lens = batch["feat_lens"][0, :CHECK_B]
     T = int(lens.max())
     U = int(batch["txt_lens"][0, :CHECK_B].max())
     mb = {"feats": batch["feats"][0, :T, :CHECK_B], "feat_lens": lens,
           "txt": batch["txt"][0, :CHECK_B, :U], "txt_lens": batch["txt_lens"][0, :CHECK_B]}
-    leaves = [leaf for _, leaf in tree_items(model.param_tree())]
-    names = [".".join(path) for path, _ in tree_items(model.param_tree())]
-
-    def grads():
-        loss = _micro_loss(model, model.param_tree(), mb, None, LossModifiers(), CHECK_B,
-                           model.n_classes - 1)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
-
-    reset_counts()
-    loss_k, g_k = grads()
-    counts = read_counts()
-    with plain_path():
-        loss_p, g_p = grads()
+    with forced_route(store):
+        reset_counts()
+        loss_k, g_k = step_grads(model, mb, CHECK_B)
+        counts = read_counts()
+        with plain_path():
+            loss_p, g_p = step_grads(model, mb, CHECK_B)
     if read_counts() != counts:
         raise AssertionError("the plain path launched a kernel")
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    errs = {n: rel_err(a, b) for n, a, b in zip(names, g_k, g_p)}
+    errs = {n: rel_err(g_k[n], g_p[n]) for n in g_k}
     worst = max(errs, key=errs.get)
-    log(f"  whole step, fp32, B={CHECK_B} T={T} U={U}: loss {float(loss_k):.6f} vs plain "
-        f"{float(loss_p):.6f} (relative {loss_err:.3g}, tol {LOSS_RTOL}); worst gradient "
-        f"{worst}: {errs[worst]:.3g} of its largest magnitude (tol {GRAD_RTOL}); kernel "
-        f"launches {counts}")
+    log(f"  whole step, {name}, {ROUTE_NAME[store]}, fp32, B={CHECK_B} T={T} U={U}: loss "
+        f"{float(loss_k):.6f} vs plain {float(loss_p):.6f} (relative {loss_err:.3g}, tol "
+        f"{LOSS_RTOL}); worst gradient {worst}: {errs[worst]:.3g} of its largest magnitude "
+        f"(tol {GRAD_RTOL}); kernel launches {counts}")
     if not loss_err <= LOSS_RTOL or not errs[worst] <= GRAD_RTOL:
         raise AssertionError(f"the kernel path differs from the plain path: {loss_err}, {errs}")
-    if any(counts[k] == 0 for k in TRAIN_KERNELS):
-        raise AssertionError(f"the kernel path did not launch every kernel: {counts}")
+    check_route(counts, store, f"whole step {name}")
     return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "worst": worst}
+
+
+def routes_check(batch, name: str, model) -> dict:
+    """The three routes against each other on the whole ``batch``, fp32,
+    dropout off: the loss and every gradient of the int8 and the no-slab
+    route against the bf16-slab route's."""
+    mb = {k: v[0] for k, v in batch.items()}
+    n_utts = mb["feats"].shape[1]
+    got = {}
+    for store in ("bf16", "i8", None):
+        with forced_route(store):
+            reset_counts()
+            got[store] = step_grads(model, mb, n_utts)
+            check_route(read_counts(), store, f"routes {name}")
+    loss_ref, g_ref = got["bf16"]
+    out = {}
+    for store in ("i8", None):
+        loss, grads = got[store]
+        loss_err = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+        errs = {n: rel_err(grads[n], g_ref[n]) for n in grads}
+        worst = max(errs, key=errs.get)
+        log(f"  routes, {name}, fp32, B={n_utts}: {ROUTE_NAME[store]} vs the bf16 slab: loss "
+            f"relative {loss_err:.3g} (tol {LOSS_RTOL}); worst gradient {worst}: "
+            f"{errs[worst]:.3g} of its largest magnitude (tol {ROUTE_RTOL[store]})")
+        if not loss_err <= LOSS_RTOL or not errs[worst] <= ROUTE_RTOL[store]:
+            raise AssertionError(f"route {store} differs from the bf16-slab route: {errs}")
+        out[str(store)] = {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "worst": worst}
+    return out
 
 
 def val_check(model, batch) -> dict:
@@ -818,9 +1042,50 @@ def val_check(model, batch) -> dict:
         raise AssertionError(f"validation loss, K2 route vs plain route: {err}")
     if counts["joint_fwd"] == 0 or counts["lstm_recurrence"] == 0:
         raise AssertionError(f"the validation loss did not launch K2 and K1: {counts}")
-    if any(counts[k] for k in TRAIN_KERNELS):
+    if any(v for k, v in counts.items() if k not in ("joint_fwd", "lstm_recurrence")):
         raise AssertionError(f"the validation loss launched a train kernel: {counts}")
     return {"ms": ms, "launches": counts, "loss": float(s_k) / n}
+
+
+def run_large(fp) -> dict:
+    """Phase 7: large-196M through the three entry points."""
+    import torch
+
+    name = "large-196M"
+    n_classes = MODELS[name][1]
+    expected = dict(zip(LARGE_TILES, ("bf16", "i8", None)))
+    out = {"train": {}}
+    for tile in LARGE_TILES:
+        batch = train_batch(fp, n_classes, SEED, tile)
+        Bt = batch["feats"].shape[2]
+        N, plan = batch_plan(name, batch)
+        log(f"  B={Bt}: lattice rows N={N}, plan {plan}")
+        if plan["dtype"] != expected[tile]:
+            raise AssertionError(f"B={Bt}: expected the route {ROUTE_NAME[expected[tile]]}")
+        cell = out["train"][Bt] = {"N": N, "plan": plan}
+        run = run_train(batch, "bfloat16", name, LARGE_STEPS, plan["dtype"])
+        cell["breakdown_ms"] = step_breakdown(run, batch)
+        cell["profile"] = profile_step(run, batch)
+        cell["bfloat16"] = release(run)
+        del run
+        torch.cuda.empty_cache()
+        cell["float32"] = release(run_train(batch, "float32", name, 1, plan["dtype"]))
+        torch.cuda.empty_cache()
+
+    log("== large-196M: the routes against each other and against their plain paths")
+    batch = train_batch(fp, n_classes, SEED)
+    model = no_dropout(name)
+    out["routes"] = routes_check(batch, name, model)
+    out["whole_step"] = {str(store): whole_step_check(batch, name, store, model)
+                         for store in ("bf16", "i8", None)}
+    log("== large-196M: validation loss")
+    out["validation"] = val_check(model, batch)
+    del model, batch
+    torch.cuda.empty_cache()
+    log("== large-196M: offline greedy transcription")
+    out["slice"] = run_slice(name)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -836,9 +1101,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from caiman_asr_tpu_torch.data.featurize import FeaturePipeline
-    from caiman_asr_tpu_torch.models.config import PipelineConfig, RNNTModelConfig
+    from caiman_asr_tpu_torch.models.config import PipelineConfig
     from caiman_asr_tpu_torch.ops import cuda_build
-    from caiman_asr_tpu_torch.ops.joint_kernel import store_plan
     from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
 
     t_start = time.perf_counter()
@@ -864,8 +1128,18 @@ def main() -> int:
         for hard in (False, True):
             check_recurrence(64, dtype, hard, timed=not hard)
             check_lstm_train(64, dtype, hard, timed=False)
+        # large-196M's widths: the encoder at B=32, the predictor at B=64
+        for Bl, Hl in ((32, 1536), (64, 768)):
+            check_recurrence(32, dtype, False, False, Bl, Hl)
+            check_lstm_train(32, dtype, False, False, Bl, Hl)
         check_joint(1000, 96, 1000, dtype, timed=False)  # N and K unaligned
+        check_joint(300, 96, 2500, dtype, timed=False,   # three scale tiles, the last ragged
+                    only=("K7-store8", "K7-fused-u8", "K6-fused"))
     check_fused_joint_lse()
+    log(f"== joint kernels past 2^31 slab elements ({BIG_N} x {BIG_K} = {BIG_N * BIG_K})")
+    for dtype in ("float32", "bfloat16"):
+        check_joint(BIG_N, BIG_HJ, BIG_K, dtype, timed=False)
+        torch.cuda.empty_cache()
 
     # 3. the slice at full width
     log("== slice: offline greedy transcription, base-85M")
@@ -874,9 +1148,8 @@ def main() -> int:
     # 4. the train step at full width
     log("== train step: base-85M, B=16, A=1, LAMB (warmup 0, lr 4e-3)")
     fp = FeaturePipeline(PipelineConfig(logmel=LogMelConfig(dither=0.0)), device="cuda")
-    batch = train_batch(fp, 8704, SEED)
-    N = lattice_rows(batch, RNNTModelConfig().enc_stack_time_factor)
-    plan = store_plan(N, 768, 8704)
+    batch = train_batch(fp, MODELS["base-85M"][1], SEED)
+    N, plan = batch_plan("base-85M", batch)
     log(f"  batch: T={batch['feats'].shape[1]} (pre-stack), U={batch['txt'].shape[2]}, "
         f"lattice rows N={N}; u slab: {plan['dtype']} over {plan['cols']} of "
         f"{plan['Kp']} padded columns (Np={plan['Np']}), {plan['slab_bytes']} bytes")
@@ -896,39 +1169,73 @@ def main() -> int:
     log("== validation loss")
     val = val_check(runs["float32"]["model"], batch)
     for run in runs.values():
-        for k in ("model", "opt", "state", "step"):
-            run.pop(k)
+        release(run)
+    del batch
     torch.cuda.empty_cache()
 
-    # 7. every kernel at the main path's shapes
+    # 7. large-196M
+    log("== large-196M: train steps at B=16, 32, 64 (A=1, LAMB warmup 0, lr 4e-3)")
+    large = run_large(fp)
+
+    # 8. every kernel at the main path's shapes
     log("== kernels at the main path's shapes")
     per_shape = {}
     for name in ("float32", "bfloat16"):
         for T in (sl["T_pre"], sl["T_post"]):
             per_shape[(name, T)] = check_recurrence(T, name, False, timed=True)
     lstm_train = check_lstm_train(sl["T_pre"], "bfloat16", False, timed=True)
-    joint = check_joint(N, 768, 8704, "bfloat16", timed=True)
+    check_recurrence(sl["T_pre"], "bfloat16", False, True, 32, 1536)  # a large-196M layer
+    check_lstm_train(sl["T_pre"], "bfloat16", False, True, 32, 1536)
+    joint = check_joint(N, 768, 8704, "bfloat16", timed=True,
+                        only=("K2", "K5-store", "K5-A", "K5-B"))
+    cells = large["train"]
+    Hj_l, K_l = MODELS["large-196M"][0]["joint_n_hid"], MODELS["large-196M"][1]
+    n16, n32, n64 = (cells[Bt]["N"] for Bt in sorted(cells))
+    torch.cuda.empty_cache()
+    check_joint(n16, Hj_l, K_l, "bfloat16", timed=True, only=("K5-store", "K5-A", "K5-B"),
+                reps=3)
+    torch.cuda.empty_cache()
+    joint.update(check_joint(n32, Hj_l, K_l, "bfloat16", timed=True,
+                             only=("K7-store8", "K7-fused-u8"), reps=3))
+    torch.cuda.empty_cache()
+    check_joint(n64, Hj_l, K_l, "bfloat16", timed=True, only=("K2",), reps=2)
+    torch.cuda.empty_cache()
+    joint.update(check_joint(n64, Hj_l, K_l, "bfloat16", timed=True, only=("K6-fused",),
+                             reps=2))
+    torch.cuda.empty_cache()
 
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
+    counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
+    counts64 = cells[sorted(cells)[2]]["bfloat16"]["rows"][-1]["launches"]
     layer = f"T={sl['T_pre']} B={B} H={H} bfloat16 (one encoder layer)"
     joint_shape = f"N={N} Hj=768 K=8704 bfloat16"
+    shape32 = f"N={n32} Hj={Hj_l} K={K_l} bfloat16"
+    shape64 = f"N={n64} Hj={Hj_l} K={K_l} bfloat16"
+    base_step, large32, large64 = ("base-85M train step", "large-196M train step, B=32",
+                                   "large-196M train step, B=64")
     rows = {
         "lstm_recurrence": (per_shape[("bfloat16", sl["T_pre"])], sl["bfloat16"]["launches"],
-                            layer, "transcription"),
+                            layer, "base-85M transcription"),
         "lstm_recurrence_sg": (lstm_train["K3a"], train_counts["lstm_recurrence_sg"], layer,
-                               "train step"),
+                               base_step),
         "lstm_recurrence_bwd": (lstm_train["K3b"], train_counts["lstm_recurrence_bwd"], layer,
-                                "train step"),
+                                base_step),
         "joint_fwd": (joint["K2"], val["launches"]["joint_fwd"], joint_shape,
-                      "validation batch"),
+                      "base-85M validation batch"),
         "joint_fwd_store": (joint["K5-store"], train_counts["joint_fwd_store"], joint_shape,
-                            "train step"),
-        "joint_bwd_dh": (joint["K5-A"], train_counts["joint_bwd_dh"], joint_shape, "train step"),
-        "joint_bwd_dw": (joint["K5-B"], train_counts["joint_bwd_dw"], joint_shape, "train step"),
+                            base_step),
+        "joint_bwd_dh": (joint["K5-A"], train_counts["joint_bwd_dh"], joint_shape, base_step),
+        "joint_bwd_dw": (joint["K5-B"], train_counts["joint_bwd_dw"], joint_shape, base_step),
+        "joint_fwd_store8": (joint["K7-store8"], counts32["joint_fwd_store8"], shape32, large32),
+        "joint_bwd_fused_u8": (joint["K7-fused-u8"], counts32["joint_bwd_fused_u8"], shape32,
+                               large32),
+        "joint_bwd_fused": (joint["K6-fused"], counts64["joint_bwd_fused"], shape64, large64),
     }
     kernels = []
     for name, _, wrapper, src, replaces in KERNELS:
         r, launches, shape, per = rows[wrapper]
+        if launches == 0:
+            raise AssertionError(f"{name} was not launched on the main path ({per})")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"caiman_asr_tpu_torch/ops/csrc/{src}", "replaces": replaces,
@@ -936,14 +1243,25 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": shape, "launches_per": per,
         })
-    summary = {dt: {"step_ms": [r["ms"] for r in run["rows"]],
-                    "loss": [r["loss"] for r in run["rows"]],
-                    "grad_norm": [r["grad_norm"] for r in run["rows"]],
-                    "peak_gib": run["peak_bytes"] / 2 ** 30, "breakdown_ms": breakdown[dt],
-                    "profile": profiled[dt]}
-               for dt, run in runs.items()}
-    log("train summary: " + json.dumps({"train": summary, "whole_step": whole,
+
+    def summary(run, extra=None):
+        return {"step_ms": [r["ms"] for r in run["rows"]],
+                "loss": [r["loss"] for r in run["rows"]],
+                "grad_norm": [r["grad_norm"] for r in run["rows"]],
+                "peak_gib": run["peak_bytes"] / 2 ** 30, **(extra or {})}
+
+    base = {dt: summary(run, {"breakdown_ms": breakdown[dt], "profile": profiled[dt]})
+            for dt, run in runs.items()}
+    large_summary = {
+        str(Bt): {"N": c["N"], "plan": c["plan"], "bfloat16": summary(c["bfloat16"]),
+                  "float32": summary(c["float32"]), "breakdown_ms": c["breakdown_ms"],
+                  "profile": c["profile"]}
+        for Bt, c in cells.items()}
+    log("train summary: " + json.dumps({"train": base, "whole_step": whole,
                                         "validation": val, "store_plan": plan}))
+    log("large-196M summary: " + json.dumps({
+        "train": large_summary, "routes": large["routes"], "whole_step": large["whole_step"],
+        "validation": large["validation"], "slice": large["slice"]}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -50,3 +50,62 @@ def test_shape_mismatch_fails_the_strict_load():
     model = RNNT(RNNTModelConfig(**dict(TINY, joint_n_hid=20)), K, device="cpu")
     with pytest.raises(RuntimeError):
         load_jax_params(model, params)
+
+
+# large-196M's shape at a narrow width: the predictor half the encoder's
+# width, 2 + 6 encoder layers, and its joint learning-rate factor
+LARGE_SHAPED = dict(
+    in_feats=12, enc_n_hid=24, enc_pre_rnn_layers=2, enc_post_rnn_layers=6,
+    enc_stack_time_factor=2, pred_n_hid=12, pred_rnn_layers=2, joint_n_hid=16,
+    joint_net_lr_factor=0.243,
+)
+
+
+def test_keys_and_shapes_at_a_large_shaped_config():
+    """The key set, every shape and every value at the large-shaped config,
+    for the weights and for a whole train state."""
+    from caiman_asr_tpu_torch.export.from_jax import train_state_from_jax
+    from caiman_asr_tpu_torch.training.tree import tree_items
+
+    n_classes = 35
+    params = JaxRNNT(JaxConfig(**LARGE_SHAPED), n_classes).init(jax.random.PRNGKey(1))
+    params_np = jax.tree.map(np.asarray, params)
+    ref = export_state_dict(params)
+    model = RNNT(RNNTModelConfig(**LARGE_SHAPED), n_classes, device="cpu")
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {
+        k: tuple(np.shape(v)) for k, v in ref.items()}
+    assert model.param_lr_factors()["joint_fc"] == 0.243
+    ema = jax.tree.map(lambda a: a * 0.5, params_np)
+    mu = jax.tree.map(lambda a: a * 0.25, params_np)
+    nu = jax.tree.map(lambda a: a * a, params_np)
+    state = train_state_from_jax(model, params_np, ema, mu, nu, 7, 5, 6)
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(ref[k]), err_msg=k)
+    assert (state.opt_state.count, state.opt_state.sched_count, state.step) == (7, 5, 6)
+    want = dict(tree_items(state.params))
+    assert len(want) == len(ref)
+    for tree, scale in ((state.ema_params, 0.5), (state.opt_state.mu, 0.25)):
+        got = dict(tree_items(tree))
+        assert got.keys() == want.keys()
+        for path, leaf in got.items():
+            assert leaf.shape == want[path].shape and leaf.dtype == want[path].dtype
+            np.testing.assert_array_equal(leaf.numpy(), want[path].detach().numpy() * scale)
+    for path, leaf in tree_items(state.opt_state.nu):
+        np.testing.assert_array_equal(leaf.numpy(), want[path].detach().numpy() ** 2)
+
+
+def test_the_large_config_file_gives_the_numbers_chip_smoke_writes_out():
+    """``configs/large-17407sp.yaml`` through ``load_config`` equals the
+    ``rnnt`` numbers ``chip_smoke.py`` builds large-196M from (the machine
+    with the card has no YAML reader), and its classes are the 17,407
+    sentencepieces plus the blank."""
+    from pathlib import Path
+
+    import chip_smoke
+    from caiman_asr_tpu_torch.models.config import load_config
+
+    cfg = load_config(Path(chip_smoke.__file__).parent / "configs" / "large-17407sp.yaml")
+    assert cfg.rnnt == chip_smoke.model_config("large-196M")
+    assert (cfg.rnnt.enc_n_hid, cfg.rnnt.pred_n_hid, cfg.rnnt.joint_n_hid) == (1536, 768, 1024)
+    assert cfg.rnnt.joint_net_lr_factor == 0.243
+    assert chip_smoke.MODELS["large-196M"][1] == 17407 + 1

@@ -1,8 +1,10 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
 on the card: the LSTM recurrence forward (K1), its store-gates variant (K3a)
 and backward (K3b) (``caiman_asr_tpu_torch/ops/csrc/lstm_recurrence*.cu``),
-and the joint's forward (K2, K5-store) and stored-slab backward passes
-(K5-A, K5-B) (``csrc/joint_fwd.cu``, ``csrc/joint_bwd.cu``).
+the joint's forward (K2, K5-store, K7-store8), its stored-slab backward
+passes (K5-A, K5-B) and its one-call backwards over the int8 slab
+(K7-fused-u8) and with no slab (K6-fused) (``csrc/joint_fwd.cu``,
+``csrc/joint_bwd.cu``, ``csrc/joint_bwd_fused.cu``).
 
 A CUDA kernel has no interpret mode, so these tests need a GPU and nvcc and
 skip elsewhere; run them on the card with
@@ -17,7 +19,15 @@ another order; both sides round the same fp32 values to bf16); the stored
 slab u one bf16 ulp (2^-7 relative: z differs in its last fp32 bits);
 gradients through the bf16 slab atol 2e-3 / rtol 1e-3 against a dense
 fp32 reference, the JAX package's own tolerance for that route
-(``tests/ops/test_pallas_joint.py``).
+(``tests/ops/test_pallas_joint.py``), and 5e-2 / 5e-2 through the int8 slab,
+likewise; the int8 slab itself equal to the plain version's or one step
+apart on at most 0.1% of the entries (where ``u * (127 / m)`` differs in its
+last bit at a rounding boundary), its scales, each one value of u = exp(z), at rtol
+5e-5 (z, up to ~15 at these inputs, differs in its last fp32 bits between
+the kernel's product and the plain version's). K6-fused with bf16 inputs:
+1e-3 of the result's scale, since u and dz are rounded to bf16 inside from
+values that differ in their last fp32 bits, and a rounding that falls the
+other way moves one term by 2^-8.
 """
 
 import numpy as np
@@ -240,3 +250,124 @@ def test_joint_kernels_reject_what_they_do_not_take(cuda):
         jk.joint_bwd_dw(h, u, cs, cl, labels.long())
     with pytest.raises(ValueError):
         jk.joint_bwd_dh(u, wt, cs)  # w must be [Hj, K]
+
+
+# ------------------------------------------- the int8 slab and no slab
+# (N, Hj, K, kt): one scale tile; three with a ragged last one; large-196M's
+# widths (8.5 tiles of 2,048); scale tiles as narrow as the kernel's own
+I8_SHAPES = [(70, 32, 600, 1024), (300, 96, 2500, 1024), (513, 1024, 17408, 2048),
+             (260, 64, 1000, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hj,K,kt", I8_SHAPES)
+def test_joint_store8_kernel_matches_plain(cuda, dtype, N, Hj, K, kt):
+    h, wt, b, *_ = _joint_inputs(N, Hj, K, dtype, cuda, seed=8)
+    before = jk.joint_fwd_store8.launches
+    sums, q, s = jk.joint_fwd_store8(h, wt, b, kt)
+    torch.cuda.synchronize()
+    assert jk.joint_fwd_store8.launches == before + 1
+    ref_sums, ref_q, ref_s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+    assert q.dtype == torch.int8 and q.shape == (N, K) and s.shape == (-(-K // kt), N)
+    torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=0)
+    assert torch.equal(sums, jk.joint_fwd(h, wt, b)[0])
+    torch.testing.assert_close(s, ref_s, rtol=5e-5, atol=0)
+    diff = (q.int() - ref_q.int()).abs()
+    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() <= 1e-3
+    assert q.max().item() == 127 and q.min().item() >= 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hj,K,kt", I8_SHAPES + [(20000, 128, 384, 128)])
+def test_joint_fused_u8_kernel_matches_plain(cuda, dtype, N, Hj, K, kt):
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, dtype, cuda, seed=9)
+    _, q, s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+    w = wt.t().contiguous()
+    before = jk.joint_bwd_fused_u8.launches
+    got = jk.joint_bwd_fused_u8(h, q, s, w, cs, cl, labels, kt)
+    torch.cuda.synchronize()
+    assert jk.joint_bwd_fused_u8.launches == before + 2
+    for g, r in zip(got, jk.joint_bwd_fused_u8_plain(h, q, s, w, cs, cl, labels, kt)):
+        _rel_close(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hj,K", JOINT_SHAPES + [(513, 1024, 17408)])
+@pytest.mark.parametrize("ws_rows", [None, 256], ids=["one-chunk", "chunks"])
+def test_joint_fused_kernel_matches_plain(cuda, monkeypatch, dtype, N, Hj, K, ws_rows):
+    """``chunks``: a workspace of 256 rows, so the rows are walked in several
+    chunks and pass B adds into dw and db in place."""
+    if ws_rows is not None:
+        monkeypatch.setattr(jk, "FUSED_WS_BYTES", ws_rows * K * 4)
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, dtype, cuda, seed=10)
+    w = wt.t().contiguous()
+    chunks = -(-N // jk.fused_workspace_rows(N, K))
+    assert chunks == (1 if ws_rows is None else -(-N // ws_rows))
+    before = jk.joint_bwd_fused.launches
+    got = jk.joint_bwd_fused(h, w, b, cs, cl, labels)
+    torch.cuda.synchronize()
+    assert jk.joint_bwd_fused.launches == before + 3 * chunks
+    for g, r in zip(got, jk.joint_bwd_fused_plain(h, w, b, cs, cl, labels)):
+        _rel_close(g, r, 1e-4 if dtype == torch.float32 else 1e-3)
+
+
+# route -> (Z_STORE_LIMIT_BYTES, _ZSTORE_DTYPE, FUSED_BWD, tolerance against dense autograd)
+ROUTES = {"K7-fused-u8": (1 << 62, "i8", True, dict(rtol=5e-2, atol=5e-2)),
+          "K6-fused": (0, "auto", True, dict(rtol=1e-3, atol=2e-3))}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("blank", [599, 100])
+def test_fused_joint_lse_routes_on_the_card_match_a_dense_reference(cuda, monkeypatch, route,
+                                                                    blank):
+    limit, dtype, fused, tol = ROUTES[route]
+    monkeypatch.setattr(jk, "Z_STORE_LIMIT_BYTES", limit)
+    monkeypatch.setattr(jk, "_ZSTORE_DTYPE", dtype)
+    monkeypatch.setattr(jk, "FUSED_BWD", fused)
+    N, Hj, K = 70, 32, 600
+    assert jk.store_plan(N, Hj, K)["backward"] == route
+    h, wt, b, labels, _, _ = _joint_inputs(N, Hj, K, torch.float32, cuda, seed=5)
+    w = wt.t().contiguous()
+    rng = np.random.default_rng(6)
+    cb, cl = (torch.from_numpy(rng.normal(size=(N,)).astype(np.float32)).to(cuda)
+              for _ in range(2))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (h, w, b)]
+        lb, ll = fn(*leaves)
+        loss = (lb * cb).sum() + (ll * cl).sum()
+        return (lb, ll) + torch.autograd.grad(loss, leaves)
+
+    def dense(h, w, b):
+        z = h @ w + b
+        d = torch.logsumexp(z, 1)
+        return z[:, blank] - d, z.gather(1, labels.long()[:, None])[:, 0] - d
+
+    before = (jk.joint_fwd_store8.launches, jk.joint_bwd_fused_u8.launches,
+              jk.joint_fwd.launches, jk.joint_bwd_fused.launches)
+    got = run(lambda h, w, b: jk.fused_joint_lse(h, w, b, labels, blank))
+    after = (jk.joint_fwd_store8.launches, jk.joint_bwd_fused_u8.launches,
+             jk.joint_fwd.launches, jk.joint_bwd_fused.launches)
+    added = tuple(a - b for a, b in zip(after, before))
+    assert added == ((1, 2, 0, 0) if route == "K7-fused-u8" else (0, 0, 1, 3))
+    want = run(dense)
+    for g, r in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+    for g, r in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, r, **tol)
+
+
+def test_new_joint_kernels_reject_what_they_do_not_take(cuda):
+    h, wt, b, labels, cs, cl = _joint_inputs(16, 8, 40, torch.float32, cuda)
+    w = wt.t().contiguous()
+    with pytest.raises(ValueError):
+        jk.joint_fwd_store8(h, wt, b, 100)  # the scale tile is not a multiple of 128
+    _, q, s = jk.joint_fwd_store8(h, wt, b, 128)
+    with pytest.raises(TypeError):
+        jk.joint_bwd_fused_u8(h, q.float(), s, w, cs, cl, labels, 128)
+    with pytest.raises(ValueError):
+        jk.joint_bwd_fused_u8(h, q, s.t().contiguous(), w, cs, cl, labels, 128)
+    with pytest.raises(TypeError):
+        jk.joint_bwd_fused(h, w, b, cs, cl, labels.long())
+    with pytest.raises(ValueError):
+        jk.joint_bwd_fused(h, wt, b, cs, cl, labels)  # w must be [Hj, K]

@@ -26,6 +26,10 @@ CFG = dict(
     in_feats=240, enc_n_hid=32, enc_pre_rnn_layers=2, enc_post_rnn_layers=2,
     enc_stack_time_factor=2, pred_n_hid=16, pred_rnn_layers=2, joint_n_hid=24,
 )
+# large-196M's shape at a narrow width: 2 + 6 encoder layers, the predictor
+# half the encoder's width, its joint learning-rate factor
+LARGE_SHAPED = dict(CFG, enc_n_hid=48, enc_post_rnn_layers=6, pred_n_hid=24, joint_n_hid=32,
+                    joint_net_lr_factor=0.243)
 
 
 def _audio(seed=0):
@@ -39,11 +43,12 @@ def _audio(seed=0):
     return audio, lens
 
 
+@pytest.mark.parametrize("cfg", [CFG, LARGE_SHAPED], ids=["base-shaped", "large-shaped"])
 @pytest.mark.parametrize("with_stats", [False, True])
-def test_transcribe_equals_jax(with_stats):
-    jm = JaxRNNT(JaxConfig(**CFG), K)
+def test_transcribe_equals_jax(with_stats, cfg):
+    jm = JaxRNNT(JaxConfig(**cfg), K)
     params = jm.init(jax.random.PRNGKey(0))
-    model = load_jax_params(RNNT(RNNTModelConfig(**CFG), K, device="cpu"),
+    model = load_jax_params(RNNT(RNNTModelConfig(**cfg), K, device="cpu"),
                             jax.tree.map(np.asarray, params))
     audio, lens = _audio()
     stats = None

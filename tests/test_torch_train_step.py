@@ -4,16 +4,23 @@ same parameters and batches made with numpy from a seed.
 
 The JAX step runs its fused joint route (the Pallas kernels in interpret
 mode, as the JAX package's own kernel tests run them on the CPU), which is
-the route it takes on a TPU and the only one the port has: both store the
-bf16 u = exp(z) slab and take the two-kernel backward, so both round the
-same way. The tiny model is ``tests/training/test_step.py``'s, with dropout
-0 so that no random mask enters.
+the route it takes on a TPU. Every test that steps runs once per ported
+joint route, both packages forced onto it through the same policy
+attributes: the bf16 u = exp(z) slab with the two-kernel backward (the
+default at this size), the int8 slab with its fused backward, and no slab
+with the fused backward; so both sides round the same way. The tiny model
+is ``tests/training/test_step.py``'s, with dropout 0 so that no random mask
+enters; on the two large-196M routes it is large-shaped (the predictor half
+the encoder's width, ``joint_net_lr_factor`` 0.243 as
+``configs/large-17407sp.yaml``).
 
 Tolerances (fp32 compute): loss rtol 1e-5 and gradient norm rtol 1e-4 (the
 same arithmetic, sums in another order); parameters, EMA and moments atol
 2e-6 / rtol 1e-4 — one LAMB step moves a parameter by about lr = 5e-3, and
 a gradient that differs in its last bits moves the Adam direction g/|g|
-by as little.
+by as little. On the int8 route atol 1e-5: a slab entry at a rounding
+boundary may fall the other way on the two sides and move a softmax
+numerator by 1/127 of its row's maximum.
 """
 
 import contextlib
@@ -39,6 +46,7 @@ from caiman_asr_tpu.training.step import make_val_loss_step as jax_make_val_loss
 from caiman_asr_tpu_torch.export.from_jax import load_jax_params, train_state_from_jax
 from caiman_asr_tpu_torch.models.config import RNNTModelConfig
 from caiman_asr_tpu_torch.models.rnnt import RNNT
+from caiman_asr_tpu_torch.ops import joint_kernel as jk
 from caiman_asr_tpu_torch.training.lr import lr_schedule
 from caiman_asr_tpu_torch.training.optimizer import Lamb, OptimizerConfig
 from caiman_asr_tpu_torch.training.step import (
@@ -54,13 +62,33 @@ TINY = dict(in_feats=8, enc_n_hid=16, enc_pre_rnn_layers=1, enc_post_rnn_layers=
 OPT = dict(lr=1e-2, warmup_steps=1, hold_steps=100, half_life_steps=100)
 SCALARS = {"delay_penalty": 0.0, "star_penalty": 0.0, "grad_noise_std": 0.0}
 STATE_TOL = dict(atol=2e-6, rtol=1e-4)
+LARGE_SHAPED = dict(TINY, joint_net_lr_factor=0.243)
+# route -> (model config, Z_STORE_LIMIT_BYTES, _ZSTORE_DTYPE, FUSED_BWD, state tolerance)
+ROUTES = {
+    "bf16-slab": (TINY, None, "auto", "auto", STATE_TOL),
+    "int8-fused": (LARGE_SHAPED, 1 << 62, "i8", True, dict(atol=1e-5, rtol=1e-4)),
+    "no-slab-fused": (LARGE_SHAPED, 0, "auto", True, STATE_TOL),
+}
+BACKWARD = {"bf16-slab": "K5-A + K5-B", "int8-fused": "K7-fused-u8", "no-slab-fused": "K6-fused"}
 
 
 @contextlib.contextmanager
-def jax_fused_joint():
-    """Route the JAX loss through its fused Pallas joint, in interpret mode."""
-    fused = pj.fused_joint_lse
+def on_route(route, mod):
+    """Force ``mod`` (either package's joint module) onto ``route``."""
+    _, limit, dtype, fused, _ = ROUTES[route]
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod, "Z_STORE_LIMIT_BYTES", limit)
+        mp.setattr(mod, "_ZSTORE_DTYPE", dtype)
+        mp.setattr(mod, "FUSED_BWD", fused)
+        yield
+
+
+@contextlib.contextmanager
+def jax_fused_joint(route="bf16-slab"):
+    """Route the JAX loss through its fused Pallas joint, in interpret mode,
+    on ``route``."""
+    fused = pj.fused_joint_lse
+    with on_route(route, pj), pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtl, "_fused_joint_ok", lambda H: True)
         mp.setattr(pj, "fused_joint_lse",
                    lambda h, w, b, labels, blank, interpret=False: fused(h, w, b, labels,
@@ -89,12 +117,25 @@ def to_torch(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
+@pytest.fixture(scope="module", params=list(ROUTES))
+def route(request):
+    return request.param
+
+
+@pytest.fixture
+def port_route(route):
+    """The port on the fixture's route for the length of a test."""
+    with on_route(route, jk):
+        assert jk.store_plan(8 * 6 * 5, 16, N_CLASSES)["backward"] == BACKWARD[route]
+        yield route
+
+
 @pytest.fixture(scope="module")
-def jax_side():
-    model = JaxRNNT(JaxConfig(**TINY), N_CLASSES)
+def jax_side(route):
+    model = JaxRNNT(JaxConfig(**ROUTES[route][0]), N_CLASSES)
     opt = jax_build_optimizer(JaxOptConfig(**OPT), model.param_lr_factors())
     state = jax_init_train_state(model, opt, jax.random.PRNGKey(0))
-    with jax_fused_joint():
+    with jax_fused_joint(route):
         step = jax_make_train_step(model, opt, BLANK, donate=False)
         batches = [make_batch(np.random.default_rng(s)) for s in (1, 2)]
         states, metrics = [state], []
@@ -108,8 +149,8 @@ def jax_side():
     return model, opt, step, batches, states, metrics, vb, [float(x) for x in val_out]
 
 
-def port_model(params):
-    model = RNNT(RNNTModelConfig(**TINY), N_CLASSES, device="cpu")
+def port_model(params, route="bf16-slab"):
+    model = RNNT(RNNTModelConfig(**ROUTES[route][0]), N_CLASSES, device="cpu")
     return load_jax_params(model, jax.tree.map(np.asarray, params))
 
 
@@ -136,7 +177,7 @@ def _jax_leaves(tree):
     return out
 
 
-def assert_state_close(port_state, jax_state):
+def assert_state_close(port_state, jax_state, tol=STATE_TOL):
     adam, sched = extract_opt_state(jax_state.opt_state)
     pairs = [(port_state.params, jax_state.params), (port_state.ema_params, jax_state.ema_params),
              (port_state.opt_state.mu, adam.mu), (port_state.opt_state.nu, adam.nu)]
@@ -144,15 +185,17 @@ def assert_state_close(port_state, jax_state):
         got, want = _np(got_tree), _jax_leaves(want_tree)
         assert got.keys() == want.keys()
         for path in got:
-            np.testing.assert_allclose(got[path], want[path], err_msg=str(path), **STATE_TOL)
+            np.testing.assert_allclose(got[path], want[path], err_msg=str(path), **tol)
     assert port_state.opt_state.count == int(adam.count)
     assert port_state.opt_state.sched_count == int(sched.count)
     assert port_state.step == int(jax_state.step)
 
 
-def test_one_and_two_steps_match_jax(jax_side):
+def test_one_and_two_steps_match_jax(jax_side, port_route):
     jmodel, _, _, batches, jstates, jmetrics, _, _ = jax_side
-    model = port_model(jstates[0].params)
+    model = port_model(jstates[0].params, port_route)
+    assert model.param_lr_factors()["joint_fc"] == ROUTES[port_route][0].get(
+        "joint_net_lr_factor", 1.0)
     opt, step = port_step(model)
     state = init_train_state(model, opt, device="cpu")
     for b, js, jm in zip(batches, jstates[1:], jmetrics):
@@ -160,16 +203,16 @@ def test_one_and_two_steps_match_jax(jax_side):
         np.testing.assert_allclose(float(m["loss"]), jm["loss"], rtol=1e-5)
         np.testing.assert_allclose(float(m["grad_norm"]), jm["grad_norm"], rtol=1e-4)
         assert m["skipped"] == jm["skipped"] == 0
-        assert_state_close(state, js)
+        assert_state_close(state, js, ROUTES[port_route][4])
 
 
-def test_step_from_a_carried_state_matches_jax(jax_side):
+def test_step_from_a_carried_state_matches_jax(jax_side, port_route):
     """Start from JAX's state after one step (moments, counts and EMA not
     fresh) and take the second step on both sides."""
     _, _, _, batches, jstates, jmetrics, _, _ = jax_side
     js = jstates[1]
     adam, sched = extract_opt_state(js.opt_state)
-    model = RNNT(RNNTModelConfig(**TINY), N_CLASSES, device="cpu")
+    model = RNNT(RNNTModelConfig(**ROUTES[port_route][0]), N_CLASSES, device="cpu")
     to_np = lambda t: jax.tree.map(np.asarray, t)
     state = train_state_from_jax(model, to_np(js.params), to_np(js.ema_params), to_np(adam.mu),
                                  to_np(adam.nu), int(adam.count), int(sched.count),
@@ -178,12 +221,12 @@ def test_step_from_a_carried_state_matches_jax(jax_side):
     _, step = port_step(model)
     state, m = step(state, to_torch(batches[1]), None, SCALARS)
     np.testing.assert_allclose(float(m["loss"]), jmetrics[1]["loss"], rtol=1e-5)
-    assert_state_close(state, jstates[2])
+    assert_state_close(state, jstates[2], ROUTES[port_route][4])
 
 
-def test_nan_batch_is_skipped_with_the_state_unchanged(jax_side):
+def test_nan_batch_is_skipped_with_the_state_unchanged(jax_side, port_route):
     _, _, _, batches, jstates, _, _, _ = jax_side
-    model = port_model(jstates[0].params)
+    model = port_model(jstates[0].params, port_route)
     opt, step = port_step(model)
     state = init_train_state(model, opt, device="cpu")
     before = {k: v.copy() for k, v in _np(state.params).items()}
@@ -199,9 +242,9 @@ def test_nan_batch_is_skipped_with_the_state_unchanged(jax_side):
         assert all(not a.any() for a in _np(tree).values())
 
 
-def test_val_loss_matches_jax(jax_side):
+def test_val_loss_matches_jax(jax_side, port_route):
     _, _, _, _, jstates, _, vb, (want_sum, want_n) = jax_side
-    model = port_model(jstates[0].params)
+    model = port_model(jstates[0].params, port_route)
     val = make_val_loss_step(model, BLANK, device="cpu")
     got_sum, got_n = val(model.param_tree(), {k: torch.from_numpy(v[0]) for k, v in vb.items()})
     np.testing.assert_allclose(float(got_sum), want_sum, rtol=1e-5)
