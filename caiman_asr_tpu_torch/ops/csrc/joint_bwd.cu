@@ -1,20 +1,31 @@
-// Joint backward over the stored bf16 u = exp(z) slab for Hopper (sm_90a):
-// the counterparts of the Pallas TPU kernels
+// Joint backward over a stored u = exp(z) slab for Hopper (sm_90a), each
+// pass a call of its own: the counterparts of the Pallas TPU kernels
 //   caiman_asr_tpu/ops/pallas_joint.py::_bwd_dh_kernel_u (K5-A, pass A) and
-//   caiman_asr_tpu/ops/pallas_joint.py::_bwd_dw_kernel_u (K5-B, pass B).
-// The passes themselves, and their design, are in joint_bwd.cuh; this file
-// instantiates them for the bf16 slab.
+//   caiman_asr_tpu/ops/pallas_joint.py::_bwd_dw_kernel_u (K5-B, pass B)
+// over the bf16 slab, and
+//   caiman_asr_tpu/ops/pallas_joint.py::_bwd_dh_kernel_u8 (K7-A8) and
+//   caiman_asr_tpu/ops/pallas_joint.py::_bwd_dw_kernel_u8 (K7-B8)
+// over the scaled-int8 slab. The passes themselves, and their design, are
+// in joint_bwd.cuh; this file instantiates them for the two slabs.
 //
 // What bounds them: each pass is 2 N Hj K operations (as the forward) and
-// reads the slab once (N K 2 bytes), so both are operation-bound GEMMs.
-// bf16 inputs run them on the tensor cores (WMMA), fp32 inputs on the CUDA
-// cores (joint_tile.cuh).
+// reads the slab once (N K 2 bytes, or N K), so all are operation-bound
+// GEMMs. bf16 inputs run them on the tensor cores (WMMA), fp32 inputs on
+// the CUDA cores (joint_tile.cuh).
 
 #include "joint_bwd.cuh"
 
+namespace {
+
+joint::SlabI8 slab_i8(const void* q, const void* scales, int N, int K, int kt) {
+  return {static_cast<const int8_t*>(q), static_cast<const float*>(scales), K, N, kt};
+}
+
+}  // namespace
+
 extern "C" {
 
-// Pass A, one launch. u bf16 [N, K]; w [Hj, K] in the compute dtype
+// K5-A, one launch. u bf16 [N, K]; w [Hj, K] in the compute dtype
 // (0 = float32, 1 = bfloat16); cs [N] and smear [N, Hj] fp32.
 int joint_bwd_dh(const void* u, const void* w, const void* cs, void* smear, int N, int Hj,
                  int K, int dtype, void* stream) {
@@ -23,17 +34,41 @@ int joint_bwd_dh(const void* u, const void* w, const void* cs, void* smear, int 
                           N, Hj, K, dtype, static_cast<cudaStream_t>(stream));
 }
 
-// Pass B, one launch. h [N, Hj] in the compute dtype; u bf16 [N, K]; cs, cl
-// [N] fp32; labels [N] int32; dw [Hj, K] and db [K] fp32 (every element
-// written).
+// K5-B, one launch. h [N, Hj] in the compute dtype; u bf16 [N, K]; cs, cl
+// [N] fp32; labels [N] int32; dw [Hj, K] and db [K] fp32: every element
+// written, or with accumulate != 0 added to (a caller walking the rows in
+// chunks).
 int joint_bwd_dw(const void* h, const void* u, const void* cs, const void* cl,
-                 const void* labels, void* dw, void* db, int N, int Hj, int K, int dtype,
-                 void* stream) {
+                 const void* labels, void* dw, void* db, int N, int Hj, int K, int accumulate,
+                 int dtype, void* stream) {
   const joint::SlabBf16 src{static_cast<const __nv_bfloat16*>(u), K};
   return joint::launch_dw(h, src, static_cast<const float*>(cs), static_cast<const float*>(cl),
                           static_cast<const int*>(labels), static_cast<float*>(dw),
-                          static_cast<float*>(db), N, Hj, K, false, dtype,
+                          static_cast<float*>(db), N, Hj, K, accumulate != 0, dtype,
                           static_cast<cudaStream_t>(stream));
+}
+
+// K7-A8, one launch. q int8 [N, K]; scales fp32 [ceil(K / kt), N], kt a
+// multiple of 8; the rest as K5-A. The dequantised u is rounded to bf16 for
+// the product whatever the weight dtype (pallas_joint.py:396-398).
+int joint_bwd_dh_u8(const void* q, const void* scales, const void* w, const void* cs,
+                    void* smear, int N, int Hj, int K, int kt, int dtype, void* stream) {
+  if (kt <= 0 || kt % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return joint::launch_dh(slab_i8(q, scales, N, K, kt), w, static_cast<const float*>(cs),
+                          static_cast<float*>(smear), N, Hj, K, dtype,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// K7-B8, one launch. The slab as K7-A8, the rest as K5-B (every element of
+// dw and db written); dz is built from the unrounded q * scale.
+int joint_bwd_dw_u8(const void* h, const void* q, const void* scales, const void* cs,
+                    const void* cl, const void* labels, void* dw, void* db, int N, int Hj,
+                    int K, int kt, int dtype, void* stream) {
+  if (kt <= 0 || kt % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return joint::launch_dw(h, slab_i8(q, scales, N, K, kt), static_cast<const float*>(cs),
+                          static_cast<const float*>(cl), static_cast<const int*>(labels),
+                          static_cast<float*>(dw), static_cast<float*>(db), N, Hj, K, false,
+                          dtype, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,7 +1,14 @@
 // The joint's two backward passes as templates over where u = exp(z) is read
-// from (joint_bwd.cu instantiates them for the stored bf16 slab,
-// joint_bwd_fused.cu for the scaled-int8 slab and for a fixed-size fp32
-// workspace).
+// from. The sources of u and who instantiates the passes for them:
+//   SlabBf16, the stored bf16 slab (or a row chunk's bf16 tile): joint_bwd.cu
+//     (K5-A, K5-B, each a call), joint_bwd_fused.cu (K5-fused-u, both behind
+//     one call), joint_bwd_recompute.cu (K6-derive-a's pass A, bf16 weights);
+//   SlabI8, the scaled-int8 slab: joint_bwd.cu (K7-A8, K7-B8),
+//     joint_bwd_fused.cu (K7-fused-u8);
+//   SlabF32, a fixed-size fp32 workspace a row chunk is derived into:
+//     joint_bwd_fused.cu (K6-fused), joint_bwd_recompute.cu (K6-derive-a
+//     with fp32 weights; K4-A and K4-B, where it holds the softmax p itself
+//     and cs below is the unscaled cb + cl).
 //
 // With cs = (cb + cl) exp(-denom) per row (the softmax row scale folded in
 // by the caller):
@@ -14,7 +21,9 @@
 // as bf16 for the tensor cores whatever its source; fp32 inputs take u as
 // it is, except from the int8 slab, whose dequantised value the TPU kernel
 // rounds to bf16 for pass A whatever the weight dtype
-// (pallas_joint.py:333-336).
+// (pallas_joint.py:333-336). A label outside [0, K) (the caller shifted it
+// to a range of columns that does not hold it) meets no column: the compare
+// is signed.
 //
 // Design. A Hopper block cannot carry a sum across a sequential grid axis
 // as the TPU kernels do, so each block owns one output tile and loops over

@@ -2,8 +2,8 @@
 kernels, their plain PyTorch versions, their launch counts, the store policy
 and the autograd Function around them.
 
-Replaces the Pallas TPU kernels of ``caiman_asr_tpu/ops/pallas_joint.py``
-on the routes its default policy takes for base-85M and large-196M:
+Replaces the Pallas TPU kernels of ``caiman_asr_tpu/ops/pallas_joint.py``,
+every one that its forward and its backward can reach:
 
 - K2 ``_fwd_kernel``: per row ``sum_k exp(h . w_k + b_k)`` (``joint_fwd``);
 - K5-store ``_fwd_kernel_store``: the same, also writing ``u = exp(z)`` to a
@@ -14,14 +14,27 @@ on the routes its default policy takes for base-85M and large-196M:
   mode;
 - K5-A ``_bwd_dh_kernel_u``: ``smear = -cs * (u @ W^T)`` (``joint_bwd_dh``);
 - K5-B ``_bwd_dw_kernel_u``: ``dz = -cs * u + onehot(label) cl``,
-  ``dW = h^T dz``, ``db = sum dz`` (``joint_bwd_dw``); both in
-  ``csrc/joint_bwd.cu``;
-- K7-fused-u8 ``_bwd_fused_kernel_u8``: both passes over the int8 slab in
-  one call (``joint_bwd_fused_u8``);
+  ``dW = h^T dz``, ``db = sum dz`` (``joint_bwd_dw``);
+- K7-A8 ``_bwd_dh_kernel_u8`` and K7-B8 ``_bwd_dw_kernel_u8``: the same two
+  passes over the int8 slab (``joint_bwd_dh_u8``, ``joint_bwd_dw_u8``); all
+  four in ``csrc/joint_bwd.cu``;
+- K5-fused-u ``_bwd_fused_kernel_u`` and K7-fused-u8
+  ``_bwd_fused_kernel_u8``: both passes behind one call, over the bf16 and
+  the int8 slab (``joint_bwd_fused_u``, ``joint_bwd_fused_u8``);
 - K6-fused ``_bwd_fused_kernel``: both passes with no slab, ``u`` derived
-  again from h, w, b (``joint_bwd_fused``); both in
-  ``csrc/joint_bwd_fused.cu``. The passes are templates shared by the three
-  backward sources (``csrc/joint_bwd.cuh``).
+  again from h, w, b (``joint_bwd_fused``); the three in
+  ``csrc/joint_bwd_fused.cu``;
+- K6-derive-a ``_derive_a_kernel``: for a chunk of rows, ``u`` derived again,
+  written as a bf16 tile, and pass A from the fp32 ``u``
+  (``joint_derive_a``; the rechunked backward walks the rows with it and
+  K5-B);
+- K4-A ``_bwd_dh_kernel`` and K4-B ``_bwd_dw_kernel``: the per-pass
+  recompute over a range of vocab columns, each deriving the softmax
+  ``p = exp(z - denom)`` itself (``joint_bwd_dh_recompute``,
+  ``joint_bwd_dw_recompute``); the three in ``csrc/joint_bwd_recompute.cu``.
+  The passes are templates over the source of u, shared by the three
+  backward sources (``csrc/joint_bwd.cuh``), the derivation likewise
+  (``csrc/joint_derive.cuh``).
 
 ``fused_joint_lse`` keeps the contract and the layouts of
 ``pallas_joint.py:630-638``. As there, there is no max subtraction: a logit
@@ -30,24 +43,30 @@ step skips the batch. Under a gradient the store policy (ported with its
 constants and its ``CAIMAN_JOINT_*`` knobs, ``pallas_joint.py:552-720`` and
 ``:1061-1071``, so that the same shape takes the same route) picks the
 forward, and the backward follows ``_vjp_bwd`` (``:1230-1343``) branch for
-branch:
+branch. The eight routes, and the knob that leads to each where the default
+policy ("auto") does not:
 
-============================  =========  ==================================
-plan                          forward    backward
-============================  =========  ==================================
-bf16 slab                     K5-store   K5-A + K5-B
-int8 slab                     K7-store8  K7-fused-u8
-nothing stored                K2         K6-fused
-============================  =========  ==================================
+==================  =============  ==========================  ======================
+plan                forward        backward                    reached by
+==================  =============  ==========================  ======================
+bf16 slab           K5-store       K5-A + K5-B                 default
+bf16 slab           K5-store       K5-fused-u                  ``FUSED_BWD=1``
+int8 slab           K7-store8      K7-fused-u8                 default
+int8 slab           K7-store8      K7-A8 + K7-B8               ``FUSED_BWD=0``
+nothing stored      K2             K6-fused                    default
+nothing stored      K2             K6-derive-a + K5-B per      ``FUSED_BWD=0``
+                                   row chunk (rechunked)
+nothing stored      K2             K4-A + K4-B                 ``FUSED_BWD=0``,
+                                                               ``RECHUNK_MB=0``
+bf16 slab over      K5-store over  the bf16 slab's backward    ``ZSTORE_PARTIAL=1``
+``[0, ks)`` (the    ``[0, ks)``,   over ``[0, ks)``, K4-A +    when the whole slab
+hybrid split)       K2 over        K4-B over ``[ks, K)``       is past the budget
+                    ``[ks, K)``
+==================  =============  ==========================  ======================
 
-The branches the knobs can also reach raise ``NotImplementedError`` naming
-the kernel that is not ported yet: the fused stored-u backward (K5-fused-u,
-``CAIMAN_JOINT_FUSED_BWD=1``), the two-kernel int8 backward (K7-A8, K7-B8,
-``CAIMAN_JOINT_FUSED_BWD=0``), the rechunked backward (K6-derive-a, when the
-fused one is off or does not fit), the per-pass recompute (K4-A, K4-B,
-``CAIMAN_JOINT_RECHUNK_MB=0``) and the hybrid split
-(``CAIMAN_JOINT_ZSTORE_PARTIAL=1``). Without a gradient (validation) the
-forward runs K2 and stores nothing.
+(``CAIMAN_JOINT_ZSTORE_DTYPE`` = ``bf16`` / ``i8`` / ``off`` and
+``CAIMAN_JOINT_ZSTORE_MB`` choose the plan whatever the shape.) Without a
+gradient (validation) the forward runs K2 and stores nothing.
 
 What bounds the kernels on an H100: each is one to three GEMMs of
 ``2 N Hj K`` operations with an elementwise prologue or epilogue, and the
@@ -161,44 +180,62 @@ def _pad(n: int, tile: int) -> int:
     return -(-n // tile) * tile
 
 
-# backward routes: the ported ones, then the ones that raise
-_PORTED = ("K5-A + K5-B", "K7-fused-u8", "K6-fused")
+# The branches of the backward, named by their kernels. A plan's route is one
+# of these for the columns the slab holds (all of them when nothing is
+# stored), plus K4 over the rest when the slab is partial (the hybrid split).
+R_K5, R_K5_FUSED = "K5-A + K5-B", "K5-fused-u"
+R_K7_FUSED, R_K7 = "K7-fused-u8", "K7-A8 + K7-B8"
+R_K6_FUSED, R_RECHUNK, R_K4 = "K6-fused", "K6-derive-a + K5-B", "K4-A + K4-B"
 
 
 def _backward_route(Hj: int, K: int, Kp: int, cols: int, dtype: Optional[str]) -> str:
     """The branch of ``_vjp_bwd`` (``pallas_joint.py:1230-1343``) a forward
-    that stored ``cols`` columns as ``dtype`` leads to, named by its kernels."""
+    that stored ``cols`` columns as ``dtype`` leads to, for those columns
+    (for all of them when nothing is stored)."""
     _, kt_f, tp_a, kt_a, _, _ = _tiles(Hj)
     if dtype is None:
         if _use_fused(stored=False) and _fused_bwd_fits(Hj, _pad(K, kt_a), tp_a, kt_a):
-            return "K6-fused"
-        if RECHUNK_LIMIT_BYTES > 0:
-            return "K6-derive-a + K5-B (the rechunked backward)"
-        return "K4-A + K4-B (the per-pass recompute)"
-    if min(cols, K) < K:
-        return "K4-A + K4-B beside the stored chunk (the hybrid split)"
+            return R_K6_FUSED
+        return R_RECHUNK if RECHUNK_LIMIT_BYTES > 0 else R_K4
+    width = Kp if cols >= K else cols  # of the slab as the JAX package pads it
     if dtype == "i8":
         tp_u8 = int(os.environ.get("CAIMAN_JOINT_U8_TP", tp_a))
-        if _use_fused(stored=True, i8=True) and _fused_bwd_fits(Hj, Kp, tp_u8, kt_f):
-            return "K7-fused-u8"
-        return "K7-A8 + K7-B8 (the two-kernel int8 backward)"
-    if _use_fused(stored=True) and _fused_bwd_fits(Hj, Kp, tp_a, kt_a):
-        return "K5-fused-u (the fused stored-u backward)"
-    return "K5-A + K5-B"
+        fused = _use_fused(stored=True, i8=True) and _fused_bwd_fits(Hj, width, tp_u8, kt_f)
+        return R_K7_FUSED if fused else R_K7
+    fused = _use_fused(stored=True) and _fused_bwd_fits(Hj, width, tp_a, kt_a)
+    return R_K5_FUSED if fused else R_K5
 
 
 def store_plan(N: int, Hj: int, K: int) -> dict:
     """The route of an [N, Hj] x [Hj, K] joint under a gradient: the padded
     sizes the JAX package decides from, the slab it stores (``cols`` columns
-    as ``dtype``), the bytes of the slab the port stores (unpadded; the int8
-    slab with its scales), the width ``kt`` of an int8 scale tile and the
-    backward's kernels."""
+    as ``dtype``; ``ks = min(cols, K)`` of the K classes), the bytes of the
+    slab the port stores (unpadded; the int8 slab with its scales), the
+    width ``kt`` of an int8 scale tile, the backward's ``route`` over the
+    stored columns and ``backward``, the whole backward named by its
+    kernels."""
     tp, kt = _tiles(Hj)[:2]
     Np, Kp = _pad(N, tp), _pad(K, kt)
     cols, dtype = _store_plan(Np, Kp, kt)
-    nbytes = {"bf16": N * K * 2, "i8": N * K + (Kp // kt) * N * 4, None: 0}[dtype]
-    return {"Np": Np, "Kp": Kp, "kt": kt, "cols": cols, "dtype": dtype, "slab_bytes": nbytes,
-            "backward": _backward_route(Hj, K, Kp, cols, dtype)}
+    ks = min(cols, K)
+    nbytes = {"bf16": N * ks * 2, "i8": N * K + (Kp // kt) * N * 4, None: 0}[dtype]
+    route = _backward_route(Hj, K, Kp, cols, dtype)
+    backward = route if ks in (0, K) else (
+        f"{route} over [0, {ks}) and {R_K4} over [{ks}, {K}) (the hybrid split)")
+    return {"Np": Np, "Kp": Kp, "kt": kt, "cols": cols, "dtype": dtype, "ks": ks,
+            "slab_bytes": nbytes, "route": route, "backward": backward}
+
+
+def rechunk_rows(N: int, Hj: int, K: int) -> int:
+    """Rows per chunk of the rechunked backward: as few chunks as keep one
+    chunk's bf16 ``[Nc, K]`` tile within ``RECHUNK_LIMIT_BYTES``, from the
+    padded sizes as ``pallas_joint.py:1362-1368`` (so that the knob means
+    what it means there)."""
+    _, _, tp_a, kt_a, tp_b, _ = _tiles(Hj)
+    tpm = max(tp_a, tp_b)
+    Np, Kp = _pad(N, tpm), _pad(K, kt_a)
+    n_chunks = max(1, -(-(Np * Kp * 2) // RECHUNK_LIMIT_BYTES))
+    return _pad(-(-Np // n_chunks), tpm)
 
 
 # ------------------------------------------------------------ plain versions
@@ -262,37 +299,73 @@ def joint_bwd_dh_plain(u, w, cs):
 
 
 def _dz(u, cs, cl, labels):
+    """dz = -cs * u + onehot(labels) cl; a label outside u's columns (shifted
+    to a column range that does not hold it) meets none."""
     dz = -cs[:, None] * u
-    rows = torch.arange(dz.shape[0], device=dz.device)
-    dz.index_put_((rows, labels.long()), cl.float(), accumulate=True)
+    lab = labels.long()
+    rows = torch.nonzero((lab >= 0) & (lab < dz.shape[1]))[:, 0]
+    dz.index_put_((rows, lab[rows]), cl.float()[rows], accumulate=True)
     return dz
 
 
-def joint_bwd_dw_plain(h, u, cs, cl, labels):
+def joint_bwd_dw_plain(h, u, cs, cl, labels, out=None):
     """K5-B's contract. h: [N, Hj] in the compute dtype; u: [N, K] bf16; cs,
     cl: [N] fp32; labels: [N]. With dz = -cs * u + onehot(labels) cl,
     returns (dw = h^T round_to_h_dtype(dz) [Hj, K], db = sum_rows dz [K]),
-    both fp32. The blank column's terms are the caller's."""
+    both fp32; with ``out=(dw, db)`` adds them to those in place (a caller
+    walking the rows in chunks). The blank column's terms are the
+    caller's."""
     dz = _dz(u.float(), cs, cl, labels)
-    return h.float().t() @ dz.to(h.dtype).float(), dz.sum(0)
+    dw, db = h.float().t() @ dz.to(h.dtype).float(), dz.sum(0)
+    if out is None:
+        return dw, db
+    out[0].add_(dw)
+    out[1].add_(db)
+    return out
 
 
-def _fused_plain(h, w, cs, cl, labels, u_of, round_a):
-    """Both passes over row chunks: ``u_of(lo, hi)`` gives the chunk's fp32 u,
-    ``round_a`` the dtype pass A rounds it to."""
-    N, Hj = h.shape
-    K = w.shape[1]
-    w32 = w.float()
-    smear = torch.empty((N, Hj), dtype=torch.float32, device=h.device)
-    dw = torch.zeros((Hj, K), dtype=torch.float32, device=h.device)
-    db = torch.zeros((K,), dtype=torch.float32, device=h.device)
+def _passes_plain(cs, u_of, a=None, b=None):
+    """Pass A and / or pass B over row chunks; ``u_of(lo, hi)`` gives the
+    chunk's fp32 u. ``a = (w, round_a)`` asks for pass A, u rounded to
+    ``round_a`` for the product; ``b = (h, cl, labels, K)`` for pass B. Returns
+    (smear, dw, db), None for a pass left out."""
+    N = cs.shape[0]
+    new = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=cs.device)
+    smear = dw = db = None
+    if a is not None:
+        w32, round_a = a[0].float(), a[1]
+        smear = new(N, w32.shape[0])
+    if b is not None:
+        h, cl, labels, K = b
+        dw, db = new(h.shape[1], K), new(K)
     for lo, hi in _row_chunks(N):
         u = u_of(lo, hi)
-        smear[lo:hi] = -cs[lo:hi, None] * (u.to(round_a).float() @ w32.t())
-        dz = _dz(u, cs[lo:hi], cl[lo:hi], labels[lo:hi])
-        db += dz.sum(0)
-        dw += h[lo:hi].float().t() @ dz.to(h.dtype).float()
+        if a is not None:
+            smear[lo:hi] = -cs[lo:hi, None] * (u.to(round_a).float() @ w32.t())
+        if b is not None:
+            dz = _dz(u, cs[lo:hi], cl[lo:hi], labels[lo:hi])
+            db += dz.sum(0)
+            dw += h[lo:hi].float().t() @ dz.to(h.dtype).float()
     return smear, dw, db
+
+
+def joint_bwd_fused_u_plain(h, u, w, cs, cl, labels):
+    """K5-fused-u's contract: K5-A and K5-B behind one call. Returns
+    (smear [N, Hj], dw [Hj, K], db [K]), fp32
+    (``pallas_joint.py:258-311``). The blank column's terms are the
+    caller's."""
+    return _passes_plain(cs, lambda lo, hi: u[lo:hi].float(), (w, torch.bfloat16),
+                         (h, cl, labels, w.shape[1]))
+
+
+def _dequantised(q, s, kt: int):
+    K = q.shape[1]
+
+    def u_of(lo, hi):
+        scale = s[:, lo:hi].t().repeat_interleave(kt, dim=1)[:, :K]
+        return q[lo:hi].float() * scale
+
+    return u_of
 
 
 def joint_bwd_fused_u8_plain(h, q, s, w, cs, cl, labels, kt: int):
@@ -303,13 +376,21 @@ def joint_bwd_fused_u8_plain(h, q, s, w, cs, cl, labels, kt: int):
     dw = h^T round_to_h_dtype(dz), db = sum_rows dz
     (``pallas_joint.py:314-366``). Returns (smear [N, Hj], dw [Hj, K],
     db [K]), fp32. The blank column's terms are the caller's."""
-    K = w.shape[1]
+    return _passes_plain(cs, _dequantised(q, s, kt), (w, torch.bfloat16),
+                         (h, cl, labels, w.shape[1]))
 
-    def u_of(lo, hi):
-        scale = s[:, lo:hi].t().repeat_interleave(kt, dim=1)[:, :K]
-        return q[lo:hi].float() * scale
 
-    return _fused_plain(h, w, cs, cl, labels, u_of, torch.bfloat16)
+def joint_bwd_dh_u8_plain(q, s, w, cs, kt: int):
+    """K7-A8's contract: the smear of :func:`joint_bwd_fused_u8_plain` alone,
+    the dequantised u rounded to bf16 whatever the weight dtype
+    (``pallas_joint.py:388-405``)."""
+    return _passes_plain(cs, _dequantised(q, s, kt), a=(w, torch.bfloat16))[0]
+
+
+def joint_bwd_dw_u8_plain(h, q, s, cs, cl, labels, kt: int):
+    """K7-B8's contract: (dw, db) of :func:`joint_bwd_fused_u8_plain` alone
+    (``pallas_joint.py:459-499``)."""
+    return _passes_plain(cs, _dequantised(q, s, kt), b=(h, cl, labels, q.shape[1]))[1:]
 
 
 def joint_bwd_fused_plain(h, w, b, cs, cl, labels):
@@ -319,8 +400,59 @@ def joint_bwd_fused_plain(h, w, b, cs, cl, labels):
     (``pallas_joint.py:190-255``). Returns (smear, dw, db), fp32. The blank
     column's terms are the caller's."""
     wt = w.t()
-    return _fused_plain(h, w, cs, cl, labels, lambda lo, hi: _exp_logits(h[lo:hi], wt, b),
-                        w.dtype)
+    return _passes_plain(cs, lambda lo, hi: _exp_logits(h[lo:hi], wt, b), (w, w.dtype),
+                         (h, cl, labels, w.shape[1]))
+
+
+def joint_derive_a_plain(h, w, b, cs):
+    """K6-derive-a's contract, for a chunk of rows. With u = exp(h w + b) in
+    fp32: (u as bf16 [N, K], smear = -cs * (round_to_w_dtype(u) @ w^T)
+    [N, Hj] fp32), the rounding for the smear taken from the fp32 u, not
+    from the bf16 tile (``pallas_joint.py:165-187``)."""
+    u16 = torch.empty((h.shape[0], w.shape[1]), dtype=torch.bfloat16, device=h.device)
+    wt = w.t()
+
+    def u_of(lo, hi):
+        u = _exp_logits(h[lo:hi], wt, b)
+        u16[lo:hi] = u.to(torch.bfloat16)
+        return u
+
+    return u16, _passes_plain(cs, u_of, a=(w, w.dtype))[0]
+
+
+def _column_range(w, b, lo: int, hi: Optional[int]):
+    """(w[:, lo:hi] contiguous, b[lo:hi]) of a column range within [0, K]."""
+    hi = w.shape[1] if hi is None else hi
+    if not 0 <= lo <= hi <= w.shape[1]:
+        raise ValueError(f"column range [{lo}, {hi}) outside [0, {w.shape[1]})")
+    return w[:, lo:hi].contiguous(), b[lo:hi]
+
+
+def _softmax_of(h, wc, bc, denom):
+    return lambda lo, hi: torch.exp(h[lo:hi].float() @ wc.float() + bc.float()
+                                    - denom[lo:hi, None])
+
+
+def joint_bwd_dh_recompute_plain(h, w, b, denom, c, lo: int = 0, hi: Optional[int] = None):
+    """K4-A's contract, over the vocab columns [lo, hi) of w: [Hj, K] and b:
+    [K]. denom: [N] fp32, the row's log-sum-exp over all K; c: [N] fp32, the
+    unscaled cb + cl. With p = exp(h w + b - denom) in fp32:
+    smear = -c * (round_to_w_dtype(p) @ w^T) [N, Hj] fp32, this range's part
+    (``pallas_joint.py:144-162``)."""
+    wc, bc = _column_range(w, b, lo, hi)
+    return _passes_plain(c, _softmax_of(h, wc, bc, denom), a=(wc, w.dtype))[0]
+
+
+def joint_bwd_dw_recompute_plain(h, w, b, denom, c, cl, labels, lo: int = 0,
+                                 hi: Optional[int] = None):
+    """K4-B's contract, over the vocab columns [lo, hi). As K4-A, with cl:
+    [N] fp32 and labels: [N] relative to ``lo`` (one outside [0, hi - lo)
+    meets no column): dz = -c * p + onehot(labels) cl,
+    (dw = h^T round_to_h_dtype(dz) [Hj, hi - lo], db = sum_rows dz [hi - lo]),
+    fp32 (``pallas_joint.py:502-545``). The blank column's terms are the
+    caller's."""
+    wc, bc = _column_range(w, b, lo, hi)
+    return _passes_plain(c, _softmax_of(h, wc, bc, denom), b=(h, cl, labels, wc.shape[1]))[1:]
 
 
 # ------------------------------------------------------------------ kernels
@@ -334,15 +466,27 @@ def _fwd_lib():
 def _bwd_lib():
     return load("joint_bwd", {
         "joint_bwd_dh": ([P] * 4 + [I] * 4 + [P], I),
-        "joint_bwd_dw": ([P] * 7 + [I] * 4 + [P], I),
+        "joint_bwd_dw": ([P] * 7 + [I] * 5 + [P], I),
+        "joint_bwd_dh_u8": ([P] * 5 + [I] * 5 + [P], I),
+        "joint_bwd_dw_u8": ([P] * 8 + [I] * 5 + [P], I),
     })
 
 
 @functools.cache
 def _fused_lib():
     return load("joint_bwd_fused", {
+        "joint_bwd_fused_u": ([P] * 9 + [I] * 4 + [P], I),
         "joint_bwd_fused_u8": ([P] * 10 + [I] * 5 + [P], I),
         "joint_bwd_fused": ([P] * 8 + [I] + [P] * 3 + [I] * 4 + [P], I),
+    })
+
+
+@functools.cache
+def _recompute_lib():
+    return load("joint_bwd_recompute", {
+        "joint_derive_a": ([P] * 7 + [I] + [P] + [I] * 4 + [P], I),
+        "joint_bwd_dh_recompute": ([P] * 7 + [I] + [P] + [I] * 4 + [P], I),
+        "joint_bwd_dw_recompute": ([P] * 8 + [I] + [P] * 2 + [I] * 4 + [P], I),
     })
 
 
@@ -438,37 +582,112 @@ def joint_bwd_dh(u, w, cs):
 
 
 @counted
-def joint_bwd_dw(h, u, cs, cl, labels):
+def joint_bwd_dw(h, u, cs, cl, labels, out=None):
     """K5-B: (dw, db); same contract as :func:`joint_bwd_dw_plain`. One
     launch, counted in ``joint_bwd_dw.launches``."""
     if not _on_cuda(h):
-        return joint_bwd_dw_plain(h, u, cs, cl, labels)
+        return joint_bwd_dw_plain(h, u, cs, cl, labels, out)
     what = "joint_bwd_dw"
     N, Hj = h.shape
     K = u.shape[1]
     code = _dtype_code(h, what)
-    check_operands(h, {"h": (h, (N, Hj), h.dtype), "u": (u, (N, K), torch.bfloat16),
-                       "cs": (cs, (N,), torch.float32), "cl": (cl, (N,), torch.float32),
-                       "labels": (labels, (N,), torch.int32)}, what)
-    dw = torch.empty((Hj, K), dtype=torch.float32, device=h.device)
-    db = torch.empty((K,), dtype=torch.float32, device=h.device)
+    check_operands(h, {**_row_operands(h, cs, cl, labels), "u": (u, (N, K), torch.bfloat16)},
+                   what)
+    if out is None:
+        dw = torch.empty((Hj, K), dtype=torch.float32, device=h.device)
+        db = torch.empty((K,), dtype=torch.float32, device=h.device)
+    else:
+        dw, db = out
+        check_operands(h, {"dw": (dw, (Hj, K), torch.float32),
+                           "db": (db, (K,), torch.float32)}, what)
     check(_bwd_lib().joint_bwd_dw(
         h.data_ptr(), u.data_ptr(), cs.data_ptr(), cl.data_ptr(), labels.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), N, Hj, K, code, stream_of(h)), what)
+        dw.data_ptr(), db.data_ptr(), N, Hj, K, int(out is not None), code, stream_of(h)), what)
     joint_bwd_dw.launches += 1
     return dw, db
 
 
-def _fused_outputs(h, K: int):
+def _scale_tile(kt: int, what: str) -> None:
+    if kt <= 0 or kt % 8:
+        raise ValueError(f"{what}: the scale tile must be a multiple of 8 wide, got {kt}")
+
+
+@counted
+def joint_bwd_dh_u8(q, s, w, cs, kt: int):
+    """K7-A8: the dh smear from the int8 slab; same contract as
+    :func:`joint_bwd_dh_u8_plain`. One launch, counted in
+    ``joint_bwd_dh_u8.launches``."""
+    if not _on_cuda(q):
+        return joint_bwd_dh_u8_plain(q, s, w, cs, kt)
+    what = "joint_bwd_dh_u8"
+    N, K = q.shape
+    Hj = w.shape[0]
+    code = _dtype_code(w, what)
+    _scale_tile(kt, what)
+    check_operands(q, {"q": (q, (N, K), torch.int8), "s": (s, (-(-K // kt), N), torch.float32),
+                       "w": (w, (Hj, K), w.dtype), "cs": (cs, (N,), torch.float32)}, what)
+    smear = torch.empty((N, Hj), dtype=torch.float32, device=q.device)
+    check(_bwd_lib().joint_bwd_dh_u8(
+        q.data_ptr(), s.data_ptr(), w.data_ptr(), cs.data_ptr(), smear.data_ptr(), N, Hj, K, kt,
+        code, stream_of(q)), what)
+    joint_bwd_dh_u8.launches += 1
+    return smear
+
+
+@counted
+def joint_bwd_dw_u8(h, q, s, cs, cl, labels, kt: int):
+    """K7-B8: (dw, db) from the int8 slab; same contract as
+    :func:`joint_bwd_dw_u8_plain`. One launch, counted in
+    ``joint_bwd_dw_u8.launches``."""
+    if not _on_cuda(h):
+        return joint_bwd_dw_u8_plain(h, q, s, cs, cl, labels, kt)
+    what = "joint_bwd_dw_u8"
+    N, Hj = h.shape
+    K = q.shape[1]
+    code = _dtype_code(h, what)
+    _scale_tile(kt, what)
+    check_operands(h, {**_row_operands(h, cs, cl, labels), "q": (q, (N, K), torch.int8),
+                       "s": (s, (-(-K // kt), N), torch.float32)}, what)
+    _, dw, db = _fused_outputs(h, K, smear=False)
+    check(_bwd_lib().joint_bwd_dw_u8(
+        h.data_ptr(), q.data_ptr(), s.data_ptr(), cs.data_ptr(), cl.data_ptr(),
+        labels.data_ptr(), dw.data_ptr(), db.data_ptr(), N, Hj, K, kt, code, stream_of(h)), what)
+    joint_bwd_dw_u8.launches += 1
+    return dw, db
+
+
+def _fused_outputs(h, K: int, smear: bool = True):
     N, Hj = h.shape
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=h.device)
-    return new(N, Hj), new(Hj, K), new(K)
+    return new(N, Hj) if smear else None, new(Hj, K), new(K)
 
 
 def _row_operands(h, cs, cl, labels):
     N = h.shape[0]
     return {"h": (h, tuple(h.shape), h.dtype), "cs": (cs, (N,), torch.float32),
             "cl": (cl, (N,), torch.float32), "labels": (labels, (N,), torch.int32)}
+
+
+@counted
+def joint_bwd_fused_u(h, u, w, cs, cl, labels):
+    """K5-fused-u: (smear, dw, db); same contract as
+    :func:`joint_bwd_fused_u_plain`. Two launches (pass A, pass B), counted
+    in ``joint_bwd_fused_u.launches``."""
+    if not _on_cuda(h):
+        return joint_bwd_fused_u_plain(h, u, w, cs, cl, labels)
+    what = "joint_bwd_fused_u"
+    N, Hj = h.shape
+    K = w.shape[1]
+    code = _dtype_code(h, what)
+    check_operands(h, {**_row_operands(h, cs, cl, labels), "u": (u, (N, K), torch.bfloat16),
+                       "w": (w, (Hj, K), h.dtype)}, what)
+    smear, dw, db = _fused_outputs(h, K)
+    check(_fused_lib().joint_bwd_fused_u(
+        h.data_ptr(), u.data_ptr(), w.data_ptr(), cs.data_ptr(), cl.data_ptr(),
+        labels.data_ptr(), smear.data_ptr(), dw.data_ptr(), db.data_ptr(), N, Hj, K, code,
+        stream_of(h)), what)
+    joint_bwd_fused_u.launches += 2
+    return smear, dw, db
 
 
 @counted
@@ -482,8 +701,7 @@ def joint_bwd_fused_u8(h, q, s, w, cs, cl, labels, kt: int):
     N, Hj = h.shape
     K = w.shape[1]
     code = _dtype_code(h, what)
-    if kt <= 0 or kt % 8:
-        raise ValueError(f"{what}: the scale tile must be a multiple of 8 wide, got {kt}")
+    _scale_tile(kt, what)
     check_operands(h, {**_row_operands(h, cs, cl, labels), "q": (q, (N, K), torch.int8),
                        "s": (s, (-(-K // kt), N), torch.float32),
                        "w": (w, (Hj, K), h.dtype)}, what)
@@ -534,59 +752,209 @@ def joint_bwd_fused(h, w, b, cs, cl, labels):
     return smear, dw, db
 
 
+@counted
+def joint_derive_a(h, w, b, cs):
+    """K6-derive-a: (u bf16 [N, K], smear); same contract as
+    :func:`joint_derive_a_plain`, for one chunk of rows. With bf16 weights
+    two launches (derive into the bf16 tile, pass A over it); with fp32
+    weights pass A reads the fp32 u from a workspace of at most
+    ``FUSED_WS_BYTES``, two launches per workspace of rows. Counted in
+    ``joint_derive_a.launches``."""
+    if not _on_cuda(h):
+        return joint_derive_a_plain(h, w, b, cs)
+    what = "joint_derive_a"
+    N, Hj = h.shape
+    K = w.shape[1]
+    code = _dtype_code(h, what)
+    check_operands(h, {"h": (h, (N, Hj), h.dtype), "w": (w, (Hj, K), h.dtype),
+                       "b": (b, (K,), torch.float32), "cs": (cs, (N,), torch.float32)}, what)
+    u = torch.empty((N, K), dtype=torch.bfloat16, device=h.device)
+    smear = torch.empty((N, Hj), dtype=torch.float32, device=h.device)
+    if N == 0:
+        return u, smear
+    wt = w.t().contiguous()  # [K, Hj]: the derivation's contraction is contiguous
+    rows, ws = 0, None
+    if h.dtype == torch.float32:
+        rows = fused_workspace_rows(N, K)
+        ws = torch.empty((rows, K), dtype=torch.float32, device=h.device)
+    check(_recompute_lib().joint_derive_a(
+        h.data_ptr(), wt.data_ptr(), w.data_ptr(), b.data_ptr(), cs.data_ptr(), u.data_ptr(),
+        ws.data_ptr() if ws is not None else None, rows, smear.data_ptr(), N, Hj, K, code,
+        stream_of(h)), what)
+    joint_derive_a.launches += 2 * (-(-N // rows) if rows else 1)
+    return u, smear
+
+
+def _recompute_operands(h, w, b, denom, c, lo: int, hi: Optional[int], what: str):
+    """Checks what K4-A and K4-B share; -> (wt [Kc, Hj], w [Hj, Kc], b [Kc]
+    of the column range, contiguous, and the rows of the fp32 workspace)."""
+    N, Hj = h.shape
+    check_operands(h, {"h": (h, (N, Hj), h.dtype), "w": (w, (Hj, w.shape[1]), h.dtype),
+                       "b": (b, (w.shape[1],), torch.float32),
+                       "denom": (denom, (N,), torch.float32), "c": (c, (N,), torch.float32)},
+                   what)
+    wc, bc = _column_range(w, b, lo, hi)
+    rows = fused_workspace_rows(N, wc.shape[1]) if N and wc.shape[1] else 0
+    return wc.t().contiguous(), wc, bc, rows
+
+
+@counted
+def joint_bwd_dh_recompute(h, w, b, denom, c, lo: int = 0, hi: Optional[int] = None):
+    """K4-A: the dh smear of the vocab columns [lo, hi), the softmax derived
+    again; same contract as :func:`joint_bwd_dh_recompute_plain`. No [N, K]
+    array: the rows are walked through an fp32 workspace of at most
+    ``FUSED_WS_BYTES``, two launches per chunk (derive, pass A), counted in
+    ``joint_bwd_dh_recompute.launches``."""
+    if not _on_cuda(h):
+        return joint_bwd_dh_recompute_plain(h, w, b, denom, c, lo, hi)
+    what = "joint_bwd_dh_recompute"
+    code = _dtype_code(h, what)
+    wt, wc, bc, rows = _recompute_operands(h, w, b, denom, c, lo, hi, what)
+    N, Hj = h.shape
+    Kc = wc.shape[1]
+    smear = torch.empty((N, Hj), dtype=torch.float32, device=h.device)
+    if rows == 0:
+        return smear.zero_()
+    ws = torch.empty((rows, Kc), dtype=torch.float32, device=h.device)
+    check(_recompute_lib().joint_bwd_dh_recompute(
+        h.data_ptr(), wt.data_ptr(), wc.data_ptr(), bc.data_ptr(), denom.data_ptr(),
+        c.data_ptr(), ws.data_ptr(), rows, smear.data_ptr(), N, Hj, Kc, code, stream_of(h)),
+        what)
+    joint_bwd_dh_recompute.launches += 2 * -(-N // rows)
+    return smear
+
+
+@counted
+def joint_bwd_dw_recompute(h, w, b, denom, c, cl, labels, lo: int = 0,
+                           hi: Optional[int] = None):
+    """K4-B: (dw, db) of the vocab columns [lo, hi), the softmax derived
+    again; same contract as :func:`joint_bwd_dw_recompute_plain`. As K4-A:
+    two launches per chunk (derive, pass B adding into dw and db in place),
+    counted in ``joint_bwd_dw_recompute.launches``."""
+    if not _on_cuda(h):
+        return joint_bwd_dw_recompute_plain(h, w, b, denom, c, cl, labels, lo, hi)
+    what = "joint_bwd_dw_recompute"
+    code = _dtype_code(h, what)
+    wt, wc, bc, rows = _recompute_operands(h, w, b, denom, c, lo, hi, what)
+    N, Hj = h.shape
+    check_operands(h, {"cl": (cl, (N,), torch.float32),
+                       "labels": (labels, (N,), torch.int32)}, what)
+    Kc = wc.shape[1]
+    _, dw, db = _fused_outputs(h, Kc, smear=False)
+    if rows == 0:
+        return dw.zero_(), db.zero_()
+    ws = torch.empty((rows, Kc), dtype=torch.float32, device=h.device)
+    check(_recompute_lib().joint_bwd_dw_recompute(
+        h.data_ptr(), wt.data_ptr(), bc.data_ptr(), denom.data_ptr(), c.data_ptr(),
+        cl.data_ptr(), labels.data_ptr(), ws.data_ptr(), rows, dw.data_ptr(), db.data_ptr(),
+        N, Hj, Kc, code, stream_of(h)), what)
+    joint_bwd_dw_recompute.launches += 2 * -(-N // rows)
+    return dw, db
+
+
+def joint_bwd_rechunked(h, w, b, cs, cl, labels):
+    """The rechunked backward (``pallas_joint.py:1346-1392``): the rows in
+    chunks of :func:`rechunk_rows`, per chunk K6-derive-a (the chunk's bf16
+    u and its smear) and K5-B adding into dw and db. Only one chunk's
+    ``[Nc, K]`` bf16 tile exists at a time. Returns (smear, dw, db) with the
+    bf16 slab's roundings in dw and db and the fp32 u's in the smear."""
+    N, Hj = h.shape
+    K = w.shape[1]
+    smear, dw, db = _fused_outputs(h, K)
+    dw.zero_()
+    db.zero_()
+    rows = rechunk_rows(N, Hj, K)
+    for lo in range(0, N, rows):
+        hi = min(N, lo + rows)
+        u, smear[lo:hi] = joint_derive_a(h[lo:hi], w, b, cs[lo:hi])
+        joint_bwd_dw(h[lo:hi], u, cs[lo:hi], cl[lo:hi], labels[lo:hi], out=(dw, db))
+        del u  # the next chunk's tile takes this one's memory
+    return smear, dw, db
+
+
 # ----------------------------------------------------------------- autograd
 class FusedJointLSE(torch.autograd.Function):
     """(lp_blank, lp_label) from h [N, Hj], w [Hj, K], b [K], labels [N];
     differentiable in h, w, b (the custom VJP of ``pallas_joint.py:630-638``).
-    ``store``: False without a gradient, else the slab the plan stores
-    ("bf16", "i8" or None), which also fixes the backward: K5-A + K5-B,
-    K7-fused-u8 or K6-fused."""
+    ``plan``: None without a gradient, else what :func:`store_plan` says: the
+    slab the forward stores (``dtype``, over the first ``ks`` columns) and
+    the backward's ``route`` over them."""
 
     @staticmethod
-    def forward(ctx, h, w, b, labels, blank_idx: int, store, kt: int):
+    def forward(ctx, h, w, b, labels, blank_idx: int, plan):
         h = h.contiguous()
         wt = w.t().contiguous()  # [K, Hj]: the forward's contraction is contiguous
         b32 = b.float().contiguous()
+        K = w.shape[1]
+        store, ks = (plan["dtype"], plan["ks"]) if plan else (None, 0)
+        # columns [0, ks) by the storing kernel, [ks, K) by K2, the sums added
+        # (pallas_joint.py:797-831); rows of wt are columns of w
         if store == "bf16":
-            sums, *slab = joint_fwd_store(h, wt, b32)
+            sums, *slab = joint_fwd_store(h, wt[:ks], b32[:ks])
         elif store == "i8":
-            sums, *slab = joint_fwd_store8(h, wt, b32, kt)
+            sums, *slab = joint_fwd_store8(h, wt, b32, plan["kt"])
         else:
-            sums, slab = joint_fwd(h, wt, b32)[0], []
+            sums, slab = None, []
+        if ks < K:
+            rest = joint_fwd(h, wt[ks:], b32[ks:])[0]
+            sums = rest if sums is None else sums + rest
         denom = torch.log(sums)
         lab = labels.long()
         # label / blank logits by O(N Hj) gathered dots outside the kernel,
         # accumulated in fp32 (pallas_joint.py:819-831)
         z_lab = (h.float() * wt[lab].float()).sum(1) + b32[lab]
         z_blank = h.float() @ w[:, blank_idx].float() + b32[blank_idx]
-        if store is not False:
-            ctx.blank_idx, ctx.b_dtype, ctx.store, ctx.kt = blank_idx, b.dtype, store, kt
+        if plan:
+            ctx.blank_idx, ctx.b_dtype, ctx.plan = blank_idx, b.dtype, plan
             ctx.save_for_backward(h, w, b32, labels, denom, *slab)
         return z_blank - denom, z_lab - denom
 
     @staticmethod
     def backward(ctx, cb, cl):
         h, w, b32, labels, denom, *slab = ctx.saved_tensors
-        blank = ctx.blank_idx
+        blank, plan = ctx.blank_idx, ctx.plan
+        route, ks, K = plan["route"], plan["ks"], w.shape[1]
         cb, cl = cb.float().contiguous(), cl.float().contiguous()
         w = w.contiguous()
         lab32 = labels.to(torch.int32).contiguous()
+        c = cb + cl
         # the softmax row scale exp(-d) folded into one coefficient per row
-        cs = (cb + cl) * torch.exp(-denom)
-        if ctx.store == "bf16":
-            smear = joint_bwd_dh(slab[0], w, cs)
+        cs = c * torch.exp(-denom)
+        ws = w if ks == K else w[:, :ks].contiguous()  # the stored columns' weights
+        if route == R_K5:
+            smear = joint_bwd_dh(slab[0], ws, cs)
             dw, db = joint_bwd_dw(h, slab[0], cs, cl, lab32)
-        elif ctx.store == "i8":
-            smear, dw, db = joint_bwd_fused_u8(h, *slab, w, cs, cl, lab32, ctx.kt)
-        else:
+        elif route == R_K5_FUSED:
+            smear, dw, db = joint_bwd_fused_u(h, slab[0], ws, cs, cl, lab32)
+        elif route == R_K7_FUSED:
+            smear, dw, db = joint_bwd_fused_u8(h, *slab, w, cs, cl, lab32, plan["kt"])
+        elif route == R_K7:
+            smear = joint_bwd_dh_u8(*slab, w, cs, plan["kt"])
+            dw, db = joint_bwd_dw_u8(h, *slab, cs, cl, lab32, plan["kt"])
+        elif route == R_K6_FUSED:
             smear, dw, db = joint_bwd_fused(h, w, b32, cs, cl, lab32)
+        elif route == R_RECHUNK:
+            smear, dw, db = joint_bwd_rechunked(h, w, b32, cs, cl, lab32)
+        elif route == R_K4:
+            smear = dw = db = None
+        else:
+            raise ValueError(f"unknown backward route {route!r}")
+        if route == R_K4 or (plan["dtype"] is not None and ks < K):
+            # the columns no slab holds (all of them on the recompute route):
+            # the per-pass recompute, the labels relative to its first
+            # column (pallas_joint.py:1322-1342)
+            rest = joint_bwd_dh_recompute(h, w, b32, denom, c, ks, K)
+            smear = rest if smear is None else smear.add_(rest)
+            dw2, db2 = joint_bwd_dw_recompute(h, w, b32, denom, c, cl, lab32 - ks, ks, K)
+            dw, db = (dw2, db2) if dw is None else (torch.cat([dw, dw2], 1),
+                                                    torch.cat([db, db2]))
         # the blank one-hot, a single column (pallas_joint.py:441-451)
         dw[:, blank] += h.float().t() @ cb.to(h.dtype).float()
         db[blank] += cb.sum()
         lab = labels.long()
         dh = (smear + cb[:, None] * w[:, blank][None, :].float()
               + cl[:, None] * w.t()[lab].float()).to(h.dtype)
-        return dh, dw.to(w.dtype), db.to(ctx.b_dtype), None, None, None, None
+        return dh, dw.to(w.dtype), db.to(ctx.b_dtype), None, None, None
 
 
 def fused_joint_lse(h, w, b, labels, blank_idx: int):
@@ -594,17 +962,11 @@ def fused_joint_lse(h, w, b, labels, blank_idx: int):
 
     Returns (lp_blank [N], lp_label [N]), the log-softmax scores of the
     blank and of each row's label, fp32. Under a gradient the forward stores
-    what :func:`store_plan` says (the bf16 slab, the int8 slab or nothing)
-    and the backward takes the route that follows from it; a route whose
-    kernel is not ported yet raises ``NotImplementedError`` before anything
-    is computed.
+    what :func:`store_plan` says (the bf16 slab over all or the first
+    columns, the int8 slab or nothing) and the backward takes the route that
+    follows from it.
     """
-    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (h, w, b))):
-        return FusedJointLSE.apply(h, w, b, labels, blank_idx, False, 0)
-    plan = store_plan(h.shape[0], h.shape[1], w.shape[1])
-    if plan["backward"] not in _PORTED:
-        raise NotImplementedError(
-            f"the joint's backward route {plan['backward']} is not ported yet (the plan "
-            f"for N={h.shape[0]}, Hj={h.shape[1]}, K={w.shape[1]} is {plan}); the ported "
-            f"routes are {', '.join(_PORTED)}")
-    return FusedJointLSE.apply(h, w, b, labels, blank_idx, plan["dtype"], plan["kt"])
+    plan = None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (h, w, b)):
+        plan = store_plan(h.shape[0], h.shape[1], w.shape[1])
+    return FusedJointLSE.apply(h, w, b, labels, blank_idx, plan)

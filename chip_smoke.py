@@ -9,8 +9,9 @@ Phases:
   1. set-up: card name and power limit, kernel build (nvcc, into
      build/kernels/), TF32 off;
   2. every kernel against its plain PyTorch version at small unaligned
-     shapes, at large-196M's LSTM widths, and every joint kernel once past
-     2^31 slab elements (N = 131,072 rows at large-196M's Hj and K);
+     shapes (the per-pass recompute also over a range of vocab columns), at
+     large-196M's LSTM widths, and every joint kernel once past 2^31 slab
+     elements (N = 131,072 rows at large-196M's Hj and K);
   3. the slice at full width: base-85M (random weights from a seeded
      generator) transcribes 16 synthetic utterances offline with greedy
      decoding, in fp32 and bf16; the launch counts must equal the expected
@@ -29,6 +30,12 @@ Phases:
      slab) shown by the launch counts, bf16 steps and one fp32 step each,
      breakdowns, the routes against each other and each against its plain
      path, the validation loss and offline transcription;
+  7b. large-196M at full width forced, by the policy's knobs, onto each
+     remaining route of the joint's backward: the fused stored-u backward
+     (B=16), the two-kernel int8 backward (B=32), the rechunked backward and
+     the per-pass recompute (B=64), the hybrid split (B=32); two bf16 steps
+     each, the route shown by the launch counts; then each of these routes
+     against its plain path and against the bf16-slab route;
   8. every kernel at the main path's shapes against its plain version, with
      times beside the bound and the library call.
 
@@ -101,12 +108,14 @@ LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
 # of its largest magnitude: the no-slab route differs by the bf16 rounding of
 # u; the int8 route quantises u to 1/127 of each tile's maximum (the JAX
 # package's own bound for that route, tests/ops/test_pallas_joint.py)
-ROUTE_RTOL = {"i8": 5e-2, None: 1e-3}
+ROUTE_RTOL = {"i8": 5e-2, "i8_two": 5e-2, None: 1e-3, "fused_u": 1e-3, "rechunk": 1e-3,
+              "recompute": 1e-3, "hybrid": 1e-3}
 # the joint kernels against their plain versions: 1e-4 of the output's scale
 # (fp32 accumulation in another order); u one bf16 ulp (2^-7 relative);
 # K6-fused with bf16 inputs 1e-3, since it rounds u and dz to bf16 inside
 # from values that differ in their last fp32 bits from the plain version's,
-# and a rounding that falls the other way moves one term by 2^-8
+# and a rounding that falls the other way moves one term by 2^-8; the same
+# for K6-derive-a, K4-A and K4-B, which round what they derive
 JOINT_RTOL, U_RTOL, FUSED_BF16_RTOL = 1e-4, 2 ** -7, 1e-3
 # the int8 slab: entries equal to the plain version's or one step apart on at
 # most Q_SHARE of them (u * (127 / m) differs in its last bit at a rounding
@@ -140,15 +149,64 @@ KERNELS = [
      "joint_bwd_fused.cu", "caiman_asr_tpu/ops/pallas_joint.py:314"),
     ("K6-fused joint_bwd_fused", "joint_kernel", "joint_bwd_fused", "joint_bwd_fused.cu",
      "caiman_asr_tpu/ops/pallas_joint.py:190"),
+    ("K5-fused-u joint_bwd_fused_u", "joint_kernel", "joint_bwd_fused_u", "joint_bwd_fused.cu",
+     "caiman_asr_tpu/ops/pallas_joint.py:258"),
+    ("K7-A8 joint_bwd_dh_u8", "joint_kernel", "joint_bwd_dh_u8", "joint_bwd.cu",
+     "caiman_asr_tpu/ops/pallas_joint.py:388"),
+    ("K7-B8 joint_bwd_dw_u8", "joint_kernel", "joint_bwd_dw_u8", "joint_bwd.cu",
+     "caiman_asr_tpu/ops/pallas_joint.py:459"),
+    ("K6-derive-a joint_derive_a", "joint_kernel", "joint_derive_a", "joint_bwd_recompute.cu",
+     "caiman_asr_tpu/ops/pallas_joint.py:165"),
+    ("K4-A joint_bwd_dh_recompute", "joint_kernel", "joint_bwd_dh_recompute",
+     "joint_bwd_recompute.cu", "caiman_asr_tpu/ops/pallas_joint.py:144"),
+    ("K4-B joint_bwd_dw_recompute", "joint_kernel", "joint_bwd_dw_recompute",
+     "joint_bwd_recompute.cu", "caiman_asr_tpu/ops/pallas_joint.py:502"),
 ]
 LSTM_TRAIN_KERNELS = ("lstm_recurrence_sg", "lstm_recurrence_bwd")
-# the joint kernels of a train step by the slab its plan stores
-ROUTE_KERNELS = {"bf16": ("joint_fwd_store", "joint_bwd_dh", "joint_bwd_dw"),
-                 "i8": ("joint_fwd_store8", "joint_bwd_fused_u8"),
-                 None: ("joint_fwd", "joint_bwd_fused")}
-ROUTE_NAME = {"bf16": "bf16 slab (K5-store, K5-A, K5-B)",
-              "i8": "int8 slab (K7-store8, K7-fused-u8)", None: "no slab (K2, K6-fused)"}
-JOINT_KERNELS = ("K2", "K5-store", "K7-store8", "K5-A", "K5-B", "K7-fused-u8", "K6-fused")
+# The routes of the joint under a gradient: the three the default policy
+# takes, named by the slab its plan stores ("bf16", "i8", None), and the five
+# the policy's knobs lead to. Per route: the joint kernels a train step
+# launches (and no other route's) and a name.
+ROUTE_KERNELS = {
+    "bf16": ("joint_fwd_store", "joint_bwd_dh", "joint_bwd_dw"),
+    "i8": ("joint_fwd_store8", "joint_bwd_fused_u8"),
+    None: ("joint_fwd", "joint_bwd_fused"),
+    "fused_u": ("joint_fwd_store", "joint_bwd_fused_u"),
+    "i8_two": ("joint_fwd_store8", "joint_bwd_dh_u8", "joint_bwd_dw_u8"),
+    "rechunk": ("joint_fwd", "joint_derive_a", "joint_bwd_dw"),
+    "recompute": ("joint_fwd", "joint_bwd_dh_recompute", "joint_bwd_dw_recompute"),
+    "hybrid": ("joint_fwd_store", "joint_fwd", "joint_bwd_dh", "joint_bwd_dw",
+               "joint_bwd_dh_recompute", "joint_bwd_dw_recompute"),
+}
+ROUTE_NAME = {
+    "bf16": "bf16 slab (K5-store, K5-A, K5-B)", "i8": "int8 slab (K7-store8, K7-fused-u8)",
+    None: "no slab (K2, K6-fused)", "fused_u": "bf16 slab, fused (K5-store, K5-fused-u)",
+    "i8_two": "int8 slab, two kernels (K7-store8, K7-A8, K7-B8)",
+    "rechunk": "no slab, rechunked (K2, K6-derive-a + K5-B per row chunk)",
+    "recompute": "no slab, per-pass recompute (K2, K4-A, K4-B)",
+    "hybrid": "hybrid split (K5-store + K2, K5-A + K5-B, K4-A + K4-B)",
+}
+# what the plan must say on a knob's route: (the slab's dtype, the backward
+# over the stored columns); only the hybrid split stores some of the columns
+ROUTE_PLAN = {"fused_u": ("bf16", "K5-fused-u"), "i8_two": ("i8", "K7-A8 + K7-B8"),
+              "rechunk": (None, "K6-derive-a + K5-B"), "recompute": (None, "K4-A + K4-B"),
+              "hybrid": ("bf16", "K5-A + K5-B")}
+# The knobs a user sets to reach each of the five (the attributes of
+# joint_kernel that the CAIMAN_JOINT_* variables set), and the batch of 16
+# tiled to the size at which the default budgets then lead there.
+KNOBS = {"fused_u": dict(FUSED_BWD=True), "i8_two": dict(FUSED_BWD=False),
+         "rechunk": dict(FUSED_BWD=False),
+         "recompute": dict(FUSED_BWD=False, RECHUNK_LIMIT_BYTES=0),
+         "hybrid": dict(Z_STORE_PARTIAL=True)}
+KNOB_TILES = {"fused_u": 1, "i8_two": 2, "rechunk": 4, "recompute": 4, "hybrid": 2}
+KNOB_STEPS = 2  # bf16 steps per forced route
+# The plan forced whatever the batch's size (the small whole-step checks).
+# The hybrid split's budget is set from the rows: half the vocab tiles.
+SLAB = {"bf16": (1 << 62, "bf16"), "i8": (1 << 62, "i8"), None: (0, "auto"),
+        "fused_u": (1 << 62, "bf16"), "i8_two": (1 << 62, "i8"), "rechunk": (0, "auto"),
+        "recompute": (0, "auto")}
+JOINT_KERNELS = ("K2", "K5-store", "K7-store8", "K5-A", "K5-B", "K7-fused-u8", "K6-fused",
+                 "K5-fused-u", "K7-A8", "K7-B8", "K6-derive-a", "K4-A", "K4-B")
 
 
 def log(msg: str) -> None:
@@ -202,15 +260,28 @@ def plain_path():
 
 
 @contextlib.contextmanager
-def forced_route(store):
-    """The store policy forced to a slab ("bf16", "i8" or None for no slab)
-    through the policy attributes, whatever the batch's size."""
+def policy(**attrs):
+    """The store policy's attributes (of ``joint_kernel``) set for a while."""
     from caiman_asr_tpu_torch.ops import joint_kernel as jk
 
-    limit, dtype = {"bf16": (1 << 62, "bf16"), "i8": (1 << 62, "i8"), None: (0, "auto")}[store]
-    with mock.patch.object(jk, "Z_STORE_LIMIT_BYTES", limit), \
-            mock.patch.object(jk, "_ZSTORE_DTYPE", dtype):
+    with contextlib.ExitStack() as stack:
+        for name, value in attrs.items():
+            stack.enter_context(mock.patch.object(jk, name, value))
         yield
+
+
+def forced_route(route, rows: int = 0, Hj: int = 0, K: int = 0):
+    """The joint forced onto ``route`` (a key of ROUTE_KERNELS) whatever the
+    batch's size; the hybrid split needs the rows and widths to set a budget
+    that holds half the vocab tiles."""
+    from caiman_asr_tpu_torch.ops import joint_kernel as jk
+
+    if route == "hybrid":
+        tp, kt = jk._tiles(Hj)[:2]
+        limit = -(-rows // tp) * tp * 2 * kt * (-(-K // kt) // 2)
+        return policy(Z_STORE_LIMIT_BYTES=limit, **KNOBS[route])
+    limit, dtype = SLAB[route]
+    return policy(Z_STORE_LIMIT_BYTES=limit, _ZSTORE_DTYPE=dtype, **KNOBS.get(route, {}))
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -565,12 +636,25 @@ def slab_errs(got, want, rows: int = 16384) -> tuple[float, float, float]:
     return worst_abs, worst_rel, differ / got.numel()
 
 
+def peak_extra(fn):
+    """(fn(), the bytes it allocated at its peak beyond what was held)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = fn()
+    torch.cuda.synchronize()
+    return got, torch.cuda.max_memory_allocated() - before
+
+
 def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
-                only: tuple = JOINT_KERNELS, reps: int = 5) -> dict:
+                only: tuple = JOINT_KERNELS, reps: int = 5, cols: tuple = (0, None)) -> dict:
     """The joint kernels named in ``only`` against their plain versions on
     the card at [N, Hj] x [Hj, K]; timed, also their times, bounds and
     library yardsticks. Slabs are made once, by the plain versions, and every
-    backward kernel and its plain version read the same one."""
+    backward kernel and its plain version read the same one. ``cols``: the
+    range of vocab columns K4-A and K4-B take, the labels shifted to it."""
     import torch
 
     from caiman_asr_tpu_torch.ops import joint_kernel as jk
@@ -583,10 +667,16 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
     ref_sums, _ = jk.joint_fwd_plain(h, wt, b)
     cs = (cb + cl) / ref_sums  # the softmax row scale folded in, as the backward does
     ref_u = (jk.joint_fwd_store_plain(h, wt, b)[1]
-             if {"K5-store", "K5-A", "K5-B"} & set(only) else None)
+             if {"K5-store", "K5-A", "K5-B", "K5-fused-u"} & set(only) else None)
     ref_q, ref_s = (jk.joint_fwd_store8_plain(h, wt, b, kt)[1:]
-                    if {"K7-store8", "K7-fused-u8"} & set(only) else (None, None))
+                    if {"K7-store8", "K7-fused-u8", "K7-A8", "K7-B8"} & set(only)
+                    else (None, None))
     fused_tol = JOINT_RTOL if dtype_name == "float32" else FUSED_BF16_RTOL
+    # the per-pass recompute: the unscaled coefficient, the row's log-sum-exp
+    # over all K, the column range and the labels relative to its start
+    c, denom = cb + cl, ref_sums.log()
+    lo, hi = cols[0], K if cols[1] is None else cols[1]
+    Kc, rel = hi - lo, labels - cols[0]
 
     def three(got, want, tol):
         return {"rel_err": max(rel_err(g, r) for g, r in zip(got, want)), "tol": tol,
@@ -632,26 +722,68 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
                      jk.joint_bwd_fused_u8_plain(h, ref_q, ref_s, w, cs, cl, labels, kt),
                      JOINT_RTOL)
 
-    def k6_fused():
-        # what one call allocates: its outputs, w transposed and the fixed
-        # workspace, and no array of N x K elements
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        got = jk.joint_bwd_fused(h, w, b, cs, cl, labels)
-        torch.cuda.synchronize()
-        extra = torch.cuda.max_memory_allocated() - before
-        limit = (jk.FUSED_WS_BYTES + 4 * (N * Hj + Hj * K + K) + h.element_size() * Hj * K
-                 + (64 << 20))
-        log(f"    K6-fused: one call allocated {extra / 2**20:.0f} MiB at its peak (limit "
-            f"{limit / 2**20:.0f} MiB: workspace, outputs, w transposed; an [N, K] fp32 array "
-            f"would be {4 * N * K / 2**20:.0f} MiB)")
+    def no_slab(name, fn, outputs: int):
+        """fn() with what it allocates at its peak held to its outputs, the
+        fixed workspace and two copies of w's columns: no array of N x K
+        elements (an [N, K] bf16 array is the slab these routes go without)."""
+        got, extra = peak_extra(fn)
+        limit = jk.FUSED_WS_BYTES + outputs + 2 * h.element_size() * Hj * K + (64 << 20)
+        log(f"    {name}: one call allocated {extra / 2**20:.0f} MiB at its peak (limit "
+            f"{limit / 2**20:.0f} MiB: workspace, outputs, w's copies; an [N, K] bf16 array "
+            f"would be {2 * N * K / 2**20:.0f} MiB)")
         if extra > limit:
-            raise AssertionError(f"K6-fused allocated {extra} bytes, more than {limit}")
+            raise AssertionError(f"{name} allocated {extra} bytes, more than {limit}")
+        return got
+
+    def k6_fused():
+        got = no_slab("K6-fused", lambda: jk.joint_bwd_fused(h, w, b, cs, cl, labels),
+                      4 * (N * Hj + Hj * K + K))
         return three(got, jk.joint_bwd_fused_plain(h, w, b, cs, cl, labels), fused_tol)
 
+    def k5_fused_u():
+        return three(jk.joint_bwd_fused_u(h, ref_u, w, cs, cl, labels),
+                     jk.joint_bwd_fused_u_plain(h, ref_u, w, cs, cl, labels), JOINT_RTOL)
+
+    def k7_a8():
+        smear = jk.joint_bwd_dh_u8(ref_q, ref_s, w, cs, kt)
+        ref = jk.joint_bwd_dh_u8_plain(ref_q, ref_s, w, cs, kt)
+        return {"rel_err": rel_err(smear, ref), "tol": JOINT_RTOL,
+                "max_abs_err": (smear - ref).abs().max().item(), "err_of": "smear"}
+
+    def k7_b8():
+        return {**three(jk.joint_bwd_dw_u8(h, ref_q, ref_s, cs, cl, labels, kt),
+                        jk.joint_bwd_dw_u8_plain(h, ref_q, ref_s, cs, cl, labels, kt),
+                        JOINT_RTOL), "err_of": "dw, db"}
+
+    def k6_derive_a():
+        # a chunk of rows: the bf16 tile is an output here
+        u, smear = jk.joint_derive_a(h, w, b, cs)
+        want_u, want = jk.joint_derive_a_plain(h, w, b, cs)
+        _, u_rel, _ = slab_errs(u, want_u)
+        if not u_rel <= U_RTOL:
+            raise AssertionError(f"K6-derive-a: the bf16 tile differs by {u_rel} (tol {U_RTOL})")
+        return {"rel_err": rel_err(smear, want), "tol": fused_tol,
+                "max_abs_err": (smear - want).abs().max().item(), "err_of": "smear (u checked)"}
+
+    def k4_a():
+        smear = no_slab("K4-A", lambda: jk.joint_bwd_dh_recompute(h, w, b, denom, c, lo, hi),
+                        4 * N * Hj)
+        ref = jk.joint_bwd_dh_recompute_plain(h, w, b, denom, c, lo, hi)
+        return {"rel_err": rel_err(smear, ref), "tol": fused_tol,
+                "max_abs_err": (smear - ref).abs().max().item(),
+                "err_of": f"smear, columns [{lo}, {hi})"}
+
+    def k4_b():
+        got = no_slab("K4-B",
+                      lambda: jk.joint_bwd_dw_recompute(h, w, b, denom, c, cl, rel, lo, hi),
+                      4 * (Hj * Kc + Kc))
+        want = jk.joint_bwd_dw_recompute_plain(h, w, b, denom, c, cl, rel, lo, hi)
+        return {**three(got, want, fused_tol), "err_of": f"dw, db, columns [{lo}, {hi})"}
+
     checks = {"K2": k2, "K5-store": k5_store, "K7-store8": k7_store8, "K5-A": k5_a,
-              "K5-B": k5_b, "K7-fused-u8": k7_fused_u8, "K6-fused": k6_fused}
+              "K5-B": k5_b, "K7-fused-u8": k7_fused_u8, "K6-fused": k6_fused,
+              "K5-fused-u": k5_fused_u, "K7-A8": k7_a8, "K7-B8": k7_b8,
+              "K6-derive-a": k6_derive_a, "K4-A": k4_a, "K4-B": k4_b}
     out = {}
     for name in only:
         r = out[name] = checks[name]()
@@ -675,6 +807,14 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
         "K5-B": (es * N * Hj + 2 * N * K + 12 * N + 4 * (Hj * K + K), flops),
         "K7-fused-u8": (es * (N * Hj + Hj * K) + i8_bytes + 12 * N + bwd_out, 2 * flops),
         "K6-fused": (es * (N * Hj + Hj * K) + 4 * K + 12 * N + bwd_out, 3 * flops),
+        "K5-fused-u": (es * (N * Hj + Hj * K) + 2 * N * K + 12 * N + bwd_out, 2 * flops),
+        "K7-A8": (i8_bytes + es * Hj * K + 4 * N + 4 * N * Hj, flops),
+        "K7-B8": (es * N * Hj + i8_bytes + 12 * N + 4 * (Hj * K + K), flops),
+        "K6-derive-a": (es * (N * Hj + Hj * K) + 4 * K + 4 * N + 2 * N * K + 4 * N * Hj,
+                        2 * flops),
+        "K4-A": (es * (N * Hj + Hj * Kc) + 4 * Kc + 8 * N + 4 * N * Hj, 2 * flops * Kc / K),
+        "K4-B": (es * (N * Hj + Hj * Kc) + 4 * Kc + 16 * N + 4 * (Hj * Kc + Kc),
+                 2 * flops * Kc / K),
     }
     runs = {
         "K2": (lambda: jk.joint_fwd(h, wt, b), lambda: jk.joint_fwd_plain(h, wt, b)),
@@ -691,21 +831,42 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
             lambda: jk.joint_bwd_fused_u8_plain(h, ref_q, ref_s, w, cs, cl, labels, kt)),
         "K6-fused": (lambda: jk.joint_bwd_fused(h, w, b, cs, cl, labels),
                      lambda: jk.joint_bwd_fused_plain(h, w, b, cs, cl, labels)),
+        "K5-fused-u": (lambda: jk.joint_bwd_fused_u(h, ref_u, w, cs, cl, labels),
+                       lambda: jk.joint_bwd_fused_u_plain(h, ref_u, w, cs, cl, labels)),
+        "K7-A8": (lambda: jk.joint_bwd_dh_u8(ref_q, ref_s, w, cs, kt),
+                  lambda: jk.joint_bwd_dh_u8_plain(ref_q, ref_s, w, cs, kt)),
+        "K7-B8": (lambda: jk.joint_bwd_dw_u8(h, ref_q, ref_s, cs, cl, labels, kt),
+                  lambda: jk.joint_bwd_dw_u8_plain(h, ref_q, ref_s, cs, cl, labels, kt)),
+        "K6-derive-a": (lambda: jk.joint_derive_a(h, w, b, cs),
+                        lambda: jk.joint_derive_a_plain(h, w, b, cs)),
+        "K4-A": (lambda: jk.joint_bwd_dh_recompute(h, w, b, denom, c, lo, hi),
+                 lambda: jk.joint_bwd_dh_recompute_plain(h, w, b, denom, c, lo, hi)),
+        "K4-B": (lambda: jk.joint_bwd_dw_recompute(h, w, b, denom, c, cl, rel, lo, hi),
+                 lambda: jk.joint_bwd_dw_recompute_plain(h, w, b, denom, c, cl, rel, lo, hi)),
     }
     # library yardsticks, one PyTorch call per product: the forwards
     # logsumexp(addmm); the backwards their matmuls on a bf16 u (the fused
-    # ones both, K6-fused also the addmm + exp that makes u)
+    # ones both; the ones that derive u again also the addmm + exp that
+    # makes it)
     b_c, w_bf = b.to(dtype), w.to(torch.bfloat16)
     lib_u = ref_u
-    if lib_u is None and {"K7-fused-u8", "K6-fused"} & set(only):
+    if lib_u is None and set(only) - {"K2", "K5-store", "K7-store8"}:
         lib_u = jk.joint_fwd_store_plain(h, wt, b)[1]
     u_c = lib_u.to(dtype) if lib_u is not None else None
     lse = lambda: torch.logsumexp(torch.addmm(b_c, h, wt.t()), 1)
+    derive = lambda: torch.addmm(b_c, h, wt.t()).exp_()
     mm_a = lambda: torch.matmul(lib_u, w_bf.t())
     mm_b = lambda: torch.matmul(h.t(), u_c)
+    # the same over the column range of K4-A and K4-B
+    derive_c = lambda: torch.addmm(b_c[lo:hi], h, wt[lo:hi].t()).exp_()
+    mm_a_c = lambda: torch.matmul(lib_u[:, lo:hi], w_bf[:, lo:hi].t())
+    mm_b_c = lambda: torch.matmul(h.t(), u_c[:, lo:hi])
     library = {"K2": lse, "K5-store": lse, "K7-store8": lse, "K5-A": mm_a, "K5-B": mm_b,
                "K7-fused-u8": lambda: (mm_a(), mm_b()),
-               "K6-fused": lambda: (torch.addmm(b_c, h, wt.t()).exp_(), mm_a(), mm_b())}
+               "K6-fused": lambda: (derive(), mm_a(), mm_b()),
+               "K5-fused-u": lambda: (mm_a(), mm_b()), "K7-A8": mm_a, "K7-B8": mm_b,
+               "K6-derive-a": lambda: (derive(), mm_a()), "K4-A": lambda: (derive_c(), mm_a_c()),
+               "K4-B": lambda: (derive_c(), mm_b_c())}
     for name in only:
         r = out[name]
         kernel, plain = runs[name]
@@ -720,37 +881,79 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
     return out
 
 
-def check_fused_joint_lse() -> None:
-    """The whole joint forward + backward on the card on each route, kernels
-    against the plain route, N and K unaligned, the blank in a non-final
-    tile."""
+def time_rechunked(N: int, Hj: int, K: int, dtype_name: str) -> dict:
+    """The rechunked backward as a whole (K6-derive-a + K5-B per row chunk)
+    at [N, Hj] x [Hj, K]: against the plain versions, its time and what one
+    call allocates at its peak."""
     import torch
 
     from caiman_asr_tpu_torch.ops import joint_kernel as jk
 
-    N, Hj, K, blank = 1000, 96, 1000, 100
-    h, wt, b, labels, cb, cl = joint_inputs(N, Hj, K, torch.float32, 7)
+    dtype = getattr(torch, dtype_name)
+    h, wt, b, labels, cb, cl = joint_inputs(N, Hj, K, dtype, N + K)
+    w = wt.t().contiguous()
+    cs = (cb + cl) / jk.joint_fwd_plain(h, wt, b)[0]
+    rows = jk.rechunk_rows(N, Hj, K)
+    reset_counts()
+    got, extra = peak_extra(lambda: jk.joint_bwd_rechunked(h, w, b, cs, cl, labels))
+    counts = {k: v for k, v in read_counts().items() if v}
+    limit = (2 * rows * K + 4 * (N * Hj + rows * Hj + Hj * K + K) + 2 * h.element_size() * Hj * K
+             + (jk.FUSED_WS_BYTES if dtype_name == "float32" else 0) + (64 << 20))
+    log(f"  rechunked backward N={N} Hj={Hj} K={K} {dtype_name}: {-(-N // rows)} chunks of "
+        f"{rows} rows, launches {counts}; one call allocated {extra / 2**20:.0f} MiB at its "
+        f"peak (limit {limit / 2**20:.0f} MiB: one chunk's bf16 tile, outputs, w's copies; "
+        f"an [N, K] bf16 array would be {2 * N * K / 2**20:.0f} MiB)")
+    if extra > limit:
+        raise AssertionError(f"the rechunked backward allocated {extra} bytes, over {limit}")
+    with plain_path():
+        want = jk.joint_bwd_rechunked(h, w, b, cs, cl, labels)
+    tol = JOINT_RTOL if dtype_name == "float32" else FUSED_BF16_RTOL
+    err = max(rel_err(g, r) for g, r in zip(got, want))
+    abs_err = max((g - r).abs().max().item() for g, r in zip(got, want))
+    log(f"    vs plain: relative err {err:.3g} (tol {tol:.3g}), max abs err of smear, dw, db "
+        f"{abs_err:.3g}")
+    if not err <= tol:
+        raise AssertionError(f"the rechunked backward disagrees with its plain version: {err}")
+    del want
+    ms = cuda_ms(lambda: jk.joint_bwd_rechunked(h, w, b, cs, cl, labels), reps=2, warmup=1)
+    log(f"    rechunked backward: {ms:.3f} ms ({3 * 2.0 * N * Hj * K / ms / 1e9:.1f} TFLOP/s of "
+        f"its three products)")
+    return {"ms": ms, "rel_err": err, "max_abs_err": abs_err, "peak_extra_bytes": extra,
+            "chunks": -(-N // rows), "rows": rows}
 
-    def run():
-        leaves = [t.clone().requires_grad_() for t in (h, wt.t(), b)]
-        lb, ll = jk.fused_joint_lse(*leaves, labels, blank)
-        loss = (lb * cb).sum() + (ll * cl).sum()
-        return (lb, ll) + torch.autograd.grad(loss, leaves)
 
-    for store in ("bf16", "i8", None):
-        with forced_route(store):
+def check_fused_joint_lse() -> None:
+    """The whole joint forward + backward on the card on every route, kernels
+    against the plain route, N and K unaligned, the blank in a non-final
+    tile; the hybrid split at three vocab tiles, the first stored."""
+    import torch
+
+    from caiman_asr_tpu_torch.ops import joint_kernel as jk
+
+    for route in ROUTE_KERNELS:
+        N, Hj, K, blank = (1000, 96, 1000, 100) if route != "hybrid" else (1000, 96, 2500, 100)
+        h, wt, b, labels, cb, cl = joint_inputs(N, Hj, K, torch.float32, 7)
+
+        def run():
+            leaves = [t.clone().requires_grad_() for t in (h, wt.t(), b)]
+            lb, ll = jk.fused_joint_lse(*leaves, labels, blank)
+            loss = (lb * cb).sum() + (ll * cl).sum()
+            return (lb, ll) + torch.autograd.grad(loss, leaves)
+
+        with forced_route(route, N, Hj, K):
+            plan = jk.store_plan(N, Hj, K)
             reset_counts()
             got = run()
             counts = read_counts()
             with plain_path():
                 want = run()
         err = max(rel_err(g.detach(), w.detach()) for g, w in zip(got, want))
-        log(f"  fused_joint_lse N={N} Hj={Hj} K={K} blank={blank} fp32, {ROUTE_NAME[store]}, "
-            f"kernels vs plain route: relative err {err:.3g} (tol {GRAD_RTOL})")
+        log(f"  fused_joint_lse N={N} Hj={Hj} K={K} blank={blank} fp32, {ROUTE_NAME[route]} "
+            f"[{plan['backward']}], kernels vs plain route: relative err {err:.3g} "
+            f"(tol {GRAD_RTOL})")
         if not err <= GRAD_RTOL:
-            raise AssertionError(f"fused_joint_lse kernels vs plain route, {store}: {err}")
-        if any(counts[k] == 0 for k in ROUTE_KERNELS[store]):
-            raise AssertionError(f"route {store} did not launch its kernels: {counts}")
+            raise AssertionError(f"fused_joint_lse kernels vs plain route, {route}: {err}")
+        check_route(counts, route, "fused_joint_lse", lstm=False)
 
 
 def train_batch(fp, n_classes: int, seed: int, tile: int = 1) -> dict:
@@ -831,10 +1034,12 @@ def run_train(batch, dtype_name: str, name: str = "base-85M", steps: int = TRAIN
             "compute": compute, "peak_bytes": peak, "step": step}
 
 
-def check_route(counts: dict, store, tag: str) -> None:
-    """The train step launched the LSTM train kernels and the joint kernels
-    of the route ``store`` names, and no other route's."""
-    want = LSTM_TRAIN_KERNELS + ROUTE_KERNELS[store]
+def check_route(counts: dict, store, tag: str, lstm: bool = True) -> None:
+    """The launches are those of a train step on the route ``store`` names
+    (a key of ROUTE_KERNELS): the LSTM train kernels (unless ``lstm`` is
+    off: the joint alone) and the route's joint kernels, and no other
+    route's."""
+    want = (LSTM_TRAIN_KERNELS if lstm else ()) + ROUTE_KERNELS[store]
     missing = [k for k in want if counts[k] == 0]
     other = [k for kernels in ROUTE_KERNELS.values() for k in kernels
              if k not in want and counts[k]]
@@ -958,17 +1163,27 @@ def no_dropout(name: str):
     return model
 
 
-def whole_step_check(batch, name: str = "base-85M", store="bf16", model=None) -> dict:
-    """The loss and every gradient of one fp32 step with dropout off, at
-    CHECK_B utterances, on the route ``store`` names: kernels against the
-    plain path, on the card."""
-    model = model or no_dropout(name)
+def check_microbatch(batch, name: str) -> tuple[dict, int]:
+    """(the first CHECK_B utterances of ``batch``, their lattice rows)."""
     lens = batch["feat_lens"][0, :CHECK_B]
     T = int(lens.max())
     U = int(batch["txt_lens"][0, :CHECK_B].max())
     mb = {"feats": batch["feats"][0, :T, :CHECK_B], "feat_lens": lens,
           "txt": batch["txt"][0, :CHECK_B, :U], "txt_lens": batch["txt_lens"][0, :CHECK_B]}
-    with forced_route(store):
+    return mb, CHECK_B * -(-T // model_config(name).enc_stack_time_factor) * (U + 1)
+
+
+def whole_step_check(batch, name: str = "base-85M", store="bf16", model=None,
+                     against=None) -> dict:
+    """The loss and every gradient of one fp32 step with dropout off, at
+    CHECK_B utterances, on the route ``store`` names (a key of
+    ROUTE_KERNELS): kernels against the plain path, on the card; and, given
+    ``against`` = (loss, gradients) of the bf16-slab route on the same
+    utterances, against those at ROUTE_RTOL."""
+    model = model or no_dropout(name)
+    mb, rows = check_microbatch(batch, name)
+    Hj, K = model.cfg.joint_n_hid, model.n_classes
+    with forced_route(store, rows, Hj, K):
         reset_counts()
         loss_k, g_k = step_grads(model, mb, CHECK_B)
         counts = read_counts()
@@ -979,13 +1194,31 @@ def whole_step_check(batch, name: str = "base-85M", store="bf16", model=None) ->
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     errs = {n: rel_err(g_k[n], g_p[n]) for n in g_k}
     worst = max(errs, key=errs.get)
-    log(f"  whole step, {name}, {ROUTE_NAME[store]}, fp32, B={CHECK_B} T={T} U={U}: loss "
+    log(f"  whole step, {name}, {ROUTE_NAME[store]}, fp32, B={CHECK_B} rows={rows}: loss "
         f"{float(loss_k):.6f} vs plain {float(loss_p):.6f} (relative {loss_err:.3g}, tol "
         f"{LOSS_RTOL}); worst gradient {worst}: {errs[worst]:.3g} of its largest magnitude "
         f"(tol {GRAD_RTOL}); kernel launches {counts}")
     if not loss_err <= LOSS_RTOL or not errs[worst] <= GRAD_RTOL:
         raise AssertionError(f"the kernel path differs from the plain path: {loss_err}, {errs}")
     check_route(counts, store, f"whole step {name}")
+    out = {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "worst": worst}
+    if against is not None:
+        out["vs_bf16_slab"] = compare_routes((loss_k, g_k), against, store, name, CHECK_B)
+    return out
+
+
+def compare_routes(got, ref, store, name: str, n_utts: int) -> dict:
+    """(loss, gradients) of the route ``store`` against the bf16-slab
+    route's on the same utterances, at LOSS_RTOL and ROUTE_RTOL."""
+    (loss, grads), (loss_ref, g_ref) = got, ref
+    loss_err = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    errs = {n: rel_err(grads[n], g_ref[n]) for n in grads}
+    worst = max(errs, key=errs.get)
+    log(f"  routes, {name}, fp32, B={n_utts}: {ROUTE_NAME[store]} vs the bf16 slab: loss "
+        f"relative {loss_err:.3g} (tol {LOSS_RTOL}); worst gradient {worst}: "
+        f"{errs[worst]:.3g} of its largest magnitude (tol {ROUTE_RTOL[store]})")
+    if not loss_err <= LOSS_RTOL or not errs[worst] <= ROUTE_RTOL[store]:
+        raise AssertionError(f"route {store} differs from the bf16-slab route: {errs}")
     return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "worst": worst}
 
 
@@ -1001,20 +1234,8 @@ def routes_check(batch, name: str, model) -> dict:
             reset_counts()
             got[store] = step_grads(model, mb, n_utts)
             check_route(read_counts(), store, f"routes {name}")
-    loss_ref, g_ref = got["bf16"]
-    out = {}
-    for store in ("i8", None):
-        loss, grads = got[store]
-        loss_err = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
-        errs = {n: rel_err(grads[n], g_ref[n]) for n in grads}
-        worst = max(errs, key=errs.get)
-        log(f"  routes, {name}, fp32, B={n_utts}: {ROUTE_NAME[store]} vs the bf16 slab: loss "
-            f"relative {loss_err:.3g} (tol {LOSS_RTOL}); worst gradient {worst}: "
-            f"{errs[worst]:.3g} of its largest magnitude (tol {ROUTE_RTOL[store]})")
-        if not loss_err <= LOSS_RTOL or not errs[worst] <= ROUTE_RTOL[store]:
-            raise AssertionError(f"route {store} differs from the bf16-slab route: {errs}")
-        out[str(store)] = {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "worst": worst}
-    return out
+    return {str(store): compare_routes(got[store], got["bf16"], store, name, n_utts)
+            for store in ("i8", None)}
 
 
 def val_check(model, batch) -> dict:
@@ -1088,6 +1309,43 @@ def run_large(fp) -> dict:
     return out
 
 
+def run_knob_routes(fp) -> dict:
+    """Phase 7b: large-196M at full width on each route only the policy's
+    knobs reach. Per route KNOB_STEPS bf16 train steps at the batch size at
+    which the knob leads there; then, at CHECK_B utterances in fp32 with
+    dropout off, each route against its plain path and against the
+    bf16-slab route."""
+    import torch
+
+    name = "large-196M"
+    tile = batch = None
+    out = {"train": {}}
+    for route, knobs in KNOBS.items():
+        if KNOB_TILES[route] != tile:
+            tile, batch = KNOB_TILES[route], None  # one batch on the card at a time
+            batch = train_batch(fp, MODELS[name][1], SEED, tile)
+        with policy(**knobs):
+            N, plan = batch_plan(name, batch)
+            log(f"  {knobs}, B={batch['feats'].shape[2]}: lattice rows N={N}, plan {plan}")
+            partial = 0 < plan["ks"] < MODELS[name][1]
+            if ((plan["dtype"], plan["route"]) != ROUTE_PLAN[route]
+                    or partial != (route == "hybrid")):
+                raise AssertionError(f"{knobs} should lead to {ROUTE_NAME[route]}: {plan}")
+            run = release(run_train(batch, "bfloat16", name, KNOB_STEPS, route))
+        out["train"][route] = {"N": N, "B": batch["feats"].shape[2], "knobs": knobs,
+                               "plan": plan, "bfloat16": run}
+        torch.cuda.empty_cache()
+
+    log("== large-196M: each knob's route against its plain path and the bf16-slab route")
+    batch = train_batch(fp, MODELS[name][1], SEED)
+    model = no_dropout(name)
+    with forced_route("bf16"):
+        ref = step_grads(model, check_microbatch(batch, name)[0], CHECK_B)
+    out["whole_step"] = {route: whole_step_check(batch, name, route, model, against=ref)
+                         for route in KNOBS}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1103,6 +1361,7 @@ def main() -> int:
     from caiman_asr_tpu_torch.data.featurize import FeaturePipeline
     from caiman_asr_tpu_torch.models.config import PipelineConfig
     from caiman_asr_tpu_torch.ops import cuda_build
+    from caiman_asr_tpu_torch.ops.joint_kernel import rechunk_rows
     from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
 
     t_start = time.perf_counter()
@@ -1134,11 +1393,17 @@ def main() -> int:
             check_lstm_train(32, dtype, False, False, Bl, Hl)
         check_joint(1000, 96, 1000, dtype, timed=False)  # N and K unaligned
         check_joint(300, 96, 2500, dtype, timed=False,   # three scale tiles, the last ragged
-                    only=("K7-store8", "K7-fused-u8", "K6-fused"))
+                    only=("K7-store8", "K7-fused-u8", "K6-fused", "K7-A8", "K7-B8"))
+        # the per-pass recompute over a range of columns, labels on both sides of it
+        check_joint(1000, 96, 2500, dtype, timed=False, only=("K4-A", "K4-B"), cols=(1024, None))
+        check_joint(300, 96, 1000, dtype, timed=False, only=("K4-A", "K4-B"), cols=(200, 937))
     check_fused_joint_lse()
     log(f"== joint kernels past 2^31 slab elements ({BIG_N} x {BIG_K} = {BIG_N * BIG_K})")
     for dtype in ("float32", "bfloat16"):
         check_joint(BIG_N, BIG_HJ, BIG_K, dtype, timed=False)
+        torch.cuda.empty_cache()
+        check_joint(BIG_N, BIG_HJ, BIG_K, dtype, timed=False, only=("K4-A", "K4-B"),
+                    cols=(8192, None))
         torch.cuda.empty_cache()
 
     # 3. the slice at full width
@@ -1177,6 +1442,10 @@ def main() -> int:
     log("== large-196M: train steps at B=16, 32, 64 (A=1, LAMB warmup 0, lr 4e-3)")
     large = run_large(fp)
 
+    # 7b. large-196M on the routes the knobs reach
+    log("== large-196M: train steps on each route the policy's knobs reach")
+    knob = run_knob_routes(fp)
+
     # 8. every kernel at the main path's shapes
     log("== kernels at the main path's shapes")
     per_shape = {}
@@ -1200,8 +1469,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_joint(n64, Hj_l, K_l, "bfloat16", timed=True, only=("K2",), reps=2)
     torch.cuda.empty_cache()
-    joint.update(check_joint(n64, Hj_l, K_l, "bfloat16", timed=True, only=("K6-fused",),
-                             reps=2))
+    joint.update(check_joint(n64, Hj_l, K_l, "bfloat16", timed=True,
+                             only=("K6-fused", "K4-A", "K4-B"), reps=2))
+    torch.cuda.empty_cache()
+    joint.update(check_joint(n16, Hj_l, K_l, "bfloat16", timed=True, only=("K5-fused-u",),
+                             reps=3))
+    torch.cuda.empty_cache()
+    joint.update(check_joint(n32, Hj_l, K_l, "bfloat16", timed=True, only=("K7-A8", "K7-B8"),
+                             reps=3))
+    torch.cuda.empty_cache()
+    # K6-derive-a at one row chunk of the rechunked backward, then that
+    # backward as a whole; the hybrid split's kernels at its column ranges
+    chunk = rechunk_rows(n64, Hj_l, K_l)
+    joint.update(check_joint(chunk, Hj_l, K_l, "bfloat16", timed=True, only=("K6-derive-a",),
+                             reps=3))
+    rechunked = time_rechunked(n64, Hj_l, K_l, "bfloat16")
+    ks = knob["train"]["hybrid"]["plan"]["ks"]
+    hybrid = {"stored": check_joint(n32, Hj_l, ks, "bfloat16", timed=True,
+                                    only=("K5-store", "K5-A", "K5-B"), reps=2),
+              "recomputed": check_joint(n32, Hj_l, K_l, "bfloat16", timed=True,
+                                        only=("K4-A", "K4-B"), reps=2, cols=(ks, None))}
     torch.cuda.empty_cache()
 
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
@@ -1213,6 +1500,12 @@ def main() -> int:
     shape64 = f"N={n64} Hj={Hj_l} K={K_l} bfloat16"
     base_step, large32, large64 = ("base-85M train step", "large-196M train step, B=32",
                                    "large-196M train step, B=64")
+    shape16 = f"N={n16} Hj={Hj_l} K={K_l} bfloat16"
+
+    def knob_row(check: str, route: str, wrapper: str, shape: str):
+        cell = knob["train"][route]
+        return (joint[check], cell["bfloat16"]["rows"][-1]["launches"][wrapper], shape,
+                f"large-196M train step, B={cell['B']}, {cell['knobs']}")
     rows = {
         "lstm_recurrence": (per_shape[("bfloat16", sl["T_pre"])], sl["bfloat16"]["launches"],
                             layer, "base-85M transcription"),
@@ -1230,6 +1523,16 @@ def main() -> int:
         "joint_bwd_fused_u8": (joint["K7-fused-u8"], counts32["joint_bwd_fused_u8"], shape32,
                                large32),
         "joint_bwd_fused": (joint["K6-fused"], counts64["joint_bwd_fused"], shape64, large64),
+        "joint_bwd_fused_u": knob_row("K5-fused-u", "fused_u", "joint_bwd_fused_u", shape16),
+        "joint_bwd_dh_u8": knob_row("K7-A8", "i8_two", "joint_bwd_dh_u8", shape32),
+        "joint_bwd_dw_u8": knob_row("K7-B8", "i8_two", "joint_bwd_dw_u8", shape32),
+        "joint_derive_a": knob_row("K6-derive-a", "rechunk", "joint_derive_a",
+                                   f"N={chunk} (one row chunk of {n64}) Hj={Hj_l} K={K_l} "
+                                   "bfloat16"),
+        "joint_bwd_dh_recompute": knob_row("K4-A", "recompute", "joint_bwd_dh_recompute",
+                                           shape64),
+        "joint_bwd_dw_recompute": knob_row("K4-B", "recompute", "joint_bwd_dw_recompute",
+                                           shape64),
     }
     kernels = []
     for name, _, wrapper, src, replaces in KERNELS:
@@ -1262,6 +1565,15 @@ def main() -> int:
     log("large-196M summary: " + json.dumps({
         "train": large_summary, "routes": large["routes"], "whole_step": large["whole_step"],
         "validation": large["validation"], "slice": large["slice"]}))
+    strip = lambda r: {k: v for k, v in r.items() if k not in ("max_abs_err", "err_of")}
+    log("large-196M knob routes summary: " + json.dumps({
+        "train": {route: {"N": c["N"], "B": c["B"], "knobs": c["knobs"], "plan": c["plan"],
+                          "bfloat16": summary(c["bfloat16"]),
+                          "launches": c["bfloat16"]["rows"][-1]["launches"]}
+                  for route, c in knob["train"].items()},
+        "whole_step": knob["whole_step"], "rechunked_backward": rechunked,
+        "hybrid_kernels": {part: {k: strip(r) for k, r in rs.items()}
+                           for part, rs in hybrid.items()}}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,13 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
 on the card: the LSTM recurrence forward (K1), its store-gates variant (K3a)
 and backward (K3b) (``caiman_asr_tpu_torch/ops/csrc/lstm_recurrence*.cu``),
-the joint's forward (K2, K5-store, K7-store8), its stored-slab backward
-passes (K5-A, K5-B) and its one-call backwards over the int8 slab
-(K7-fused-u8) and with no slab (K6-fused) (``csrc/joint_fwd.cu``,
-``csrc/joint_bwd.cu``, ``csrc/joint_bwd_fused.cu``).
+the joint's forward (K2, K5-store, K7-store8), its backward passes over a
+stored slab as calls of their own (K5-A, K5-B, K7-A8, K7-B8), its one-call
+backwards over the bf16 slab (K5-fused-u), over the int8 slab (K7-fused-u8)
+and with no slab (K6-fused), and the backwards that derive again per pass
+(K6-derive-a for the rechunked route, K4-A and K4-B over a column range)
+(``csrc/joint_fwd.cu``, ``csrc/joint_bwd.cu``, ``csrc/joint_bwd_fused.cu``,
+``csrc/joint_bwd_recompute.cu``).
 
 A CUDA kernel has no interpret mode, so these tests need a GPU and nvcc and
 skip elsewhere; run them on the card with
@@ -27,7 +30,8 @@ last bit at a rounding boundary), its scales, each one value of u = exp(z), at r
 the kernel's product and the plain version's). K6-fused with bf16 inputs:
 1e-3 of the result's scale, since u and dz are rounded to bf16 inside from
 values that differ in their last fp32 bits, and a rounding that falls the
-other way moves one term by 2^-8.
+other way moves one term by 2^-8; the same for K6-derive-a, K4-A and K4-B,
+which round what they derive to bf16 for their second product.
 """
 
 import numpy as np
@@ -311,21 +315,177 @@ def test_joint_fused_kernel_matches_plain(cuda, monkeypatch, dtype, N, Hj, K, ws
         _rel_close(g, r, 1e-4 if dtype == torch.float32 else 1e-3)
 
 
-# route -> (Z_STORE_LIMIT_BYTES, _ZSTORE_DTYPE, FUSED_BWD, tolerance against dense autograd)
-ROUTES = {"K7-fused-u8": (1 << 62, "i8", True, dict(rtol=5e-2, atol=5e-2)),
-          "K6-fused": (0, "auto", True, dict(rtol=1e-3, atol=2e-3))}
+# ------------- each pass a call of its own; the bf16 slab behind one call
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hj,K,kt", I8_SHAPES + [(20000, 128, 384, 128)])
+def test_joint_int8_pass_kernels_match_plain(cuda, dtype, N, Hj, K, kt):
+    """K7-A8 and K7-B8: the halves of K7-fused-u8, bit for bit."""
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, dtype, cuda, seed=9)
+    _, q, s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+    w = wt.t().contiguous()
+    before = (jk.joint_bwd_dh_u8.launches, jk.joint_bwd_dw_u8.launches)
+    smear = jk.joint_bwd_dh_u8(q, s, w, cs, kt)
+    dw, db = jk.joint_bwd_dw_u8(h, q, s, cs, cl, labels, kt)
+    torch.cuda.synchronize()
+    assert (jk.joint_bwd_dh_u8.launches, jk.joint_bwd_dw_u8.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    _rel_close(smear, jk.joint_bwd_dh_u8_plain(q, s, w, cs, kt))
+    for g, r in zip((dw, db), jk.joint_bwd_dw_u8_plain(h, q, s, cs, cl, labels, kt)):
+        _rel_close(g, r)
+    for g, r in zip((smear, dw, db), jk.joint_bwd_fused_u8(h, q, s, w, cs, cl, labels, kt)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hj,K", JOINT_SHAPES)
+def test_joint_fused_u_kernel_matches_plain(cuda, dtype, N, Hj, K):
+    """K5-fused-u: K5-A and K5-B behind one call, bit for bit."""
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, dtype, cuda, seed=11)
+    _, u = jk.joint_fwd_store_plain(h, wt, b)
+    w = wt.t().contiguous()
+    before = jk.joint_bwd_fused_u.launches
+    got = jk.joint_bwd_fused_u(h, u, w, cs, cl, labels)
+    torch.cuda.synchronize()
+    assert jk.joint_bwd_fused_u.launches == before + 2
+    for g, r in zip(got, jk.joint_bwd_fused_u_plain(h, u, w, cs, cl, labels)):
+        _rel_close(g, r)
+    for g, r in zip(got, (jk.joint_bwd_dh(u, w, cs), *jk.joint_bwd_dw(h, u, cs, cl, labels))):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [300, 7000])
+def test_joint_pass_b_adds_across_row_chunks(cuda, dtype, rows):
+    """K5-B with ``out``: 20,000 rows in chunks that are no multiple of the
+    256 rows the tensor-core partial sums are flushed at."""
+    N, Hj, K = 20000, 128, 384
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, dtype, cuda, seed=12)
+    _, u = jk.joint_fwd_store_plain(h, wt, b)
+    out = (torch.zeros(Hj, K, device=cuda), torch.zeros(K, device=cuda))
+    for lo in range(0, N, rows):
+        sl = slice(lo, lo + rows)
+        jk.joint_bwd_dw(h[sl], u[sl], cs[sl], cl[sl], labels[sl], out=out)
+    for g, r in zip(out, jk.joint_bwd_dw_plain(h, u, cs, cl, labels)):
+        _rel_close(g, r)
+
+
+# ------------------------------------- the backwards that derive per pass
+RECOMPUTE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hj,K", JOINT_SHAPES + [(513, 1024, 17408)])
+@pytest.mark.parametrize("ws_rows", [None, 256], ids=["one-chunk", "chunks"])
+def test_joint_derive_a_kernel_matches_plain(cuda, monkeypatch, dtype, N, Hj, K, ws_rows):
+    """K6-derive-a: the bf16 tile and the smear. With fp32 inputs the smear
+    comes through the fp32 workspace (``chunks``: 256 rows of it)."""
+    if ws_rows is not None:
+        monkeypatch.setattr(jk, "FUSED_WS_BYTES", ws_rows * K * 4)
+    h, wt, b, _, cs, _ = _joint_inputs(N, Hj, K, dtype, cuda, seed=13)
+    w = wt.t().contiguous()
+    chunks = -(-N // jk.fused_workspace_rows(N, K)) if dtype == torch.float32 else 1
+    before = jk.joint_derive_a.launches
+    u, smear = jk.joint_derive_a(h, w, b, cs)
+    torch.cuda.synchronize()
+    assert jk.joint_derive_a.launches == before + 2 * chunks
+    ref_u, ref_smear = jk.joint_derive_a_plain(h, w, b, cs)
+    assert u.dtype == torch.bfloat16 and u.shape == (N, K)
+    torch.testing.assert_close(u.float(), ref_u.float(), rtol=2 ** -7, atol=0)
+    _rel_close(smear, ref_smear, RECOMPUTE_TOL[dtype])
+
+
+# column ranges as (first column, columns left out at the end)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hj,K", JOINT_SHAPES + [(513, 1024, 17408)])
+@pytest.mark.parametrize("lo,cut", [(0, 0), (128, 0), (0, 57), (200, 31)])
+@pytest.mark.parametrize("ws_rows", [None, 256], ids=["one-chunk", "chunks"])
+def test_joint_recompute_kernels_match_plain(cuda, monkeypatch, dtype, N, Hj, K, lo, cut,
+                                             ws_rows):
+    """K4-A and K4-B over the columns [lo, K - cut), the labels relative to
+    ``lo`` (some negative, some past the range's end)."""
+    hi = K - cut
+    if ws_rows is not None:
+        monkeypatch.setattr(jk, "FUSED_WS_BYTES", ws_rows * (hi - lo) * 4)
+    h, wt, b, labels, c, cl = _joint_inputs(N, Hj, K, dtype, cuda, seed=14)
+    w = wt.t().contiguous()
+    denom = jk.joint_fwd_plain(h, wt, b)[0].log()
+    rel = labels - lo
+    chunks = -(-N // jk.fused_workspace_rows(N, hi - lo))
+    before = (jk.joint_bwd_dh_recompute.launches, jk.joint_bwd_dw_recompute.launches)
+    smear = jk.joint_bwd_dh_recompute(h, w, b, denom, c, lo, hi)
+    dw, db = jk.joint_bwd_dw_recompute(h, w, b, denom, c, cl, rel, lo, hi)
+    torch.cuda.synchronize()
+    assert (jk.joint_bwd_dh_recompute.launches, jk.joint_bwd_dw_recompute.launches) == (
+        before[0] + 2 * chunks, before[1] + 2 * chunks)
+    assert dw.shape == (Hj, hi - lo) and db.shape == (hi - lo,)
+    _rel_close(smear, jk.joint_bwd_dh_recompute_plain(h, w, b, denom, c, lo, hi),
+               RECOMPUTE_TOL[dtype])
+    for g, r in zip((dw, db),
+                    jk.joint_bwd_dw_recompute_plain(h, w, b, denom, c, cl, rel, lo, hi)):
+        _rel_close(g, r, RECOMPUTE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rechunked_backward_on_the_card_matches_plain(cuda, monkeypatch, dtype):
+    """Three chunks of 512 rows (a budget of 1 MiB at N=1,100, K=600): the
+    kernels against the plain versions on the whole rows at once."""
+    monkeypatch.setattr(jk, "RECHUNK_LIMIT_BYTES", 1 << 20)
+    N, Hj, K = 1100, 16, 600
+    assert jk.rechunk_rows(N, Hj, K) == 512
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, dtype, cuda, seed=15)
+    w = wt.t().contiguous()
+    before = (jk.joint_derive_a.launches, jk.joint_bwd_dw.launches)
+    got = jk.joint_bwd_rechunked(h, w, b, cs, cl, labels)
+    torch.cuda.synchronize()
+    assert (jk.joint_derive_a.launches, jk.joint_bwd_dw.launches) == (before[0] + 6,
+                                                                      before[1] + 3)
+    u, smear = jk.joint_derive_a_plain(h, w, b, cs)
+    for g, r in zip(got, (smear, *jk.joint_bwd_dw_plain(h, u, cs, cl, labels))):
+        _rel_close(g, r, RECOMPUTE_TOL[dtype])
+
+
+# route -> (policy attributes, the plan's backward, launches of (forward kernels, backward
+# kernels) by wrapper, tolerance against dense autograd); N=70, K=600, or for
+# the hybrid split K=2,560 with a budget of one 1,024-wide vocab tile
+_EXACT, _LOSSY = dict(rtol=1e-3, atol=2e-3), dict(rtol=5e-2, atol=5e-2)
+ROUTES = {
+    "K5-fused-u": (dict(Z_STORE_LIMIT_BYTES=1 << 62, FUSED_BWD=True), "K5-fused-u",
+                   dict(joint_fwd_store=1, joint_bwd_fused_u=2), _EXACT),
+    "K7-fused-u8": (dict(Z_STORE_LIMIT_BYTES=1 << 62, _ZSTORE_DTYPE="i8", FUSED_BWD=True),
+                    "K7-fused-u8", dict(joint_fwd_store8=1, joint_bwd_fused_u8=2), _LOSSY),
+    "K7-A8 + K7-B8": (dict(Z_STORE_LIMIT_BYTES=1 << 62, _ZSTORE_DTYPE="i8", FUSED_BWD=False),
+                      "K7-A8 + K7-B8",
+                      dict(joint_fwd_store8=1, joint_bwd_dh_u8=1, joint_bwd_dw_u8=1), _LOSSY),
+    "K6-fused": (dict(Z_STORE_LIMIT_BYTES=0, FUSED_BWD=True), "K6-fused",
+                 dict(joint_fwd=1, joint_bwd_fused=3), _EXACT),
+    "rechunked": (dict(Z_STORE_LIMIT_BYTES=0, FUSED_BWD=False), "K6-derive-a + K5-B",
+                  dict(joint_fwd=1, joint_derive_a=2, joint_bwd_dw=1), _EXACT),
+    "recompute": (dict(Z_STORE_LIMIT_BYTES=0, FUSED_BWD=False, RECHUNK_LIMIT_BYTES=0),
+                  "K4-A + K4-B",
+                  dict(joint_fwd=1, joint_bwd_dh_recompute=2, joint_bwd_dw_recompute=2), _EXACT),
+    "hybrid": (dict(Z_STORE_LIMIT_BYTES=2 << 20, Z_STORE_PARTIAL=True),
+               "K5-A + K5-B over [0, 1024) and K4-A + K4-B over [1024, 2560) (the hybrid split)",
+               dict(joint_fwd_store=1, joint_fwd=1, joint_bwd_dh=1, joint_bwd_dw=1,
+                    joint_bwd_dh_recompute=2, joint_bwd_dw_recompute=2), _EXACT),
+}
+COUNTED = ("joint_fwd", "joint_fwd_store", "joint_fwd_store8", "joint_bwd_dh", "joint_bwd_dw",
+           "joint_bwd_dh_u8", "joint_bwd_dw_u8", "joint_bwd_fused_u", "joint_bwd_fused_u8",
+           "joint_bwd_fused", "joint_derive_a", "joint_bwd_dh_recompute",
+           "joint_bwd_dw_recompute")
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
-@pytest.mark.parametrize("blank", [599, 100])
+@pytest.mark.parametrize("blank", ["last", 100])
 def test_fused_joint_lse_routes_on_the_card_match_a_dense_reference(cuda, monkeypatch, route,
                                                                     blank):
-    limit, dtype, fused, tol = ROUTES[route]
-    monkeypatch.setattr(jk, "Z_STORE_LIMIT_BYTES", limit)
-    monkeypatch.setattr(jk, "_ZSTORE_DTYPE", dtype)
-    monkeypatch.setattr(jk, "FUSED_BWD", fused)
-    N, Hj, K = 70, 32, 600
-    assert jk.store_plan(N, Hj, K)["backward"] == route
+    """Every route the knobs reach, fp32: the kernels it launches, by the
+    counters, and its values and gradients against dense autograd."""
+    attrs, backward, launches, tol = ROUTES[route]
+    for name, value in attrs.items():
+        monkeypatch.setattr(jk, name, value)
+    N, Hj, K = (70, 32, 600) if route != "hybrid" else (70, 16, 2560)
+    blank = K - 1 if blank == "last" else blank
+    assert jk.store_plan(N, Hj, K)["backward"] == backward
     h, wt, b, labels, _, _ = _joint_inputs(N, Hj, K, torch.float32, cuda, seed=5)
     w = wt.t().contiguous()
     rng = np.random.default_rng(6)
@@ -343,13 +503,10 @@ def test_fused_joint_lse_routes_on_the_card_match_a_dense_reference(cuda, monkey
         d = torch.logsumexp(z, 1)
         return z[:, blank] - d, z.gather(1, labels.long()[:, None])[:, 0] - d
 
-    before = (jk.joint_fwd_store8.launches, jk.joint_bwd_fused_u8.launches,
-              jk.joint_fwd.launches, jk.joint_bwd_fused.launches)
+    before = {name: getattr(jk, name).launches for name in COUNTED}
     got = run(lambda h, w, b: jk.fused_joint_lse(h, w, b, labels, blank))
-    after = (jk.joint_fwd_store8.launches, jk.joint_bwd_fused_u8.launches,
-             jk.joint_fwd.launches, jk.joint_bwd_fused.launches)
-    added = tuple(a - b for a, b in zip(after, before))
-    assert added == ((1, 2, 0, 0) if route == "K7-fused-u8" else (0, 0, 1, 3))
+    added = {name: getattr(jk, name).launches - before[name] for name in COUNTED}
+    assert {name: n for name, n in added.items() if n} == launches
     want = run(dense)
     for g, r in zip(got[:2], want[:2]):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
@@ -371,3 +528,20 @@ def test_new_joint_kernels_reject_what_they_do_not_take(cuda):
         jk.joint_bwd_fused(h, w, b, cs, cl, labels.long())
     with pytest.raises(ValueError):
         jk.joint_bwd_fused(h, wt, b, cs, cl, labels)  # w must be [Hj, K]
+    _, u = jk.joint_fwd_store(h, wt, b)
+    with pytest.raises(ValueError):
+        jk.joint_bwd_dh_u8(q, s, w, cs, 100)  # the scale tile is not a multiple of 8
+    with pytest.raises(TypeError):
+        jk.joint_bwd_dw_u8(h, q, s, cs, cl, labels.long(), 128)
+    with pytest.raises(TypeError):
+        jk.joint_bwd_fused_u(h, u.float(), w, cs, cl, labels)
+    with pytest.raises(ValueError):
+        jk.joint_derive_a(h, wt, b, cs)  # w must be [Hj, K]
+    denom = jk.joint_fwd(h, wt, b)[0].log()
+    with pytest.raises(ValueError, match="column range"):
+        jk.joint_bwd_dh_recompute(h, w, b, denom, cs, 8, 41)
+    with pytest.raises(TypeError):
+        jk.joint_bwd_dw_recompute(h, w, b, denom, cs, cl, labels.long(), 8, 40)
+    with pytest.raises(ValueError):  # dw to add into has another shape
+        jk.joint_bwd_dw(h, u, cs, cl, labels, out=(torch.zeros(8, 39, device=cuda),
+                                                   torch.zeros(40, device=cuda)))

@@ -4,15 +4,18 @@ same parameters and batches made with numpy from a seed.
 
 The JAX step runs its fused joint route (the Pallas kernels in interpret
 mode, as the JAX package's own kernel tests run them on the CPU), which is
-the route it takes on a TPU. Every test that steps runs once per ported
-joint route, both packages forced onto it through the same policy
-attributes: the bf16 u = exp(z) slab with the two-kernel backward (the
-default at this size), the int8 slab with its fused backward, and no slab
-with the fused backward; so both sides round the same way. The tiny model
-is ``tests/training/test_step.py``'s, with dropout 0 so that no random mask
-enters; on the two large-196M routes it is large-shaped (the predictor half
+the route it takes on a TPU. Every test that steps runs once per joint
+route, both packages forced onto it through the same policy attributes: the
+bf16 u = exp(z) slab with the two-kernel backward (the default at this
+size), the int8 slab with its fused backward, no slab with the fused
+backward, with the rechunked backward and with the per-pass recompute, and
+the hybrid split (the slab over the first 1,024 classes, the recompute over
+the rest); so both sides round the same way. The tiny model is
+``tests/training/test_step.py``'s, with dropout 0 so that no random mask
+enters; on every route but the first it is large-shaped (the predictor half
 the encoder's width, ``joint_net_lr_factor`` 0.243 as
-``configs/large-17407sp.yaml``).
+``configs/large-17407sp.yaml``), and on the hybrid split it has 1,100
+classes, since a split needs more than one vocab tile.
 
 Tolerances (fp32 compute): loss rtol 1e-5 and gradient norm rtol 1e-4 (the
 same arithmetic, sums in another order); parameters, EMA and moments atol
@@ -63,23 +66,41 @@ OPT = dict(lr=1e-2, warmup_steps=1, hold_steps=100, half_life_steps=100)
 SCALARS = {"delay_penalty": 0.0, "star_penalty": 0.0, "grad_noise_std": 0.0}
 STATE_TOL = dict(atol=2e-6, rtol=1e-4)
 LARGE_SHAPED = dict(TINY, joint_net_lr_factor=0.243)
-# route -> (model config, Z_STORE_LIMIT_BYTES, _ZSTORE_DTYPE, FUSED_BWD, state tolerance)
+ROWS = 8 * 6 * 5  # B * T' * (U + 1) of a microbatch: one row tile of 1,024
+# the policy attributes (of either package's joint module) as they are by default
+DEFAULTS = dict(Z_STORE_LIMIT_BYTES=None, _ZSTORE_DTYPE="auto", FUSED_BWD="auto",
+                RECHUNK_LIMIT_BYTES=512 << 20, Z_STORE_PARTIAL=False)
+# route -> (model config, classes, policy attributes, the backward, state tolerance)
 ROUTES = {
-    "bf16-slab": (TINY, None, "auto", "auto", STATE_TOL),
-    "int8-fused": (LARGE_SHAPED, 1 << 62, "i8", True, dict(atol=1e-5, rtol=1e-4)),
-    "no-slab-fused": (LARGE_SHAPED, 0, "auto", True, STATE_TOL),
+    "bf16-slab": (TINY, N_CLASSES, {}, "K5-A + K5-B", STATE_TOL),
+    "int8-fused": (LARGE_SHAPED, N_CLASSES,
+                   dict(Z_STORE_LIMIT_BYTES=1 << 62, _ZSTORE_DTYPE="i8", FUSED_BWD=True),
+                   "K7-fused-u8", dict(atol=1e-5, rtol=1e-4)),
+    "no-slab-fused": (LARGE_SHAPED, N_CLASSES, dict(Z_STORE_LIMIT_BYTES=0, FUSED_BWD=True),
+                      "K6-fused", STATE_TOL),
+    "rechunk": (LARGE_SHAPED, N_CLASSES, dict(Z_STORE_LIMIT_BYTES=0, FUSED_BWD=False),
+                "K6-derive-a + K5-B", STATE_TOL),
+    "recompute": (LARGE_SHAPED, N_CLASSES,
+                  dict(Z_STORE_LIMIT_BYTES=0, FUSED_BWD=False, RECHUNK_LIMIT_BYTES=0),
+                  "K4-A + K4-B", STATE_TOL),
+    # a budget of one 1,024-wide vocab tile of the two that 1,100 classes pad to
+    "hybrid": (LARGE_SHAPED, 1100,
+               dict(Z_STORE_LIMIT_BYTES=1024 * 2 * 1024, Z_STORE_PARTIAL=True),
+               "K5-A + K5-B over [0, 1024) and K4-A + K4-B over [1024, 1100) "
+               "(the hybrid split)", STATE_TOL),
 }
-BACKWARD = {"bf16-slab": "K5-A + K5-B", "int8-fused": "K7-fused-u8", "no-slab-fused": "K6-fused"}
+
+
+def classes(route):
+    return ROUTES[route][1]
 
 
 @contextlib.contextmanager
 def on_route(route, mod):
     """Force ``mod`` (either package's joint module) onto ``route``."""
-    _, limit, dtype, fused, _ = ROUTES[route]
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(mod, "Z_STORE_LIMIT_BYTES", limit)
-        mp.setattr(mod, "_ZSTORE_DTYPE", dtype)
-        mp.setattr(mod, "FUSED_BWD", fused)
+        for name, value in {**DEFAULTS, **ROUTES[route][2]}.items():
+            mp.setattr(mod, name, value)
         yield
 
 
@@ -96,7 +117,7 @@ def jax_fused_joint(route="bf16-slab"):
         yield
 
 
-def make_batch(rng, A=2, B=8, T=12, U=4):
+def make_batch(rng, n_classes=N_CLASSES, A=2, B=8, T=12, U=4):
     lens_t = rng.integers(T - 4, T + 1, (A, B)).astype(np.int32)
     lens_t[:, 0] = T
     lens_u = rng.integers(1, U + 1, (A, B)).astype(np.int32)
@@ -104,7 +125,7 @@ def make_batch(rng, A=2, B=8, T=12, U=4):
     return {
         "feats": rng.normal(size=(A, T, B, 8)).astype(np.float32),
         "feat_lens": lens_t,
-        "txt": rng.integers(0, N_CLASSES - 1, (A, B, U)).astype(np.int32),
+        "txt": rng.integers(0, n_classes - 1, (A, B, U)).astype(np.int32),
         "txt_lens": lens_u,
     }
 
@@ -126,37 +147,41 @@ def route(request):
 def port_route(route):
     """The port on the fixture's route for the length of a test."""
     with on_route(route, jk):
-        assert jk.store_plan(8 * 6 * 5, 16, N_CLASSES)["backward"] == BACKWARD[route]
+        assert jk.store_plan(ROWS, 16, classes(route))["backward"] == ROUTES[route][3]
         yield route
 
 
 @pytest.fixture(scope="module")
 def jax_side(route):
-    model = JaxRNNT(JaxConfig(**ROUTES[route][0]), N_CLASSES)
+    n_classes = classes(route)
+    model = JaxRNNT(JaxConfig(**ROUTES[route][0]), n_classes)
     opt = jax_build_optimizer(JaxOptConfig(**OPT), model.param_lr_factors())
     state = jax_init_train_state(model, opt, jax.random.PRNGKey(0))
     with jax_fused_joint(route):
-        step = jax_make_train_step(model, opt, BLANK, donate=False)
-        batches = [make_batch(np.random.default_rng(s)) for s in (1, 2)]
+        step = jax_make_train_step(model, opt, n_classes - 1, donate=False)
+        batches = [make_batch(np.random.default_rng(s), n_classes) for s in (1, 2)]
         states, metrics = [state], []
         for b in batches:
             s, m = step(states[-1], to_jax(b), jax.random.PRNGKey(0), SCALARS)
             states.append(s)
             metrics.append({k: float(v) for k, v in m.items()})
-        val = jax_make_val_loss_step(model, BLANK)
-        vb = make_batch(np.random.default_rng(3), A=1)
+        val = jax_make_val_loss_step(model, n_classes - 1)
+        vb = make_batch(np.random.default_rng(3), n_classes, A=1)
         val_out = val(state.params, {k: jnp.asarray(v[0]) for k, v in vb.items()})
     return model, opt, step, batches, states, metrics, vb, [float(x) for x in val_out]
 
 
+def new_model(route="bf16-slab"):
+    return RNNT(RNNTModelConfig(**ROUTES[route][0]), classes(route), device="cpu")
+
+
 def port_model(params, route="bf16-slab"):
-    model = RNNT(RNNTModelConfig(**ROUTES[route][0]), N_CLASSES, device="cpu")
-    return load_jax_params(model, jax.tree.map(np.asarray, params))
+    return load_jax_params(new_model(route), jax.tree.map(np.asarray, params))
 
 
 def port_step(model):
     opt = Lamb(OptimizerConfig(**OPT), model.param_lr_factors())
-    return opt, make_train_step(model, opt, BLANK, device="cpu")
+    return opt, make_train_step(model, opt, model.n_classes - 1, device="cpu")
 
 
 def _np(tree):
@@ -212,7 +237,7 @@ def test_step_from_a_carried_state_matches_jax(jax_side, port_route):
     _, _, _, batches, jstates, jmetrics, _, _ = jax_side
     js = jstates[1]
     adam, sched = extract_opt_state(js.opt_state)
-    model = RNNT(RNNTModelConfig(**ROUTES[port_route][0]), N_CLASSES, device="cpu")
+    model = new_model(port_route)
     to_np = lambda t: jax.tree.map(np.asarray, t)
     state = train_state_from_jax(model, to_np(js.params), to_np(js.ema_params), to_np(adam.mu),
                                  to_np(adam.nu), int(adam.count), int(sched.count),
@@ -245,7 +270,7 @@ def test_nan_batch_is_skipped_with_the_state_unchanged(jax_side, port_route):
 def test_val_loss_matches_jax(jax_side, port_route):
     _, _, _, _, jstates, _, vb, (want_sum, want_n) = jax_side
     model = port_model(jstates[0].params, port_route)
-    val = make_val_loss_step(model, BLANK, device="cpu")
+    val = make_val_loss_step(model, model.n_classes - 1, device="cpu")
     got_sum, got_n = val(model.param_tree(), {k: torch.from_numpy(v[0]) for k, v in vb.items()})
     np.testing.assert_allclose(float(got_sum), want_sum, rtol=1e-5)
     assert got_n == want_n == 8.0
