@@ -8,7 +8,7 @@ i, f, g, o; Linear ``[out, in]``), so the mapping is renaming only.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,6 +61,20 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     for src, dst in _LINEARS.items():
         out[f"{dst}.weight"] = _t(params[src]["w"])
         out[f"{dst}.bias"] = _t(params[src]["b"])
+    return out
+
+
+def lstm_layers_from_jax(layer_params: Sequence[Mapping]) -> List[Dict[str, torch.Tensor]]:
+    """A list of JAX LSTM layer dicts (numpy ``w_ih`` [4H, I], ``w_hh``,
+    ``b_ih``, ``b_hh``) -> the port's layer dicts, the same names and
+    layouts (``ops/wavefront.run_lstm_stack_wavefront`` takes them). Raises
+    on any other leaf."""
+    out = []
+    for i, layer in enumerate(layer_params):
+        extra = set(layer) - set(_LSTM)
+        if extra:
+            raise ValueError(f"unknown leaves in layer {i}: {sorted(extra)}")
+        out.append({k: _t(layer[k]) for k in _LSTM})
     return out
 
 

@@ -9,7 +9,8 @@ Phases:
   1. set-up: card name and power limit, kernel build (nvcc, into
      build/kernels/), TF32 off;
   2. every kernel against its plain PyTorch version at small unaligned
-     shapes (the per-pass recompute also over a range of vocab columns), at
+     shapes (the per-pass recompute also over a range of vocab columns; the
+     wavefront at G = 1, 2, 3, soft and hard, masks on and off), at
      large-196M's LSTM widths, and every joint kernel once past 2^31 slab
      elements (N = 131,072 rows at large-196M's Hj and K);
   3. the slice at full width: base-85M (random weights from a seeded
@@ -37,7 +38,14 @@ Phases:
      each, the route shown by the launch counts; then each of these routes
      against its plain path and against the bf16-slab route;
   8. every kernel at the main path's shapes against its plain version, with
-     times beside the bound and the library call.
+     times beside the bound and the library call (K8-fwd and K8-bwd at
+     base-85M's post-stack, G=6, beside cuDNN's 6-layer nn.LSTM);
+  9. the wavefront multi-layer LSTM (run_lstm_stack_wavefront, K8-fwd and
+     K8-bwd) at full width, bf16, forward and forward + backward: base-85M's
+     and large-196M's post-stacks (G=6) and the JAX A/B script's default
+     (G=2, H=1536, B=96, T=200), one case with dropout 0.1; the launches
+     counted; each against the plain path (the fp32 forward, the bf16
+     gradients); the per-layer stack timed beside it.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -161,8 +169,29 @@ KERNELS = [
      "joint_bwd_recompute.cu", "caiman_asr_tpu/ops/pallas_joint.py:144"),
     ("K4-B joint_bwd_dw_recompute", "joint_kernel", "joint_bwd_dw_recompute",
      "joint_bwd_recompute.cu", "caiman_asr_tpu/ops/pallas_joint.py:502"),
+    ("K8-fwd lstm_wavefront", "wavefront_kernel", "lstm_wavefront", "lstm_wavefront.cu",
+     "caiman_asr_tpu/ops/pallas_wavefront.py:85"),
+    ("K8-bwd lstm_wavefront_bwd", "wavefront_kernel", "lstm_wavefront_bwd",
+     "lstm_wavefront_bwd.cu", "caiman_asr_tpu/ops/pallas_wavefront.py:234"),
 ]
+# Wrappers counted and swapped for their plain versions like those above,
+# with no row of their own: K8-fwd storing its gates (the K8-fwd row reports
+# it beside the plain forward, as one Pallas kernel does both).
+MORE_WRAPPERS = (("wavefront_kernel", "lstm_wavefront_sg"),)
 LSTM_TRAIN_KERNELS = ("lstm_recurrence_sg", "lstm_recurrence_bwd")
+# Phase 9, the wavefront at full width: (G, H, I0, B, T; None is the smoke
+# batch's encoder T after stacking). The post-stacks of base-85M and
+# large-196M (input 2H after stacking by 2), and the JAX A/B script's
+# default (`scripts/bench_wavefront.py`: G=2, H=1536, B=96, T=200, I0=H).
+WAVEFRONT_SHAPES = {
+    "base-85M post-stack": (6, 1024, 2048, 16, None),
+    "large-196M post-stack": (6, 1536, 3072, 32, None),
+    "JAX A/B default": (2, 1536, 1536, 96, 200),
+}
+WAVEFRONT_DROPOUT = 0.1  # large-196M's enc_dropout, on its shape
+# the fp32 forward against the plain path at full width: 1e-3 (fp32 sums in
+# another order over 2H = 3072, carried through 134 steps and 6 layers)
+WAVEFRONT_FWD_TOL = 1e-3
 # The routes of the joint under a gradient: the three the default policy
 # takes, named by the slab its plan stores ("bf16", "i8", None), and the five
 # the policy's knobs lead to. Per route: the joint kernels a train step
@@ -231,14 +260,20 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def module(name: str):
-    from caiman_asr_tpu_torch.ops import joint_kernel, lstm_kernel
+    from caiman_asr_tpu_torch.ops import joint_kernel, lstm_kernel, wavefront_kernel
 
-    return {"lstm_kernel": lstm_kernel, "joint_kernel": joint_kernel}[name]
+    return {"lstm_kernel": lstm_kernel, "joint_kernel": joint_kernel,
+            "wavefront_kernel": wavefront_kernel}[name]
+
+
+def wrapper_names() -> list:
+    """(module, wrapper) of every counted kernel wrapper."""
+    return [(mod, wrapper) for _, mod, wrapper, _, _ in KERNELS] + list(MORE_WRAPPERS)
 
 
 def wrappers() -> dict:
     """Every kernel wrapper by its name."""
-    return {wrapper: getattr(module(mod), wrapper) for _, mod, wrapper, _, _ in KERNELS}
+    return {wrapper: getattr(module(mod), wrapper) for mod, wrapper in wrapper_names()}
 
 
 def reset_counts() -> None:
@@ -253,7 +288,7 @@ def read_counts() -> dict:
 def plain_path():
     """A context in which every kernel wrapper is its plain version."""
     stack = contextlib.ExitStack()
-    for _, mod, wrapper, _, _ in KERNELS:
+    for mod, wrapper in wrapper_names():
         stack.enter_context(mock.patch.object(module(mod), wrapper,
                                               getattr(module(mod), wrapper + "_plain")))
     return stack
@@ -1346,6 +1381,192 @@ def run_knob_routes(fp) -> dict:
     return out
 
 
+def wavefront_inputs(G: int, T: int, B: int, H: int, dtype, seed: int, with_masks: bool):
+    """K8-fwd's operands (gates_x0, biases, w0_hh, w_cats, h0, c0, masks)
+    and cotangents dys, dcs [G, T, B, H], random from a seeded generator."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape, s: (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+    uni = lambda *shape, b: ((torch.rand(shape, generator=g, device="cuda") * 2 - 1) * b).to(dtype)
+    masks = None
+    if with_masks:
+        keep = torch.rand((G - 1, T, B, H), generator=g, device="cuda") < 0.9
+        masks = torch.where(keep, 1 / 0.9, 0.0).to(dtype)
+    ops = (rnd(T, B, 4 * H, s=0.5),
+           torch.randn((max(G - 1, 1), 4 * H), generator=g, device="cuda") * 0.1,
+           uni(4 * H, H, b=1 / math.sqrt(H)), uni(G - 1, 4 * H, 2 * H, b=1 / math.sqrt(2 * H)),
+           rnd(G, B, H, s=0.1), rnd(G, B, H, s=0.1), masks)
+    return ops, rnd(G, T, B, H, s=0.1), rnd(G, T, B, H, s=0.03)
+
+
+def check_wavefront(T: int, B: int, H: int, G: int, dtype_name: str, hard: bool,
+                    with_masks: bool, timed: bool = False, I0: int = 0) -> dict:
+    """K8-fwd (without and with stored gates) and K8-bwd against their plain
+    versions on the card; timed, also their times, bounds, the plain
+    versions' times and cuDNN's G-layer ``nn.LSTM`` (input width I0)."""
+    import torch
+
+    from caiman_asr_tpu_torch.ops import wavefront_kernel as wk
+
+    dtype = getattr(torch, dtype_name)
+    fwd_args, dys, dcs = wavefront_inputs(G, T, B, H, dtype, 13 * T + 5 * G + int(hard), with_masks)
+    gx, biases, w0, w_cats, h0, c0, masks = fwd_args
+    ys, cs = wk.lstm_wavefront(*fwd_args, hard)
+    sg = wk.lstm_wavefront_sg(*fwd_args, hard)
+    torch.cuda.synchronize()
+    ref = wk.lstm_wavefront_sg_plain(*fwd_args, hard)
+    gs, cs_ref = ref[2], ref[1]
+    c_prev = torch.cat([c0[:, None], cs_ref[:, :-1]], dim=1)
+    w_hh = torch.cat([w0[None], w_cats[:, :, H:]])
+    w_ih = w_cats[:, :, :H].contiguous()
+    bwd_args = (gs, cs_ref, c_prev, dys, dcs, masks, w_hh, w_ih, hard)
+    bwd = wk.lstm_wavefront_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    bwd_ref = wk.lstm_wavefront_bwd_plain(*bwd_args)
+    scale = max(1.0, bwd_ref[0].float().abs().max().item())
+    tol = TOL[dtype_name]
+    # the stored pre-activations: a bf16 rounding that falls the other way
+    # moves one by an ulp of its own magnitude, so their scale sets the bound
+    gs_scale = max(1.0, gs.float().abs().max().item())
+    out = {"K8-fwd": {"max_abs_err": max_err((ys, cs), ref[:2]), "tol": tol},
+           "K8-fwd-sg": {"max_abs_err": max_err(sg, ref), "tol": tol * gs_scale},
+           "K8-bwd": {"max_abs_err": max_err(bwd, bwd_ref), "tol": tol * scale}}
+    for name, r in out.items():
+        log(f"  {name} G={G} T={T} B={B} H={H} {dtype_name} hard={hard} masks={with_masks}: "
+            f"max|kernel - plain| = {r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+        if not r["max_abs_err"] <= r["tol"]:
+            raise AssertionError(f"{name} disagrees with its plain version: {r}")
+    if not timed:
+        return out
+    es = 4 if dtype_name == "float32" else 2
+    weights = 4 * H * H + (G - 1) * 4 * H * 2 * H
+    streams = G * T * B * H
+    n_masks = (G - 1) * T * B * H if with_masks else 0
+    fwd_bytes = es * (weights + T * B * 4 * H + n_masks + 2 * G * B * H + 2 * streams) \
+        + 4 * (G - 1) * 4 * H
+    fwd_flops = 2.0 * T * B * 4 * H * (H + (G - 1) * 2 * H)
+    k8f, k8sg, k8b = out["K8-fwd"], out["K8-fwd-sg"], out["K8-bwd"]
+    k8f["ms"] = cuda_ms(lambda: wk.lstm_wavefront(*fwd_args, hard))
+    k8f["plain_ms"] = cuda_ms(lambda: wk.lstm_wavefront_plain(*fwd_args, hard), reps=2,
+                              warmup=1)
+    k8f["bound_ms"], k8f["bound_by"] = bound_ms(fwd_bytes, fwd_flops, dtype_name)
+    k8sg["ms"] = cuda_ms(lambda: wk.lstm_wavefront_sg(*fwd_args, hard))
+    k8sg["plain_ms"] = cuda_ms(lambda: wk.lstm_wavefront_sg_plain(*fwd_args, hard), reps=2,
+                               warmup=1)
+    k8sg["bound_ms"], k8sg["bound_by"] = bound_ms(fwd_bytes + es * 4 * streams, fwd_flops,
+                                                  dtype_name)
+    # backward: w_hh of every layer and w_ih of the inner ones read once; gs,
+    # cs, c_prev, dys, dcs (and masks) read; dgates written, dh0 / dc0 fp32;
+    # (2G-1)·T products of [B, 4H] x [4H, H] (the G·T own ones include dh0)
+    k8b["ms"] = cuda_ms(lambda: wk.lstm_wavefront_bwd(*bwd_args))
+    k8b["plain_ms"] = cuda_ms(lambda: wk.lstm_wavefront_bwd_plain(*bwd_args), reps=2, warmup=1)
+    k8b["bound_ms"], k8b["bound_by"] = bound_ms(
+        es * ((2 * G - 1) * 4 * H * H + 8 * streams + 4 * streams + n_masks) + 4 * 2 * G * B * H,
+        2.0 * B * 4 * H * H * (2 * G - 1) * T, dtype_name)
+    # library yardsticks: cuDNN's G-layer LSTM at the same shape, without
+    # dropout; it also does layer 0's input projection (width I0), and its
+    # backward the weight gradients
+    lib = torch.nn.LSTM(I0, H, num_layers=G, device="cuda", dtype=dtype)
+    lib.flatten_parameters()
+    x = torch.randn((T, B, I0), device="cuda").to(dtype).requires_grad_()
+    with torch.no_grad():
+        k8f["library_ms"] = cuda_ms(lambda: lib(x, (h0, c0)))
+    k8sg["library_ms"] = cuda_ms(lambda: lib(x, (h0, c0)))
+    y, _ = lib(x, (h0, c0))
+    leaves = [x, *lib.parameters()]
+    k8b["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(y, leaves, dys[-1], retain_graph=True))
+    for name, r in out.items():
+        log(f"    {name}: kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | cuDNN nn.LSTM(num_layers={G}, input "
+            f"{I0}) {r['library_ms']:.4f} ms")
+    return out
+
+
+def run_wavefront(T_post: int) -> dict:
+    """Phase 9: ``run_lstm_stack_wavefront`` at each of WAVEFRONT_SHAPES in
+    bf16, forward and forward + backward (and one forward + backward with
+    dropout), counted; then each checked against the plain path (the fp32
+    forward, the bf16 gradients) and the per-layer stack timed beside it
+    with ``bench_wavefront``'s functions."""
+    import torch
+
+    from caiman_asr_tpu_torch import bench_wavefront as bw
+
+    cases, expected = {}, {"lstm_wavefront": 0, "lstm_wavefront_sg": 0, "lstm_wavefront_bwd": 0}
+    reset_counts()
+    for name, (G, Hs, I0, Bs, T) in WAVEFRONT_SHAPES.items():
+        T = T or T_post
+        layers, x, h0, c0, wy = bw.make_stack(G, Hs, I0, Bs, T, "cuda", seed=SEED)
+        runs = [("plain", {})]
+        if name.startswith("large-196M"):
+            runs.append(("dropout", dict(dropout=WAVEFRONT_DROPOUT)))
+        with torch.no_grad():
+            y = bw.wavefront_fwd(layers, x, h0, c0)
+        expected["lstm_wavefront"] += T + G - 1
+        grads = {}
+        for tag, kw in runs:
+            if kw:
+                kw = dict(kw, generator=torch.Generator(device="cuda").manual_seed(SEED))
+            grads[tag] = bw.grads(bw.wavefront_fwd, layers, x, h0, c0, wy, **kw)
+            expected["lstm_wavefront_sg"] += T + G - 1
+            expected["lstm_wavefront_bwd"] += T + G
+        torch.cuda.synchronize()
+        if not (y.shape == (T, Bs, Hs) and torch.isfinite(y).all()
+                and all(torch.isfinite(g).all() for gs in grads.values() for g in gs)):
+            raise AssertionError(f"wavefront at {name}: non-finite or misshapen output")
+        cases[name] = dict(G=G, H=Hs, I0=I0, B=Bs, T=T, stack=(layers, x, h0, c0, wy),
+                           runs=runs, grads=grads)
+    counts = read_counts()
+    got = {k: counts[k] for k in expected}
+    log(f"  launches on the wavefront path: {got} (expected {expected})")
+    if got != expected:
+        raise AssertionError(f"wavefront launches {got}, expected {expected}")
+
+    from caiman_asr_tpu_torch.ops.wavefront import run_lstm_stack_wavefront
+
+    out = {"launches": counts}
+    for name, c in cases.items():
+        layers, x, h0, c0, wy = c["stack"]
+        r = {k: c[k] for k in ("G", "H", "I0", "B", "T")}
+        # fp32 forward, kernels against the plain path
+        l32 = [{k: v.detach().float() for k, v in p.items()} for p in layers]
+        with torch.no_grad():
+            fwd = run_lstm_stack_wavefront(l32, x.float(), h0.float(), c0.float())
+            with plain_path():
+                fwd_ref = run_lstm_stack_wavefront(l32, x.float(), h0.float(), c0.float())
+        r["fp32_fwd_max_abs_err"] = max_err(fwd, fwd_ref)
+        # bf16 gradients, kernels against the plain path, per weight
+        for tag, kw in c["runs"]:
+            if kw:
+                kw = dict(kw, generator=torch.Generator(device="cuda").manual_seed(SEED))
+            with plain_path():
+                ref = bw.grads(bw.wavefront_fwd, layers, x, h0, c0, wy, **kw)
+            r[f"bf16_grad_max_rel_err_{tag}"] = bw.max_rel(c["grads"][tag], ref)
+        log(f"  {name} (G={r['G']} H={r['H']} I0={r['I0']} B={r['B']} T={r['T']}): fp32 "
+            f"forward max|kernel - plain| = {r['fp32_fwd_max_abs_err']:.3g} (tol "
+            f"{WAVEFRONT_FWD_TOL}); bf16 gradients, max over weights of max|kernel - plain| / "
+            f"max|plain| = " + ", ".join(f"{r[k]:.3g} ({k.rsplit('_', 1)[1]})" for k in r
+                                       if k.startswith("bf16_grad")) + f" (tol {TOL['bfloat16']})")
+        if not r["fp32_fwd_max_abs_err"] <= WAVEFRONT_FWD_TOL:
+            raise AssertionError(f"wavefront fp32 forward at {name}: {r}")
+        if not all(v <= TOL["bfloat16"] for k, v in r.items() if k.startswith("bf16_grad")):
+            raise AssertionError(f"wavefront bf16 gradients at {name}: {r}")
+        del c["stack"], c["grads"]
+        torch.cuda.empty_cache()
+        # the A/B: per-layer stack (K1; K3a + K3b) against the wavefront
+        r["ab"] = bw.ab(r["G"], r["H"], r["I0"], r["B"], r["T"], reps=5)
+        a = r["ab"]
+        log(f"    A/B bf16: forward per-layer {a['fwd_perlayer_ms']:.3f} ms, wavefront "
+            f"{a['fwd_wavefront_ms']:.3f} ms ({a['fwd_perlayer_ms'] / a['fwd_wavefront_ms']:.2f}x);"
+            f" f+b per-layer {a['fb_perlayer_ms']:.3f} ms, wavefront {a['fb_wavefront_ms']:.3f} "
+            f"ms ({a['fb_perlayer_ms'] / a['fb_wavefront_ms']:.2f}x); max|diff| forward "
+            f"{a['fwd_max_abs_diff']:.3g}, gradients {a['grad_max_rel_diff']:.3g} of max")
+        out[name] = r
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1398,6 +1619,13 @@ def main() -> int:
         check_joint(1000, 96, 2500, dtype, timed=False, only=("K4-A", "K4-B"), cols=(1024, None))
         check_joint(300, 96, 1000, dtype, timed=False, only=("K4-A", "K4-B"), cols=(200, 937))
     check_fused_joint_lse()
+    log("== the wavefront kernels vs plain versions (K8-fwd, K8-bwd)")
+    for dtype in ("float32", "bfloat16"):
+        for hard in (False, True):
+            for G in (1, 2, 3):
+                for with_masks in ((False, True) if G > 1 else (False,)):
+                    check_wavefront(11, 5, 136, G, dtype, hard, with_masks)
+        check_wavefront(5, 33, 1536, 3, dtype, False, True)  # large-196M's width, 3 batch tiles
     log(f"== joint kernels past 2^31 slab elements ({BIG_N} x {BIG_K} = {BIG_N * BIG_K})")
     for dtype in ("float32", "bfloat16"):
         check_joint(BIG_N, BIG_HJ, BIG_K, dtype, timed=False)
@@ -1490,6 +1718,13 @@ def main() -> int:
               "recomputed": check_joint(n32, Hj_l, K_l, "bfloat16", timed=True,
                                         only=("K4-A", "K4-B"), reps=2, cols=(ks, None))}
     torch.cuda.empty_cache()
+    k8 = check_wavefront(sl["T_post"], B, H, 6, "bfloat16", False, False, timed=True,
+                         I0=2 * H)
+    torch.cuda.empty_cache()
+
+    # 9. the wavefront multi-layer LSTM at full width
+    log("== wavefront: run_lstm_stack_wavefront at full width, bf16, forward and f+b")
+    wavefront = run_wavefront(sl["T_post"])
 
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
@@ -1501,6 +1736,9 @@ def main() -> int:
     base_step, large32, large64 = ("base-85M train step", "large-196M train step, B=32",
                                    "large-196M train step, B=64")
     shape16 = f"N={n16} Hj={Hj_l} K={K_l} bfloat16"
+    wf_shape = (f"G=6 T={sl['T_post']} B={B} H={H} bfloat16, no dropout (base-85M's post-stack; "
+                "library: cuDNN nn.LSTM(num_layers=6) with layer 0's input projection, I0=2048)")
+    wf_per = "phase 9: the wavefront at three full-width shapes, forward and f+b"
 
     def knob_row(check: str, route: str, wrapper: str, shape: str):
         cell = knob["train"][route]
@@ -1533,7 +1771,13 @@ def main() -> int:
                                            shape64),
         "joint_bwd_dw_recompute": knob_row("K4-B", "recompute", "joint_bwd_dw_recompute",
                                            shape64),
+        "lstm_wavefront": (k8["K8-fwd"], wavefront["launches"]["lstm_wavefront"], wf_shape,
+                           wf_per),
+        "lstm_wavefront_bwd": (k8["K8-bwd"], wavefront["launches"]["lstm_wavefront_bwd"],
+                               wf_shape, wf_per),
     }
+    if wavefront["launches"]["lstm_wavefront_sg"] == 0:
+        raise AssertionError(f"K8-fwd storing its gates was not launched ({wf_per})")
     kernels = []
     for name, _, wrapper, src, replaces in KERNELS:
         r, launches, shape, per = rows[wrapper]
@@ -1546,6 +1790,13 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": shape, "launches_per": per,
         })
+        if wrapper == "lstm_wavefront":  # the same kernel storing its gates
+            sg = k8["K8-fwd-sg"]
+            kernels[-1].update({
+                "launches_store_gates": wavefront["launches"]["lstm_wavefront_sg"],
+                "ms_store_gates": sg["ms"], "plain_ms_store_gates": sg["plain_ms"],
+                "bound_ms_store_gates": sg["bound_ms"], "library_ms_store_gates": sg["library_ms"],
+                "max_abs_err_store_gates": sg["max_abs_err"]})
 
     def summary(run, extra=None):
         return {"step_ms": [r["ms"] for r in run["rows"]],
@@ -1574,6 +1825,8 @@ def main() -> int:
         "whole_step": knob["whole_step"], "rechunked_backward": rechunked,
         "hybrid_kernels": {part: {k: strip(r) for k, r in rs.items()}
                            for part, rs in hybrid.items()}}))
+    log("wavefront summary: " + json.dumps(
+        {name: r for name, r in wavefront.items() if name != "launches"}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -109,3 +109,23 @@ def test_the_large_config_file_gives_the_numbers_chip_smoke_writes_out():
     assert (cfg.rnnt.enc_n_hid, cfg.rnnt.pred_n_hid, cfg.rnnt.joint_n_hid) == (1536, 768, 1024)
     assert cfg.rnnt.joint_net_lr_factor == 0.243
     assert chip_smoke.MODELS["large-196M"][1] == 17407 + 1
+
+
+def test_lstm_layers_carry_over_unchanged():
+    """``lstm_layers_from_jax``: a JAX layer list becomes the port's layer
+    dicts with the same values; a leaf it does not know raises."""
+    from caiman_asr_tpu.ops.lstm import init_lstm_layer
+    from caiman_asr_tpu_torch.export.from_jax import lstm_layers_from_jax
+
+    keys = jax.random.split(jax.random.PRNGKey(2), 3)
+    layers = [jax.tree.map(np.asarray, init_lstm_layer(k, 12 if i == 0 else 8, 8))
+              for i, k in enumerate(keys)]
+    got = lstm_layers_from_jax(layers)
+    assert len(got) == 3
+    for src, dst in zip(layers, got):
+        assert set(dst) == {"w_ih", "w_hh", "b_ih", "b_hh"}
+        for k, v in dst.items():
+            np.testing.assert_array_equal(v.numpy(), src[k], err_msg=k)
+    assert got[0]["w_ih"].shape == (32, 12)
+    with pytest.raises(ValueError):
+        lstm_layers_from_jax([dict(layers[0], bn={})])

@@ -64,6 +64,14 @@ def test_entry_points_without_a_device_raise_when_there_is_no_gpu(monkeypatch):
         offline.transcribe(model, torch.zeros(1, 8000), torch.tensor([8000]))
 
 
+def test_the_wavefront_benchmark_raises_when_there_is_no_gpu(monkeypatch):
+    from caiman_asr_tpu_torch import bench_wavefront
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_wavefront.main(["-G", "2", "-B", "4", "-T", "3", "--fwd-only"])
+
+
 def test_training_entry_points_raise_when_there_is_no_gpu(monkeypatch):
     from caiman_asr_tpu_torch.models.config import RNNTModelConfig
     from caiman_asr_tpu_torch.models.rnnt import RNNT

@@ -7,7 +7,9 @@ backwards over the bf16 slab (K5-fused-u), over the int8 slab (K7-fused-u8)
 and with no slab (K6-fused), and the backwards that derive again per pass
 (K6-derive-a for the rechunked route, K4-A and K4-B over a column range)
 (``csrc/joint_fwd.cu``, ``csrc/joint_bwd.cu``, ``csrc/joint_bwd_fused.cu``,
-``csrc/joint_bwd_recompute.cu``).
+``csrc/joint_bwd_recompute.cu``), and the wavefront multi-layer LSTM's
+forward, without and with stored gates (K8-fwd), and backward (K8-bwd)
+(``csrc/lstm_wavefront.cu``, ``csrc/lstm_wavefront_bwd.cu``).
 
 A CUDA kernel has no interpret mode, so these tests need a GPU and nvcc and
 skip elsewhere; run them on the card with
@@ -40,6 +42,8 @@ import torch
 
 from caiman_asr_tpu_torch.ops import joint_kernel as jk
 from caiman_asr_tpu_torch.ops import lstm_kernel
+from caiman_asr_tpu_torch.ops import wavefront_kernel as wk
+from caiman_asr_tpu_torch.ops.wavefront import WavefrontLSTM, stack_operands
 
 pytestmark = pytest.mark.gpu
 
@@ -545,3 +549,125 @@ def test_new_joint_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # dw to add into has another shape
         jk.joint_bwd_dw(h, u, cs, cl, labels, out=(torch.zeros(8, 39, device=cuda),
                                                    torch.zeros(40, device=cuda)))
+
+
+# ------------------------------------------------------------ the wavefront
+def _wf_inputs(G, T, B, H, dtype, device, with_masks, seed=10):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape, s=1.0, dt=dtype: torch.from_numpy(
+        (rng.normal(size=shape) * s).astype(np.float32)).to(device, dt)
+    masks = (torch.from_numpy(np.where(rng.random((G - 1, T, B, H)) < 0.8, 1.25, 0.0)
+                              .astype(np.float32)).to(device, dtype) if with_masks else None)
+    return (mk(T, B, 4 * H, s=0.5), mk(max(G - 1, 1), 4 * H, s=0.1, dt=torch.float32),
+            mk(4 * H, H, s=1 / np.sqrt(3 * H)), mk(G - 1, 4 * H, 2 * H, s=1 / np.sqrt(6 * H)),
+            mk(G, B, H, s=0.1), mk(G, B, H, s=0.1), masks)
+
+
+# aligned; unaligned B and H (H only a multiple of 8); wide, with B past one batch tile
+WF_SHAPES = [(6, 8, 32), (11, 5, 136), (3, 33, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("G", [1, 2, 3])
+@pytest.mark.parametrize("with_masks", [False, True])
+@pytest.mark.parametrize("T,B,H", WF_SHAPES)
+def test_wavefront_kernels_match_plain(cuda, dtype, hard, G, with_masks, T, B, H):
+    """K8-fwd without and with stored gates, then K8-bwd on those gates."""
+    args = _wf_inputs(G, T, B, H, dtype, cuda, with_masks)
+    before = (wk.lstm_wavefront.launches, wk.lstm_wavefront_sg.launches,
+              wk.lstm_wavefront_bwd.launches)
+    ys, cs = wk.lstm_wavefront(*args, hard)
+    sg = wk.lstm_wavefront_sg(*args, hard)
+    torch.cuda.synchronize()
+    want = wk.lstm_wavefront_plain(*args, hard, True)
+    for g, w in zip(sg, want):  # the pre-activations to an ulp of their own scale
+        assert g.dtype == dtype
+        _close(g, w, LSTM_TOL[dtype] * max(1.0, w.float().abs().max().item()))
+    assert torch.equal(ys, sg[0]) and torch.equal(cs, sg[1])  # K8-fwd's outputs are K8-sg's
+
+    gx, biases, w0, w_cats, h0, c0, masks = args
+    gs, cs = want[2], want[1]
+    c_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
+    rng = np.random.default_rng(11)
+    dys = torch.from_numpy(rng.normal(size=(G, T, B, H)).astype(np.float32)).to(cuda, dtype)
+    dcs = torch.from_numpy((rng.normal(size=(G, T, B, H)) * 0.3).astype(np.float32)).to(
+        cuda, dtype)
+    w_hh = torch.cat([w0[None], w_cats[:, :, H:]])
+    w_ih = w_cats[:, :, :H].contiguous()
+    bwd_args = (gs, cs, c_prev, dys, dcs, masks, w_hh, w_ih, hard)
+    got = wk.lstm_wavefront_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert (wk.lstm_wavefront.launches, wk.lstm_wavefront_sg.launches,
+            wk.lstm_wavefront_bwd.launches) == (before[0] + T + G - 1, before[1] + T + G - 1,
+                                                before[2] + T + G)
+    ref = wk.lstm_wavefront_bwd_plain(*bwd_args)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    scale = max(1.0, ref[0].float().abs().max().item())
+    for g, w in zip(got, ref):
+        _close(g, w, LSTM_TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("store_gates", [True, False])
+def test_wavefront_on_the_card_matches_the_cpu(cuda, store_gates):
+    """``WavefrontLSTM`` (K8-fwd, K8-bwd) fp32 with dropout masks: outputs
+    and every gradient on the card against the CPU (the plain versions)."""
+    G, T, B, H, I0 = 3, 9, 6, 40, 24
+    rng = np.random.default_rng(12)
+    mk = lambda *shape, s=1.0: torch.from_numpy((rng.normal(size=shape) * s).astype(np.float32))
+    layers = [{"w_ih": mk(4 * H, I0 if l == 0 else H, s=0.15), "w_hh": mk(4 * H, H, s=0.15),
+               "b_ih": mk(4 * H, s=0.1), "b_hh": mk(4 * H, s=0.1)} for l in range(G)]
+    x, h0, c0, wy = mk(T, B, I0), mk(G, B, H, s=0.1), mk(G, B, H, s=0.1), mk(G, T, B, H)
+    masks = torch.from_numpy(np.where(rng.random((G - 1, T, B, H)) < 0.7, 1 / 0.7, 0.0)
+                             .astype(np.float32))
+
+    def run(device):
+        ls = [{k: v.to(device).requires_grad_() for k, v in p.items()} for p in layers]
+        xd = x.to(device).requires_grad_()
+        ys, cs = WavefrontLSTM.apply(*stack_operands(ls, xd, h0.to(device), c0.to(device)),
+                                     masks.to(device), False, store_gates)
+        loss = (ys * wy.to(device)).sum() + 0.3 * (cs ** 2).sum()
+        leaves = [v for p in ls for v in p.values()] + [xd]
+        return [ys.detach(), cs.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    for g, w in zip(run(cuda), run("cpu")):
+        _close(g.cpu(), w, 1e-4 * max(1.0, w.abs().max().item()))
+
+
+def test_wavefront_kernels_reject_what_they_do_not_take(cuda):
+    args = _wf_inputs(3, 4, 2, 32, torch.float32, cuda, True)
+    gx, biases, w0, w_cats, h0, c0, masks = args
+    with pytest.raises(TypeError):
+        wk.lstm_wavefront(*(a.half() if a is not biases else a for a in args))
+    with pytest.raises(ValueError):  # w_cats not contiguous
+        wk.lstm_wavefront(gx, biases, w0, w_cats.transpose(1, 2).contiguous().transpose(1, 2),
+                          h0, c0, masks)
+    with pytest.raises(ValueError):
+        wk.lstm_wavefront(gx, biases, w0, w_cats, h0.cpu(), c0, masks)
+    with pytest.raises(ValueError):  # masks for another G
+        wk.lstm_wavefront(gx, biases, w0, w_cats, h0, c0, masks[:1])
+    with pytest.raises(TypeError):  # the biases are fp32
+        wk.lstm_wavefront(gx, biases.bfloat16(), w0, w_cats, h0, c0, masks)
+    with pytest.raises(ValueError):  # H not a multiple of 8
+        wk.lstm_wavefront(*_wf_inputs(2, 4, 2, 12, torch.float32, cuda, False))
+    with pytest.raises(ValueError):  # [x ; h] at H=2048 in fp32 does not fit shared memory
+        wk.lstm_wavefront(*_wf_inputs(2, 1, 2, 2048, torch.float32, cuda, False))
+    ys, cs, gs = wk.lstm_wavefront_sg(*args)
+    c_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
+    w_hh = torch.cat([w0[None], w_cats[:, :, 32:]])
+    w_ih = w_cats[:, :, :32]
+    with pytest.raises(ValueError):  # w_ih not contiguous
+        wk.lstm_wavefront_bwd(gs, cs, c_prev, ys, cs, masks, w_hh, w_ih)
+    with pytest.raises(ValueError):  # w_hh for another G
+        wk.lstm_wavefront_bwd(gs, cs, c_prev, ys, cs, masks, w_hh[:2], w_ih.contiguous())
+    with pytest.raises(TypeError):
+        wk.lstm_wavefront_bwd(gs, cs, c_prev, ys, cs.bfloat16(), masks, w_hh, w_ih.contiguous())
+
+
+def test_the_wavefront_benchmark_runs_on_the_card(cuda):
+    from caiman_asr_tpu_torch import bench_wavefront
+
+    r = bench_wavefront.ab(2, 64, 48, 5, 7, reps=1)
+    assert r["fwd_max_abs_diff"] <= 2e-2 and r["grad_max_rel_diff"] <= 2e-2
+    assert all(r[k] > 0 for k in ("fwd_perlayer_ms", "fwd_wavefront_ms", "fb_perlayer_ms",
+                                  "fb_wavefront_ms"))
