@@ -10,8 +10,9 @@
 //
 // What bounds them: each pass is 2 N Hj K operations (as the forward) and
 // reads the slab once (N K 2 bytes, or N K), so all are operation-bound
-// GEMMs. bf16 inputs run them on the tensor cores (WMMA), fp32 inputs on
-// the CUDA cores (joint_tile.cuh).
+// GEMMs. With bf16 inputs pass B (K5-B, K7-B8) runs as wgmma behind
+// asynchronous staging (joint_bwd.cuh's passb) and pass A on WMMA; fp32
+// inputs run on the CUDA cores (joint_tile.cuh).
 
 #include "joint_bwd.cuh"
 
@@ -69,6 +70,27 @@ int joint_bwd_dw_u8(const void* h, const void* q, const void* scales, const void
                           static_cast<const float*>(cl), static_cast<const int*>(labels),
                           static_cast<float*>(dw), static_cast<float*>(db), N, Hj, K, false,
                           dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 pass B's plan for these operands, for the logs: out[0..5] =
+// how h and u are staged (joint_sm90.cuh's Staging: 0 TMA, 8 or 4 cp.async
+// bytes, 2 or 1 element copies), Hj tiles, vocab tiles, ring stages and
+// dynamic shared memory bytes. u_bytes: 2 the bf16 slab, 1 the int8 slab,
+// 4 an fp32 workspace.
+int joint_bwd_dw_plan(const void* h, const void* u, int N, int Hj, int K, int u_bytes,
+                      int* out) {
+  joint::passb::Plan pl;
+  if (u_bytes == 2)
+    pl = joint::passb::plan(h, joint::SlabBf16{static_cast<const __nv_bfloat16*>(u), K}, N, Hj, K);
+  else if (u_bytes == 1)
+    pl = joint::passb::plan(h, slab_i8(u, nullptr, N, K, 8), N, Hj, K);
+  else if (u_bytes == 4)
+    pl = joint::passb::plan(h, joint::SlabF32{static_cast<const float*>(u), K}, N, Hj, K);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int v[6] = {pl.h_mode, pl.u_mode, pl.tiles_hj, pl.tiles_k, pl.stages, pl.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 }  // extern "C"

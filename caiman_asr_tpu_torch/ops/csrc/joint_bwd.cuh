@@ -36,11 +36,20 @@
 // atomics: the results are deterministic. With ``accumulate`` pass B adds
 // its tile to what dw and db hold, so a caller can walk the rows in chunks;
 // the block that owns a tile is the only one that touches it.
+//
+// Pass B with bf16 h, the counterpart of _bwd_dw_kernel_u (K5-B),
+// _bwd_dw_kernel_u8 (K7-B8) and _bwd_dw_kernel (K4-B) and the B half of
+// the fused backwards (pallas_joint.py:408, :459, :502), is a Hopper kernel
+// of its own (passb below, on joint_sm90.cuh): 2 N Hj K operations bound
+// it, and it runs them as wgmma fed by a producer warp's TMA or cp.async
+// ring, dz built by the consumers beside the tensor cores. Pass A and the
+// fp32 passes use joint_tile.cuh's synchronous tiles.
 
 #pragma once
 
 #include <stdint.h>
 
+#include "joint_sm90.cuh"
 #include "joint_tile.cuh"
 
 namespace joint {
@@ -49,11 +58,29 @@ namespace joint {
 // at(row, col): one value. load8(v, row, col, n_valid): the 8 values from
 // col (a multiple of 8), zero from n_valid on (n_valid <= 0: nothing is
 // read). kRoundA: pass A rounds the value to bf16 even for fp32 inputs.
+// For the bf16 pass B, which stages the raw rows itself: raw() and kBytes
+// (the array and its element size), kTmaType, unpack8(v, p) (the 8 values
+// at p in shared memory, unscaled) and kScaled (multiply by the int8
+// slab's scale).
 
 struct SlabBf16 {  // the stored bf16 slab [N, K]
   const __nv_bfloat16* u;
   int K;
   static constexpr bool kRoundA = false;
+  static constexpr bool kScaled = false;
+  static constexpr int kBytes = 2;
+  static constexpr CUtensorMapDataType kTmaType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __host__ __device__ const void* raw() const { return u; }
+  static __device__ __forceinline__ void unpack8(float (&v)[8], const uint8_t* p) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(b[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
   __device__ __forceinline__ float at(int row, int col) const {
     return to_f32(u[static_cast<size_t>(row) * K + col]);
   }
@@ -72,6 +99,21 @@ struct SlabI8 {  // q int8 [N, K] and one fp32 scale per (kt-wide vocab tile, ro
   int N;
   int kt;  // a multiple of 8
   static constexpr bool kRoundA = true;
+  static constexpr bool kScaled = true;
+  static constexpr int kBytes = 1;
+  static constexpr CUtensorMapDataType kTmaType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  __host__ __device__ const void* raw() const { return q; }
+  // 0x4B000000 | (q + 128) is the float 2^23 + 128 + q, so a byte permute
+  // and a subtraction give q exactly, without an int-to-float conversion
+  static __device__ __forceinline__ void unpack8(float (&v)[8], const uint8_t* p) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const uint32_t lo = w.x ^ 0x80808080u, hi = w.y ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540 + i)) - 8388736.0f;
+      v[4 + i] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540 + i)) - 8388736.0f;
+    }
+  }
   __device__ __forceinline__ float scale(int row, int col) const {
     return s[static_cast<size_t>(col / kt) * N + row];
   }
@@ -102,6 +144,16 @@ struct SlabF32 {  // fp32 u [rows, K], the no-slab backward's workspace
   const float* u;
   int K;
   static constexpr bool kRoundA = false;
+  static constexpr bool kScaled = false;
+  static constexpr int kBytes = 4;
+  static constexpr CUtensorMapDataType kTmaType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  __host__ __device__ const void* raw() const { return u; }
+  static __device__ __forceinline__ void unpack8(float (&v)[8], const uint8_t* p) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
   __device__ __forceinline__ float at(int row, int col) const {
     return u[static_cast<size_t>(row) * K + col];
   }
@@ -265,67 +317,349 @@ joint_bwd_dw_kernel(const float* __restrict__ h,          // [N, Hj]
   }
 }
 
+// The bf16 pass B for Hopper: see the note on passb below.
+namespace passb {
+
+constexpr int BM = 128;            // Hj per block: one 64-wide panel per consumer warpgroup
+constexpr int BN = 128;            // vocab columns per block
+constexpr int BK = 64;             // rows per slice
+constexpr int kFlushSlices = 4;    // 256 rows summed on the tensor cores per flush
+constexpr int kConsumers = 256;    // two warpgroups: dz and the products
+constexpr int kThreads = 384;      // + one producer warpgroup (one warp stages)
+constexpr int kDzBufs = 3;         // dz of slices s - 1, s, s + 1
+constexpr int kPanel = BK * 128;   // one 64-wide bf16 panel of a slice: 8 KB
+constexpr int kH = 2 * kPanel;     // h's [BK x BM] slice
+constexpr int kDz = 2 * kPanel;    // dz's [BK x BN] slice
+constexpr int kRows = 3 * BK * 4;  // cs, cl, labels of the slice
+constexpr int kScaleTiles = BN / 8;  // int8 scale tiles one block's columns can meet (kt >= 8)
+constexpr int kDwLd = BN + 8;      // row of the staged dw tile, floats
+
+constexpr int align1024(int n) { return (n + 1023) / 1024 * 1024; }
+
+// A stage of the ring: [h panels | raw u [BK][BN] | cs | cl | labels | scales].
 template <class U>
-__global__ void __launch_bounds__(kThreads)
-joint_bwd_dw_tc_kernel(const tc::bf16* __restrict__ h,   // [N, Hj]
-                       U src,                            // u [N, K]
-                       const float* __restrict__ cs,     // [N]
-                       const float* __restrict__ cl,     // [N]
-                       const int* __restrict__ labels,   // [N]
-                       float* __restrict__ dw,           // [Hj, K]
-                       float* __restrict__ db,           // [K]
-                       int N, int Hj, int K, bool accumulate) {
-  // a thread stages 8 fixed dz columns: 16 column groups x 16 row slots
-  static_assert(kThreads == 16 * (BN / 8), "a thread stages 8 fixed dz columns");
-  __shared__ tc::Tiles s;
-  __shared__ float db_s[kThreads / (BN / 8)][BN];
+struct Layout {
+  static constexpr int kU = BK * BN * U::kBytes;
+  static constexpr int kScales = U::kScaled ? kScaleTiles * BK * 4 : 0;
+  static constexpr int kStage = align1024(kH + kU + kRows + kScales);
+  static constexpr int kStages = U::kBytes == 4 ? 3 : 4;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kBarriers = kRing + kDzBufs * kDz;
+  static constexpr int kBytes = kBarriers + 2 * kStages * 8 + 1024;  // + slack to align the base
+  static_assert(kRing >= BM * kDwLd * 4 + 16 * BN * 4, "the epilogue reuses the ring");
+  static_assert(kBytes <= 232448, "more shared memory than a Hopper block has");
+};
+
+struct Params {
+  const uint8_t* h;       // [N, Hj] bf16
+  const float* cs;        // [N]
+  const float* cl;        // [N]
+  const int* labels;      // [N]
+  float* dw;              // [Hj, K]
+  float* db;              // [K]
+  int N, Hj, K;
+  int h_mode, u_mode;     // sm90::Staging of each
+  int accumulate;
+};
+
+// Pass B over bf16 h: dw[j, k] = sum_n h[n, j] bf16(dz[n, k]) and db[k] =
+// sum_n dz[n, k] for one [BM of Hj x BN of K] tile per block, looping over
+// the rows in slices of BK. The product is 2 N Hj K operations on the
+// tensor cores (bf16, fp32 sums); the bytes (h once per Hj tile group, u
+// once, N Hj 2 + N K kBytes) are far below it, so it is operation-bound.
+//
+// Design: warp specialisation. One producer warp fills a ring of kStages
+// shared-memory stages, each with a slice's h [BK x BM], its raw u
+// [BK x BN] in the slab's own dtype, its cs, cl and labels (and the int8
+// slab's scales); by TMA where the operand is 16-byte aligned, else by
+// cp.async (8 or 4 bytes, zero-filled past the edges), else element by
+// element; each stage's `full` mbarrier completes when its bytes have
+// landed. Two consumer warpgroups (setmaxnreg: 224 registers each, the
+// producer 56) build bf16 dz of slice s from the raw u into a 128-byte
+// swizzled buffer (each thread 4 rows x 8 fixed columns, its fp32 db
+// partials in registers) while the wgmmas of slice s - 1 run; then
+// fence.proxy.async, a barrier of the 256, and four m64n128k16 wgmmas per
+// warpgroup (A: its 64-wide panel of h, B: dz, both MN-major as they lie,
+// so nothing is transposed in shared memory); wgmma.wait_group 1 frees
+// slice s - 1's stage (`empty` mbarrier) and dz buffer. Three dz buffers,
+// so the one written next is one both warpgroups' waits have freed.
+// Drift: the tensor cores' fp32 sums truncate, so every kFlushSlices slices
+// (256 rows) the running set is added, rounded to nearest, into a second
+// set and restarted (scale-d 0). That flush waits for the group's last
+// wgmmas only after the next slice's dz is built, so the build still
+// overlaps them. Both warpgroups issue on every slice, even where the
+// second Hj panel lies past Hj (those rows are never stored): ptxas waits
+// for every wgmma at the end of a loop that issues them under a branch it
+// cannot prove uniform, and dz would no longer overlap the tensor cores.
+// The epilogue stages the tile through
+// shared memory into 16-byte stores (added to dw with accumulate); db:
+// the blocks of the first Hj tile add their partials in a fixed order. No
+// atomics: deterministic.
+template <class U>
+__global__ void __launch_bounds__(kThreads, 1)
+joint_bwd_dw_sm90_kernel(const __grid_constant__ CUtensorMap hmap,
+                         const __grid_constant__ CUtensorMap umap, const U src,
+                         const Params p) {
+  using namespace sm90;
+  using L = Layout<U>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // aligned by pointer arithmetic, so that accesses stay shared-memory ones
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* dz_bufs = smem + L::kRing;
+  const uint32_t full0 = smem_addr(smem + L::kBarriers);
+  const uint32_t empty0 = full0 + 8 * L::kStages;
   const int m0 = blockIdx.x * BM;  // Hj
   const int n0 = blockIdx.y * BN;  // K
-  const int cg = 8 * (threadIdx.x % (BN / 8));
-  float db_part[8] = {};
-  tc::Acc acc[tc::FM][tc::FN];
-  tc::zero(acc);
-  tc::mainloop(
-      s, acc, N,
-      [&](tc::Stage& a, int k0) { tc::load_mnmajor(a, h, Hj, N, Hj, m0, k0); },
-      [&](tc::Stage& b, int k0) {
-        for (int k = threadIdx.x / (BN / 8); k < tc::BK; k += kThreads / (BN / 8)) {
-          const int row = k0 + k;
-          const int col = n0 + cg;
-          float uv[8];
-          src.load8(uv, row, col, row < N ? K - col : 0);
-          const float c = row < N ? -cs[row] : 0.0f;
-          const int lab = row < N ? labels[row] - col : -1;
+  const int slices = (p.N + BK - 1) / BK;
+  const bool tma = p.h_mode == kTma || p.u_mode == kTma;
+  const bool element = (p.h_mode == kElement1 || p.h_mode == kElement2 ||
+                        p.u_mode == kElement1 || p.u_mode == kElement2);
+  const bool panel1 = m0 + 64 < p.Hj;  // the second 64 of the Hj tile hold any column
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 32 + (tma ? 1 : 0));
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------------ producer
+    regs_dec<56>();
+    if (threadIdx.x < kConsumers + 32) {
+      const int lane = threadIdx.x % 32;
+      const int es = U::kBytes;
+      const int h_valid = min(p.Hj - m0, BM) * 2;
+      const int u_valid = min(p.K - n0, BN) * es;
+      const uint32_t tx = (p.h_mode == kTma ? (panel1 ? kH : kPanel) : 0) +
+                          (p.u_mode == kTma ? L::kU : 0);
+      for (int it = 0; it < slices; ++it) {
+        const int s = it % L::kStages;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((it / L::kStages) & 1) ^ 1);
+        uint8_t* st = smem + s * L::kStage;
+        const int r0 = it * BK;
+        const int rows = min(BK, p.N - r0);
+        if (tma && lane == 0) {
+          mbar_arrive_expect_tx(full, tx);
+          if (p.h_mode == kTma) {
+            tma_load_2d(smem_addr(st), &hmap, m0, r0, full);
+            if (panel1) tma_load_2d(smem_addr(st + kPanel), &hmap, m0 + 64, r0, full);
+          }
+          if (p.u_mode == kTma) tma_load_2d(smem_addr(st + kH), &umap, n0, r0, full);
+        }
+        if (p.h_mode != kTma)
+          stage_box(p.h_mode, st, p.h + (static_cast<size_t>(r0) * p.Hj + m0) * 2,
+                    static_cast<size_t>(p.Hj) * 2, BK, BM * 2, rows, h_valid, lane,
+                    [](int r, int b) { return swz128(r, b, kPanel); });
+        if (p.u_mode != kTma)
+          stage_box(p.u_mode, st + kH,
+                    static_cast<const uint8_t*>(src.raw()) +
+                        (static_cast<size_t>(r0) * p.K + n0) * es,
+                    static_cast<size_t>(p.K) * es, BK, BN * es, rows, u_valid, lane,
+                    [](int r, int b) { return static_cast<uint32_t>(r * BN * U::kBytes + b); });
+        uint8_t* row_data = st + kH + L::kU;
 #pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            float v = c * uv[q];
-            if (q == lab) v += cl[row];
-            db_part[q] += v;
-            b[cg + q][k] = __float2bfloat16_rn(v);
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int r = lane + 32 * h2;
+          const int n = r < rows ? 4 : 0;
+          cp_async<4>(smem_addr(row_data + 4 * r), p.cs + r0 + (n ? r : 0), n);
+          cp_async<4>(smem_addr(row_data + 4 * (BK + r)), p.cl + r0 + (n ? r : 0), n);
+          cp_async<4>(smem_addr(row_data + 4 * (2 * BK + r)), p.labels + r0 + (n ? r : 0), n);
+        }
+        if constexpr (U::kScaled) {
+          // the scales of every kt-wide tile the block's columns meet
+          const int t0 = n0 / src.kt;
+          const int tiles = (min(n0 + BN, p.K) - 1) / src.kt - t0 + 1;
+          for (int i = lane; i < tiles * BK; i += 32) {
+            const int r = i % BK;
+            const int n = r < rows ? 4 : 0;
+            cp_async<4>(smem_addr(row_data + kRows + 4 * i),
+                        src.s + static_cast<size_t>(t0 + i / BK) * src.N + r0 + (n ? r : 0), n);
           }
         }
-      });
-  tc::for_each_fragment(s, acc, [&](int, int r, int c, const float* v) {
-    const int row = m0 + r;
-    if (row >= Hj) return;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      if (n0 + c + q >= K) continue;
-      float* out = dw + static_cast<size_t>(row) * K + n0 + c + q;
-      *out = accumulate ? *out + v[q] : v[q];
+        if (element) {  // plain stores: published by the arrival's release
+          cp_async_wait_all();
+          mbar_arrive(full);
+        } else {
+          mbar_arrive_cp_async(full);
+        }
+      }
     }
-  });
-  if (blockIdx.x != 0) return;
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_inc<224>();
+    const int t = threadIdx.x;
+    const int wg = t / 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int cg = t % 16;     // columns n0 + 8 cg .. + 8 of dz
+    const int rslot = t / 16;  // rows rslot + 16 i of a slice
+    const int col0 = n0 + 8 * cg;
+    int scale_tile = 0;
+    if constexpr (U::kScaled)
+      scale_tile = col0 < p.K ? col0 / src.kt - n0 / src.kt : 0;
+    const int raw_off = kH + (rslot * BN + 8 * cg) * U::kBytes;  // in a stage
+    const uint32_t dz_off = swz128(rslot, 16 * cg, kPanel);     // in a dz buffer
+    float part[64], acc[64], db_part[8];
 #pragma unroll
-  for (int q = 0; q < 8; ++q) db_s[threadIdx.x / (BN / 8)][cg + q] = db_part[q];
-  __syncthreads();
-  if (threadIdx.x < BN && n0 + threadIdx.x < K) {
-    float total = 0.0f;
-    for (int p = 0; p < kThreads / (BN / 8); ++p) total += db_s[p][threadIdx.x];
-    float* out = db + n0 + threadIdx.x;
-    *out = accumulate ? *out + total : total;
+    for (int i = 0; i < 64; ++i) part[i] = acc[i] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) db_part[q] = 0.0f;
+
+    for (int it = 0; it < slices; ++it) {
+      const int s = it % L::kStages;
+      mbar_wait(full0 + 8 * s, (it / L::kStages) & 1);
+      const uint8_t* st = smem + s * L::kStage;
+      const float* cs_s = reinterpret_cast<const float*>(st + kH + L::kU);
+      const float* cl_s = cs_s + BK;
+      const int* lab_s = reinterpret_cast<const int*>(cs_s + 2 * BK);
+      uint8_t* dz = dz_bufs + (it % kDzBufs) * kDz;
+      // dz of this slice, while the wgmmas of the last one run; rows
+      // rslot + 16 i share r % 8, so the swizzled chunk is the same for all i
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rslot + 16 * i;
+        float d[8];
+        U::unpack8(d, st + raw_off + i * 16 * BN * U::kBytes);
+        if constexpr (U::kScaled) {
+          const float sc = cs_s[3 * BK + scale_tile * BK + r];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) d[q] *= sc;
+        }
+        const float c = -cs_s[r];
+        const float l = cl_s[r];
+        const int lab = lab_s[r] - col0;  // the row's label, if it is one of these 8
+#pragma unroll
+        for (int q = 0; q < 8; ++q) d[q] = c * d[q];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) d[q] += q == lab ? l : 0.0f;  // branch-free
+        alignas(16) __nv_bfloat162 out[4];
+#pragma unroll
+        for (int q = 0; q < 8; q += 2) {
+          db_part[q] += d[q];
+          db_part[q + 1] += d[q + 1];
+          out[q / 2] = __floats2bfloat162_rn(d[q], d[q + 1]);
+        }
+        *reinterpret_cast<uint4*>(dz + dz_off + i * 16 * 128) = *reinterpret_cast<const uint4*>(out);
+      }
+      fence_proxy_async();
+      named_sync<kConsumers>(1);
+      if (it % kFlushSlices == 0 && it > 0) {  // flush the group that ended with slice it - 1
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      }
+      const uint32_t a0 = smem_addr(st + wg * kPanel);
+      const uint32_t b0 = smem_addr(dz);
+      wgmma_fence();
+      fence_regs(part);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n128k16_mn(part, desc_mn_b128(a0 + 2048 * kk, kPanel),
+                            desc_mn_b128(b0 + 2048 * kk, kPanel),
+                            (kk > 0 || it % kFlushSlices != 0) ? 1 : 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (it > 0) {  // slice it - 1: its wgmmas are done and its rows were read
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % L::kStages));
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+
+    // epilogue: the tile through shared memory (the ring is free: every
+    // stage has been read), then 16-byte rows of dw
+    named_sync<kConsumers>(1);
+    float* tile = reinterpret_cast<float*>(smem);  // [BM][kDwLd]
+    float* db_s = tile + BM * kDwLd;                // [16][BN]
+    const int row_lo = 64 * wg + 16 * (warp % 4) + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(tile + row_lo * kDwLd + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(tile + (row_lo + 8) * kDwLd + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    if (blockIdx.x == 0) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) db_s[rslot * BN + 8 * cg + q] = db_part[q];
+    }
+    named_sync<kConsumers>(1);
+    const bool vec = p.K % 4 == 0 && reinterpret_cast<size_t>(p.dw) % 16 == 0;
+    const int c = 4 * lane;
+    for (int r = warp; r < BM && m0 + r < p.Hj; r += kConsumers / 32) {
+      const float4 v = *reinterpret_cast<const float4*>(tile + r * kDwLd + c);
+      float* out = p.dw + static_cast<size_t>(m0 + r) * p.K + n0 + c;
+      if (vec && n0 + c + 4 <= p.K) {
+        float4 o = v;
+        if (p.accumulate) {
+          const float4 w = *reinterpret_cast<const float4*>(out);
+          o.x += w.x; o.y += w.y; o.z += w.z; o.w += w.w;
+        }
+        *reinterpret_cast<float4*>(out) = o;
+      } else {
+        const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (n0 + c + q < p.K) out[q] = p.accumulate ? out[q] + e[q] : e[q];
+      }
+    }
+    if (blockIdx.x == 0 && t < BN && n0 + t < p.K) {
+      float total = 0.0f;
+      for (int r = 0; r < kConsumers / 16; ++r) total += db_s[r * BN + t];
+      float* out = p.db + n0 + t;
+      *out = p.accumulate ? *out + total : total;
+    }
   }
 }
+
+// How a launch over these operands stages and tiles (for the kernel and
+// for the logs): the staging of h and of u, the grid.
+struct Plan {
+  int h_mode, u_mode, tiles_hj, tiles_k, stages, smem;
+};
+
+template <class U>
+Plan plan(const void* h, U src, int N, int Hj, int K) {
+  Plan pl{sm90::kAsync4, sm90::kAsync4, (Hj + BM - 1) / BM, (K + BN - 1) / BN,
+          Layout<U>::kStages, Layout<U>::kBytes};
+  if (N > 0) {
+    pl.h_mode = sm90::staging(h, static_cast<size_t>(Hj) * 2, 2);
+    pl.u_mode = sm90::staging(src.raw(), static_cast<size_t>(K) * U::kBytes, U::kBytes);
+  }
+  return pl;
+}
+
+template <class U>
+int launch(const void* h, U src, const float* cs, const float* cl, const int* labels,
+           float* dw, float* db, int N, int Hj, int K, bool accumulate, cudaStream_t stream) {
+  const Plan pl = plan(h, src, N, Hj, K);
+  CUtensorMap hmap{}, umap{};  // left zero for an operand cp.async stages
+  int err = 0;
+  if (pl.h_mode == sm90::kTma)
+    err = sm90::tensor_map_2d(&hmap, h, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N, Hj,
+                              static_cast<uint64_t>(Hj) * 2, BK, 64, true);
+  if (err == 0 && pl.u_mode == sm90::kTma)
+    err = sm90::tensor_map_2d(&umap, src.raw(), U::kTmaType, N, K,
+                              static_cast<uint64_t>(K) * U::kBytes, BK, BN, false);
+  if (err != 0) return err;
+  const auto kernel = joint_bwd_dw_sm90_kernel<U>;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem));
+  if (err != 0) return err;
+  const Params params{static_cast<const uint8_t*>(h), cs, cl, labels, dw, db, N, Hj, K,
+                      pl.h_mode, pl.u_mode, accumulate ? 1 : 0};
+  kernel<<<dim3(pl.tiles_hj, pl.tiles_k), kThreads, pl.smem, stream>>>(hmap, umap, src, params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace passb
 
 // ------------------------------------------------------------------ launches
 // One launch each; dtype 0 = float32, 1 = bfloat16 (of w for pass A, of h
@@ -356,8 +690,7 @@ int launch_dw(const void* h, U src, const float* cs, const float* cl, const int*
     joint_bwd_dw_kernel<U><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(h), src, cs, cl, labels, dw, db, N, Hj, K, accumulate);
   else if (dtype == 1)
-    joint_bwd_dw_tc_kernel<U><<<grid, kThreads, 0, s>>>(
-        static_cast<const tc::bf16*>(h), src, cs, cl, labels, dw, db, N, Hj, K, accumulate);
+    return passb::launch(h, src, cs, cl, labels, dw, db, N, Hj, K, accumulate, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

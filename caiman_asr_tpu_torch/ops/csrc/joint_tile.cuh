@@ -21,7 +21,10 @@
 //   through a per-warp 16 x 16 scratch: lane l holds row l / 2, columns
 //   8 (l % 2) .. +8.
 //
-// No cp.async, no double buffering, no wgmma: right first, fast later.
+// No cp.async, no double buffering, no wgmma: right first, fast later. The
+// forward, the derivation and pass A run on these tiles; the bf16 pass B
+// has moved to a Hopper design (asynchronous staging, wgmma; passb in
+// joint_bwd.cuh on joint_sm90.cuh) that pass A is to follow.
 
 #pragma once
 
@@ -167,23 +170,6 @@ __device__ __forceinline__ void load_kmajor(Stage& dst, const bf16* __restrict__
     alignas(16) bf16 v[8];
     load8(v, p + static_cast<size_t>(gr) * ld + gk, gr < R ? KD - gk : 0, vec);
     *reinterpret_cast<uint4*>(&dst[r][k]) = *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-// dst[r][k] = p[(k0 + k) * ld + r0 + r] (the contraction runs over rows):
-// each thread moves 8 consecutive r of one row of p at a time.
-__device__ __forceinline__ void load_mnmajor(Stage& dst, const bf16* __restrict__ p, int R,
-                                             int KD, int ld, int r0, int k0) {
-  const bool vec = vec_ok(p, ld);
-  for (int i = threadIdx.x; i < BM * BK / 8; i += kThreads) {
-    const int k = i / (BM / 8);
-    const int r = 8 * (i % (BM / 8));
-    const int gr = r0 + r;
-    const int gk = k0 + k;
-    alignas(16) bf16 v[8];
-    load8(v, p + static_cast<size_t>(gk) * ld + gr, gk < KD ? R - gr : 0, vec);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) dst[r + q][k] = v[q];
   }
 }
 

@@ -72,9 +72,12 @@ What bounds the kernels on an H100: each is one to three GEMMs of
 ``2 N Hj K`` operations with an elementwise prologue or epilogue, and the
 slab moves ``N K`` to ``2 N K`` bytes, so all are operation-bound
 (``chip_smoke.py`` computes both bounds). bf16 inputs (the train step's
-compute dtype) run the products on the tensor cores with WMMA; fp32 inputs
-run them on the CUDA cores, so that fp32 stays fp32 (``csrc/joint_tile.cuh``).
-Both accumulate in fp32. The ``wgmma`` + TMA versions are a later change.
+compute dtype) run the products on the tensor cores: pass B, under every
+backward, as ``wgmma`` fed by TMA or ``cp.async`` (``csrc/joint_bwd.cuh``'s
+``passb`` on ``csrc/joint_sm90.cuh``; :func:`pass_b_plan` says how it stages
+a call's operands), the rest with WMMA; fp32 inputs run them on the CUDA
+cores, so that fp32 stays fp32 (``csrc/joint_tile.cuh``). All accumulate in
+fp32.
 
 Every wrapper launches its kernel for CUDA tensors and uses the plain
 version only for CPU tensors; it never falls back from one to the other.
@@ -469,6 +472,7 @@ def _bwd_lib():
         "joint_bwd_dw": ([P] * 7 + [I] * 5 + [P], I),
         "joint_bwd_dh_u8": ([P] * 5 + [I] * 5 + [P], I),
         "joint_bwd_dw_u8": ([P] * 8 + [I] * 5 + [P], I),
+        "joint_bwd_dw_plan": ([P] * 2 + [I] * 4 + [P], I),
     })
 
 
@@ -605,6 +609,29 @@ def joint_bwd_dw(h, u, cs, cl, labels, out=None):
         dw.data_ptr(), db.data_ptr(), N, Hj, K, int(out is not None), code, stream_of(h)), what)
     joint_bwd_dw.launches += 1
     return dw, db
+
+
+# the staging codes of joint_sm90.cuh's ``Staging``
+_STAGING = {0: "TMA", 8: "cp.async, 8 bytes", 4: "cp.async, 4 bytes", 2: "element copies",
+            1: "element copies"}
+
+
+def pass_b_plan(h, u) -> dict:
+    """How the bf16 pass B kernel (every backward's pass B with bf16 h)
+    stages ``h`` [N, Hj] and ``u`` [N, K] (the bf16 slab, the int8 slab or
+    an fp32 workspace) and tiles the output, as the C side decides it from
+    their addresses and widths: TMA where a base and its row stride are
+    16-byte aligned, else ``cp.async``, else element copies. CUDA tensors."""
+    N, Hj = h.shape
+    K = u.shape[1]
+    out = (I * 6)()
+    check(_bwd_lib().joint_bwd_dw_plan(h.data_ptr(), u.data_ptr(), N, Hj, K,
+                                       u.element_size(), out), "joint_bwd_dw_plan")
+    tiles = out[2] * out[3]
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    return {"h": _STAGING[out[0]], "u": _STAGING[out[1]], "tile": "128 Hj x 128 K x 64 rows",
+            "grid": (out[2], out[3]), "blocks": tiles, "waves": tiles / sms,
+            "stages": out[4], "smem_bytes": out[5]}
 
 
 def _scale_tile(kt: int, what: str) -> None:

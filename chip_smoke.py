@@ -747,8 +747,15 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
         return {"rel_err": rel_err(smear, ref), "tol": JOINT_RTOL,
                 "max_abs_err": (smear - ref).abs().max().item(), "err_of": "smear"}
 
+    def same_twice(name, call):
+        """call() twice; the two results must be equal bit for bit."""
+        got, again = call(), call()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
+        return got
+
     def k5_b():
-        got = jk.joint_bwd_dw(h, ref_u, cs, cl, labels)
+        got = same_twice("K5-B", lambda: jk.joint_bwd_dw(h, ref_u, cs, cl, labels))
         want = jk.joint_bwd_dw_plain(h, ref_u, cs, cl, labels)
         return {**three(got, want, JOINT_RTOL), "err_of": "dw, db"}
 
@@ -786,8 +793,8 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
                 "max_abs_err": (smear - ref).abs().max().item(), "err_of": "smear"}
 
     def k7_b8():
-        return {**three(jk.joint_bwd_dw_u8(h, ref_q, ref_s, cs, cl, labels, kt),
-                        jk.joint_bwd_dw_u8_plain(h, ref_q, ref_s, cs, cl, labels, kt),
+        got = same_twice("K7-B8", lambda: jk.joint_bwd_dw_u8(h, ref_q, ref_s, cs, cl, labels, kt))
+        return {**three(got, jk.joint_bwd_dw_u8_plain(h, ref_q, ref_s, cs, cl, labels, kt),
                         JOINT_RTOL), "err_of": "dw, db"}
 
     def k6_derive_a():
@@ -913,6 +920,12 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
         log(f"    {name}: kernel {r['ms']:.3f} ms ({r['tflops']:.1f} TFLOP/s of the function's "
             f"operations) | plain {r['plain_ms']:.3f} ms | bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}) | library {r['library_ms']:.3f} ms")
+        if name in ("K5-B", "K7-B8"):
+            plan = r["pass_b"] = jk.pass_b_plan(h, ref_u if name == "K5-B" else ref_q)
+            log(f"    {name}, pass B: h staged by {plan['h']}, u by {plan['u']}; tile "
+                f"{plan['tile']}, grid {plan['grid']} = {plan['blocks']} blocks = "
+                f"{plan['waves']:.2f} waves of one block per SM; {plan['stages']} stages, "
+                f"{plan['smem_bytes']} bytes of shared memory")
     return out
 
 
@@ -1689,8 +1702,8 @@ def main() -> int:
     Hj_l, K_l = MODELS["large-196M"][0]["joint_n_hid"], MODELS["large-196M"][1]
     n16, n32, n64 = (cells[Bt]["N"] for Bt in sorted(cells))
     torch.cuda.empty_cache()
-    check_joint(n16, Hj_l, K_l, "bfloat16", timed=True, only=("K5-store", "K5-A", "K5-B"),
-                reps=3)
+    large16 = check_joint(n16, Hj_l, K_l, "bfloat16", timed=True,
+                          only=("K5-store", "K5-A", "K5-B"), reps=3)
     torch.cuda.empty_cache()
     joint.update(check_joint(n32, Hj_l, K_l, "bfloat16", timed=True,
                              only=("K7-store8", "K7-fused-u8"), reps=3))
@@ -1825,6 +1838,13 @@ def main() -> int:
         "whole_step": knob["whole_step"], "rechunked_backward": rechunked,
         "hybrid_kernels": {part: {k: strip(r) for k, r in rs.items()}
                            for part, rs in hybrid.items()}}))
+    log("pass B summary: " + json.dumps({
+        f"K5-B {joint_shape}": strip(joint["K5-B"]), f"K5-B {shape16}": strip(large16["K5-B"]),
+        f"K7-B8 {shape32}": strip(joint["K7-B8"]),
+        "B halves": {"K5-fused-u": strip(joint["K5-fused-u"]),
+                     "K7-fused-u8": strip(joint["K7-fused-u8"]),
+                     "K6-fused": strip(joint["K6-fused"]), "K4-B": strip(joint["K4-B"]),
+                     "rechunked backward": rechunked}}))
     log("wavefront summary: " + json.dumps(
         {name: r for name, r in wavefront.items() if name != "launches"}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,9 @@ backwards over the bf16 slab (K5-fused-u), over the int8 slab (K7-fused-u8)
 and with no slab (K6-fused), and the backwards that derive again per pass
 (K6-derive-a for the rechunked route, K4-A and K4-B over a column range)
 (``csrc/joint_fwd.cu``, ``csrc/joint_bwd.cu``, ``csrc/joint_bwd_fused.cu``,
-``csrc/joint_bwd_recompute.cu``), and the wavefront multi-layer LSTM's
+``csrc/joint_bwd_recompute.cu``), the bf16 pass B under all of them on each
+of its staging paths (``csrc/joint_bwd.cuh``, ``csrc/joint_sm90.cuh``), and
+the wavefront multi-layer LSTM's
 forward, without and with stored gates (K8-fwd), and backward (K8-bwd)
 (``csrc/lstm_wavefront.cu``, ``csrc/lstm_wavefront_bwd.cu``).
 
@@ -370,6 +372,102 @@ def test_joint_pass_b_adds_across_row_chunks(cuda, dtype, rows):
         sl = slice(lo, lo + rows)
         jk.joint_bwd_dw(h[sl], u[sl], cs[sl], cl[sl], labels[sl], out=out)
     for g, r in zip(out, jk.joint_bwd_dw_plain(h, u, cs, cl, labels)):
+        _rel_close(g, r)
+
+
+# ----------------------- pass B on Hopper (wgmma behind asynchronous staging)
+def _labels_partly_outside(labels, K):
+    """Every fifth label moved below 0 and every seventh to K or past it:
+    those meet no column."""
+    out = labels.clone()
+    out[::5] = -1 - out[::5] % 3
+    out[3::7] = K + out[3::7] % 5
+    return out
+
+
+# (N, Hj, K, how h is staged, how u is staged): N no multiple of the 64-row
+# slice or of the 256 rows between flushes, Hj and K no multiple of the
+# 128-wide tile; rows of 16-byte multiples take TMA, of 8 or 4 bytes
+# cp.async, of an odd number of bf16 element copies
+PASS_B_SHAPES = [
+    (70, 32, 600, "TMA", "TMA"),
+    (777, 96, 1004, "TMA", "cp.async, 8 bytes"),
+    (1000, 200, 1002, "TMA", "cp.async, 4 bytes"),
+    (301, 33, 1001, "element copies", "element copies"),
+    (513, 36, 384, "cp.async, 8 bytes", "TMA"),
+    (2049, 34, 8704, "cp.async, 4 bytes", "TMA"),
+    (257, 256, 1152, "TMA", "TMA"),
+]
+
+
+@pytest.mark.parametrize("N,Hj,K,h_staging,u_staging", PASS_B_SHAPES)
+def test_pass_b_kernel_crosses_every_tail(cuda, N, Hj, K, h_staging, u_staging):
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=16)
+    labels = _labels_partly_outside(labels, K)
+    _, u = jk.joint_fwd_store_plain(h, wt, b)
+    plan = jk.pass_b_plan(h, u)
+    assert (plan["h"], plan["u"]) == (h_staging, u_staging)
+    assert plan["grid"] == (-(-Hj // 128), -(-K // 128))
+    dw, db = jk.joint_bwd_dw(h, u, cs, cl, labels)
+    torch.cuda.synchronize()
+    ref_dw, ref_db = jk.joint_bwd_dw_plain(h, u, cs, cl, labels)
+    _rel_close(dw, ref_dw)
+    _rel_close(db, ref_db)
+
+
+# the int8 slab's rows are K bytes: K = 600 and 1,000 take 8-byte cp.async,
+# 1,004 4-byte, 1,001 element copies, 1,024 TMA
+@pytest.mark.parametrize("K,staging", [(600, "cp.async, 8 bytes"), (1000, "cp.async, 8 bytes"),
+                                       (1004, "cp.async, 4 bytes"), (1001, "element copies"),
+                                       (1024, "TMA")])
+def test_pass_b_int8_slab_takes_each_staging(cuda, K, staging):
+    N, Hj, kt = 300, 96, 128
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=17)
+    labels = _labels_partly_outside(labels, K)
+    _, q, s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+    assert jk.pass_b_plan(h, q)["u"] == staging
+    got = jk.joint_bwd_dw_u8(h, q, s, cs, cl, labels, kt)
+    torch.cuda.synchronize()
+    for g, r in zip(got, jk.joint_bwd_dw_u8_plain(h, q, s, cs, cl, labels, kt)):
+        _rel_close(g, r)
+
+
+@pytest.mark.parametrize("rows", [300, 4096])
+def test_pass_b_in_row_chunks_equals_one_call(cuda, rows):
+    """``out`` added to over row chunks against one call over all the rows
+    (the flushes fall at other rows, so not bit for bit)."""
+    N, Hj, K = 9000, 160, 700
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=18)
+    _, u = jk.joint_fwd_store_plain(h, wt, b)
+    out = (torch.zeros(Hj, K, device=cuda), torch.zeros(K, device=cuda))
+    for lo in range(0, N, rows):
+        sl = slice(lo, lo + rows)
+        jk.joint_bwd_dw(h[sl], u[sl], cs[sl], cl[sl], labels[sl], out=out)
+    for g, r in zip(out, jk.joint_bwd_dw(h, u, cs, cl, labels)):
+        _rel_close(g, r)
+
+
+def test_pass_b_is_deterministic(cuda):
+    """Two calls on the same inputs are bit for bit equal (no atomics)."""
+    N, Hj, K, kt = 3000, 256, 1536, 1024
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=19)
+    _, u = jk.joint_fwd_store_plain(h, wt, b)
+    _, q, s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+    for call in (lambda: jk.joint_bwd_dw(h, u, cs, cl, labels),
+                 lambda: jk.joint_bwd_dw_u8(h, q, s, cs, cl, labels, kt)):
+        first, second = call(), call()
+        for g, r in zip(first, second):
+            assert torch.equal(g, r)
+
+
+def test_pass_b_over_a_long_contraction(cuda):
+    """66,000 rows: the tensor cores' truncating fp32 sums must be flushed
+    into round-to-nearest ones to stay within 1e-4 of the plain version."""
+    N, Hj, K = 66000, 256, 1024
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=20)
+    _, u = jk.joint_fwd_store_plain(h, wt, b)
+    got = jk.joint_bwd_dw(h, u, cs, cl, labels)
+    for g, r in zip(got, jk.joint_bwd_dw_plain(h, u, cs, cl, labels)):
         _rel_close(g, r)
 
 
