@@ -10,9 +10,9 @@
 //
 // What bounds them: each pass is 2 N Hj K operations (as the forward) and
 // reads the slab once (N K 2 bytes, or N K), so all are operation-bound
-// GEMMs. With bf16 inputs pass B (K5-B, K7-B8) runs as wgmma behind
-// asynchronous staging (joint_bwd.cuh's passb) and pass A on WMMA; fp32
-// inputs run on the CUDA cores (joint_tile.cuh).
+// GEMMs. With bf16 inputs both run as wgmma behind asynchronous staging:
+// pass A (K5-A, K7-A8) as joint_bwd.cuh's passa, pass B (K5-B, K7-B8) as
+// its passb; fp32 inputs run on the CUDA cores (joint_tile.cuh).
 
 #include "joint_bwd.cuh"
 
@@ -89,6 +89,25 @@ int joint_bwd_dw_plan(const void* h, const void* u, int N, int Hj, int K, int u_
   else
     return static_cast<int>(cudaErrorInvalidValue);
   const int v[6] = {pl.h_mode, pl.u_mode, pl.tiles_hj, pl.tiles_k, pl.stages, pl.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The bf16 pass A's plan, for the logs: out[0..5] = how u and w are staged
+// (as above), row tiles, Hj tiles (the grid is their product, Hj tiles
+// fastest), ring stages and dynamic shared memory bytes. u_bytes as above.
+int joint_bwd_dh_plan(const void* u, const void* w, int N, int Hj, int K, int u_bytes,
+                      int* out) {
+  joint::passa::Plan pl;
+  if (u_bytes == 2)
+    pl = joint::passa::plan(joint::SlabBf16{static_cast<const __nv_bfloat16*>(u), K}, w, N, Hj, K);
+  else if (u_bytes == 1)
+    pl = joint::passa::plan(slab_i8(u, nullptr, N, K, 8), w, N, Hj, K);
+  else if (u_bytes == 4)
+    pl = joint::passa::plan(joint::SlabF32{static_cast<const float*>(u), K}, w, N, Hj, K);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int v[6] = {pl.u_mode, pl.w_mode, pl.tiles_rows, pl.tiles_hj, pl.stages, pl.smem};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
   return 0;
 }

@@ -37,13 +37,17 @@
 // its tile to what dw and db hold, so a caller can walk the rows in chunks;
 // the block that owns a tile is the only one that touches it.
 //
-// Pass B with bf16 h, the counterpart of _bwd_dw_kernel_u (K5-B),
-// _bwd_dw_kernel_u8 (K7-B8) and _bwd_dw_kernel (K4-B) and the B half of
-// the fused backwards (pallas_joint.py:408, :459, :502), is a Hopper kernel
-// of its own (passb below, on joint_sm90.cuh): 2 N Hj K operations bound
-// it, and it runs them as wgmma fed by a producer warp's TMA or cp.async
-// ring, dz built by the consumers beside the tensor cores. Pass A and the
-// fp32 passes use joint_tile.cuh's synchronous tiles.
+// With bf16 weights both passes are Hopper kernels of their own on
+// joint_sm90.cuh, wgmma fed by a producer warp's TMA or cp.async ring:
+// pass B (passb below), the counterpart of _bwd_dw_kernel_u (K5-B),
+// _bwd_dw_kernel_u8 (K7-B8), _bwd_dw_kernel (K4-B) and the B half of the
+// fused backwards (pallas_joint.py:408, :459, :502), dz built by the
+// consumers beside the tensor cores; pass A (passa below), the counterpart
+// of _bwd_dh_kernel_u (K5-A), _bwd_dh_kernel_u8 (K7-A8), _bwd_dh_kernel
+// (K4-A), the A half of the fused backwards and _derive_a_kernel's pass
+// (pallas_joint.py:369, :388, :144, :190, :165), u and w read K-major as
+// they lie. 2 N Hj K operations bound each. The fp32 passes run on the CUDA
+// cores with joint_tile.cuh's synchronous tiles.
 
 #pragma once
 
@@ -55,13 +59,11 @@
 namespace joint {
 
 // ------------------------------------------------------------- sources of u
-// at(row, col): one value. load8(v, row, col, n_valid): the 8 values from
-// col (a multiple of 8), zero from n_valid on (n_valid <= 0: nothing is
-// read). kRoundA: pass A rounds the value to bf16 even for fp32 inputs.
-// For the bf16 pass B, which stages the raw rows itself: raw() and kBytes
-// (the array and its element size), kTmaType, unpack8(v, p) (the 8 values
-// at p in shared memory, unscaled) and kScaled (multiply by the int8
-// slab's scale).
+// at(row, col): one value, for the fp32 passes. kRoundA: the fp32 pass A
+// rounds the value to bf16 (the bf16 one always does). For the bf16
+// passes, which stage the raw rows themselves: raw() and kBytes (the array
+// and its element size), kTmaType, unpack8(v, p) (the 8 values at p in
+// shared memory, unscaled) and kScaled (multiply by the int8 slab's scale).
 
 struct SlabBf16 {  // the stored bf16 slab [N, K]
   const __nv_bfloat16* u;
@@ -83,12 +85,6 @@ struct SlabBf16 {  // the stored bf16 slab [N, K]
   }
   __device__ __forceinline__ float at(int row, int col) const {
     return to_f32(u[static_cast<size_t>(row) * K + col]);
-  }
-  __device__ __forceinline__ void load8(float (&v)[8], int row, int col, int n_valid) const {
-    alignas(16) __nv_bfloat16 t[8];
-    tc::load8(t, u + static_cast<size_t>(row) * K + col, n_valid, tc::vec_ok(u, K));
-#pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = to_f32(t[q]);
   }
 };
 
@@ -120,24 +116,6 @@ struct SlabI8 {  // q int8 [N, K] and one fp32 scale per (kt-wide vocab tile, ro
   __device__ __forceinline__ float at(int row, int col) const {
     return static_cast<float>(q[static_cast<size_t>(row) * K + col]) * scale(row, col);
   }
-  __device__ __forceinline__ void load8(float (&v)[8], int row, int col, int n_valid) const {
-    if (n_valid <= 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = 0.0f;
-      return;
-    }
-    const float sc = scale(row, col);
-    const int8_t* p = q + static_cast<size_t>(row) * K + col;
-    if (n_valid >= 8 && (reinterpret_cast<size_t>(q) | static_cast<size_t>(K)) % 8 == 0) {
-      const int2 raw = *reinterpret_cast<const int2*>(p);
-      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = static_cast<float>(b[i]) * sc;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = i < n_valid ? static_cast<float>(p[i]) * sc : 0.0f;
-    }
-  }
 };
 
 struct SlabF32 {  // fp32 u [rows, K], the no-slab backward's workspace
@@ -156,18 +134,6 @@ struct SlabF32 {  // fp32 u [rows, K], the no-slab backward's workspace
   }
   __device__ __forceinline__ float at(int row, int col) const {
     return u[static_cast<size_t>(row) * K + col];
-  }
-  __device__ __forceinline__ void load8(float (&v)[8], int row, int col, int n_valid) const {
-    const float* p = u + static_cast<size_t>(row) * K + col;
-    if (n_valid >= 8 && (reinterpret_cast<size_t>(u) | (static_cast<size_t>(K) * 4)) % 16 == 0) {
-      const float4 a = *reinterpret_cast<const float4*>(p);
-      const float4 b = *reinterpret_cast<const float4*>(p + 4);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = i < n_valid ? p[i] : 0.0f;
-    }
   }
 };
 
@@ -214,45 +180,6 @@ joint_bwd_dh_kernel(U src,                        // u [N, K]
       if (col < Hj) smear[static_cast<size_t>(row) * Hj + col] = c * acc[i][j];
     }
   }
-}
-
-template <class U>
-__global__ void __launch_bounds__(kThreads)
-joint_bwd_dh_tc_kernel(U src,                            // u [N, K]
-                       const tc::bf16* __restrict__ w,   // [Hj, K]
-                       const float* __restrict__ cs,     // [N]
-                       float* __restrict__ smear,        // [N, Hj]
-                       int N, int Hj, int K) {
-  __shared__ tc::Tiles s;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  tc::Acc acc[tc::FM][tc::FN];
-  tc::zero(acc);
-  tc::mainloop(
-      s, acc, K,
-      [&](tc::Stage& a, int k0) {
-        for (int i = threadIdx.x; i < BM * tc::BK / 8; i += kThreads) {
-          const int r = i / (tc::BK / 8);
-          const int k = 8 * (i % (tc::BK / 8));
-          const int gr = m0 + r;
-          const int gk = k0 + k;
-          float v[8];
-          src.load8(v, gr, gk, gr < N ? K - gk : 0);
-          alignas(16) tc::bf16 t[8];
-#pragma unroll
-          for (int q = 0; q < 8; ++q) t[q] = tc::to_bf16(v[q]);
-          *reinterpret_cast<uint4*>(&a[r][k]) = *reinterpret_cast<const uint4*>(t);
-        }
-      },
-      [&](tc::Stage& b, int k0) { tc::load_kmajor(b, w, Hj, K, K, n0, k0); });
-  tc::for_each_fragment(s, acc, [&](int, int r, int c, const float* v) {
-    const int row = m0 + r;
-    if (row >= N) return;
-    const float scale = -cs[row];
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-      if (n0 + c + q < Hj) smear[static_cast<size_t>(row) * Hj + n0 + c + q] = scale * v[q];
-  });
 }
 
 // ------------------------------------------------------------------ pass B
@@ -334,14 +261,12 @@ constexpr int kRows = 3 * BK * 4;  // cs, cl, labels of the slice
 constexpr int kScaleTiles = BN / 8;  // int8 scale tiles one block's columns can meet (kt >= 8)
 constexpr int kDwLd = BN + 8;      // row of the staged dw tile, floats
 
-constexpr int align1024(int n) { return (n + 1023) / 1024 * 1024; }
-
 // A stage of the ring: [h panels | raw u [BK][BN] | cs | cl | labels | scales].
 template <class U>
 struct Layout {
   static constexpr int kU = BK * BN * U::kBytes;
   static constexpr int kScales = U::kScaled ? kScaleTiles * BK * 4 : 0;
-  static constexpr int kStage = align1024(kH + kU + kRows + kScales);
+  static constexpr int kStage = sm90::align1024(kH + kU + kRows + kScales);
   static constexpr int kStages = U::kBytes == 4 ? 3 : 4;
   static constexpr int kRing = kStages * kStage;
   static constexpr int kBarriers = kRing + kDzBufs * kDz;
@@ -661,6 +586,307 @@ int launch(const void* h, U src, const float* cs, const float* cl, const int* la
 
 }  // namespace passb
 
+// The bf16 pass A for Hopper: see the note on passa below.
+namespace passa {
+
+constexpr int BM = 128;             // rows per block: 64 per consumer warpgroup
+constexpr int BN = 256;             // Hj per block: one m64n256k16 per k16 step and warpgroup
+constexpr int BK = 64;              // vocab columns per slice: one 128-byte swizzled bf16 row
+constexpr int kConsumers = 256;     // two warpgroups: the A operand (if built) and the products
+constexpr int kThreads = 384;       // + one producer warpgroup (one warp stages)
+constexpr int kA = BM * 128;        // u's bf16 [BM x BK] slice, K-major: 16 KB
+constexpr int kW = BN * 128;        // w's [BN x BK] slice, K-major: 32 KB
+constexpr int kScaleTiles = BK / 8; // int8 scale tiles one slice can meet (kt >= 8)
+constexpr int kOutLd = BN + 8;      // row of the staged smear tile, floats
+
+// A stage of the ring: [w | u: the bf16 A operand itself, or the raw rows
+// of the int8 slab or the fp32 workspace | the int8 slab's scales]. The
+// consumers build A from raw rows into buffers of their own, one for the
+// slice whose products run and one for the slice being built.
+template <class U>
+struct Layout {
+  static constexpr bool kDirect = U::kBytes == 2;  // the bf16 slab is staged as A
+  static constexpr int kU = kDirect ? kA : BM * BK * U::kBytes;
+  static constexpr int kScales = U::kScaled ? kScaleTiles * BM * 4 : 0;
+  static constexpr int kStage = sm90::align1024(kW + kU + kScales);
+  static constexpr int kStages = U::kBytes == 4 ? 3 : 4;
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kBuilt = kDirect ? 0 : 2 * kA;
+  static constexpr int kBarriers = kRing + kBuilt;
+  static constexpr int kBytes = kBarriers + 2 * kStages * 8 + 1024;  // + slack to align the base
+  static_assert(kRing >= BM * kOutLd * 4, "the epilogue reuses the ring");
+  static_assert(kBytes <= 232448, "more shared memory than a Hopper block has");
+};
+
+struct Params {
+  const uint8_t* w;       // [Hj, K] bf16
+  const float* cs;        // [N]
+  float* smear;           // [N, Hj]
+  int N, Hj, K;
+  int u_mode, w_mode;     // sm90::Staging of each
+  int tiles_hj;
+};
+
+// Pass A over bf16 w: smear[n, j] = -cs[n] sum_k bf16(u[n, k]) w[j, k] for
+// one [BM rows x BN of Hj] tile per block, looping over the vocabulary in
+// slices of BK. The product is 2 N Hj K operations on the tensor cores
+// (bf16, fp32 sums); the bytes (u once, N K kBytes, w, smear N Hj 4) are
+// far below it, so it is operation-bound.
+//
+// Design: warp specialisation, as passb. One producer warp fills a ring of
+// kStages stages, each with a slice's w [BN x BK] and u [BM x BK] (and the
+// int8 slab's scales); by TMA where the operand is 16-byte aligned, else by
+// cp.async, else element by element, each stage's `full` mbarrier
+// completing when its bytes have landed. u and w both hold the contraction
+// index contiguous, which is wgmma's own K-major layout: TMA's 128-byte
+// swizzle writes them as the descriptors read them, nothing is transposed.
+// The bf16 slab is staged as the A operand itself and the consumers only
+// start the products; the int8 slab (dequantised, q * s[k / kt, n], the scale looked up
+// per 8-column group since a slice may straddle scale tiles) and the fp32
+// workspace are staged raw, and each consumer warpgroup builds its 64 rows
+// of bf16 A in the swizzle while the wgmmas of the last slice run. Two
+// consumer warpgroups (setmaxnreg: 232 registers each, the producer 40)
+// each run four m64n256k16 wgmmas per slice into 128 fp32 accumulators
+// per thread; wgmma.wait_group 1 frees slice s - 1's stage (`empty`
+// mbarrier) and built buffer. No flush: over K = 17,408 (1,088 k16 steps)
+// the truncating fp32 sums stay within 1e-4 of the output's scale, and a
+// second set of 128 accumulators does not fit (PERF.md has the measured
+// drift). Raster: the Hj tiles of a row tile are adjacent in launch order,
+// so they run in one wave and u comes from HBM once; w stays in L2. The
+// epilogue scales each row by -cs and stages the tile through the freed
+// ring into 16-byte stores (scalar where smear or Hj is not 16-byte
+// aligned). No atomics: deterministic.
+template <class U>
+__global__ void __launch_bounds__(kThreads, 1)
+joint_bwd_dh_sm90_kernel(const __grid_constant__ CUtensorMap umap,
+                         const __grid_constant__ CUtensorMap wmap, const U src,
+                         const Params p) {
+  using namespace sm90;
+  using L = Layout<U>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // aligned by pointer arithmetic, so that accesses stay shared-memory ones
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* built = smem + L::kRing;
+  const uint32_t full0 = smem_addr(smem + L::kBarriers);
+  const uint32_t empty0 = full0 + 8 * L::kStages;
+  const int n0 = static_cast<int>(blockIdx.x % p.tiles_hj) * BN;  // Hj, fastest
+  const int m0 = static_cast<int>(blockIdx.x / p.tiles_hj) * BM;  // rows
+  const int slices = (p.K + BK - 1) / BK;
+  const bool tma = p.u_mode == kTma || p.w_mode == kTma;
+  const bool element = (p.u_mode == kElement1 || p.u_mode == kElement2 ||
+                        p.w_mode == kElement1 || p.w_mode == kElement2);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 32 + (tma ? 1 : 0));
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------------------ producer
+    regs_dec<40>();
+    if (threadIdx.x < kConsumers + 32) {
+      const int lane = threadIdx.x % 32;
+      const int es = U::kBytes;
+      const int rows = min(BM, p.N - m0);
+      const int hj_rows = min(BN, p.Hj - n0);
+      const uint32_t tx = (p.w_mode == kTma ? kW : 0) + (p.u_mode == kTma ? L::kU : 0);
+      const auto swizzled = [](int r, int b) { return swz128(r, b, 0); };
+      for (int it = 0; it < slices; ++it) {
+        const int s = it % L::kStages;
+        const uint32_t full = full0 + 8 * s;
+        mbar_wait(empty0 + 8 * s, ((it / L::kStages) & 1) ^ 1);
+        uint8_t* st = smem + s * L::kStage;
+        const int k0 = it * BK;
+        const int k_valid = min(BK, p.K - k0);
+        if (tma && lane == 0) {
+          mbar_arrive_expect_tx(full, tx);
+          if (p.w_mode == kTma) tma_load_2d(smem_addr(st), &wmap, k0, n0, full);
+          if (p.u_mode == kTma) tma_load_2d(smem_addr(st + kW), &umap, k0, m0, full);
+        }
+        if (p.w_mode != kTma)
+          stage_box(p.w_mode, st, p.w + (static_cast<size_t>(n0) * p.K + k0) * 2,
+                    static_cast<size_t>(p.K) * 2, BN, BK * 2, hj_rows, k_valid * 2, lane,
+                    swizzled);
+        if (p.u_mode != kTma) {
+          const uint8_t* u = static_cast<const uint8_t*>(src.raw()) +
+                             (static_cast<size_t>(m0) * p.K + k0) * es;
+          if constexpr (L::kDirect)
+            stage_box(p.u_mode, st + kW, u, static_cast<size_t>(p.K) * es, BM, BK * es, rows,
+                      k_valid * es, lane, swizzled);
+          else
+            stage_box(p.u_mode, st + kW, u, static_cast<size_t>(p.K) * es, BM, BK * es, rows,
+                      k_valid * es, lane,
+                      [](int r, int b) { return static_cast<uint32_t>(r * BK * U::kBytes + b); });
+        }
+        if constexpr (U::kScaled) {
+          // the scales of every kt-wide tile the slice's columns meet
+          const int t0 = k0 / src.kt;
+          const int tiles = (k0 + k_valid - 1) / src.kt - t0 + 1;
+          uint8_t* scales = st + kW + L::kU;
+          for (int i = lane; i < tiles * BM; i += 32) {
+            const int r = i % BM;
+            const int n = r < rows ? 4 : 0;
+            cp_async<4>(smem_addr(scales + 4 * i),
+                        src.s + static_cast<size_t>(t0 + i / BM) * src.N + m0 + (n ? r : 0), n);
+          }
+        }
+        if (element) {  // plain stores: published by the arrival's release
+          cp_async_wait_all();
+          mbar_arrive(full);
+        } else {
+          mbar_arrive_cp_async(full);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_inc<232>();
+    const int t = threadIdx.x;
+    const int wg = t / 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    // building A: each thread 8 fixed columns (cg) of 4 rows of its
+    // warpgroup's 64; rows r + 16 i share r % 8, so one swizzled chunk
+    const int cg = t % 8;
+    const int r_own = 64 * wg + (t % 128) / 8;
+    const uint32_t a_off = swz128(r_own, 16 * cg, 0);
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+
+    for (int it = 0; it < slices; ++it) {
+      const int s = it % L::kStages;
+      mbar_wait(full0 + 8 * s, (it / L::kStages) & 1);
+      const uint8_t* st = smem + s * L::kStage;
+      uint32_t a0;
+      if constexpr (L::kDirect) {
+        a0 = smem_addr(st + kW + wg * 64 * 128);
+      } else {
+        uint8_t* a = built + (it % 2) * kA;
+        const uint8_t* raw = st + kW;
+        const float* sc = nullptr;
+        if constexpr (U::kScaled) {
+          const int k0 = it * BK;
+          const int col = k0 + 8 * cg;
+          sc = reinterpret_cast<const float*>(st + kW + L::kU) +
+               (col < p.K ? col / src.kt - k0 / src.kt : 0) * BM;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r_own + 16 * i;
+          float v[8];
+          U::unpack8(v, raw + (r * BK + 8 * cg) * U::kBytes);
+          if constexpr (U::kScaled) {
+            const float f = sc[r];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) v[q] *= f;
+          }
+          alignas(16) __nv_bfloat162 out[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) out[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+          *reinterpret_cast<uint4*>(a + a_off + i * 16 * 128) =
+              *reinterpret_cast<const uint4*>(out);
+        }
+        fence_proxy_async();
+        named_sync<128>(1 + wg);  // this warpgroup's 64 rows are built
+        a0 = smem_addr(a + wg * 64 * 128);
+      }
+      const uint32_t b0 = smem_addr(st);
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n256k16_k(acc, desc_k_b128(a0 + 32 * kk), desc_k_b128(b0 + 32 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (it > 0) {  // slice it - 1: its wgmmas are done and its rows were read
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % L::kStages));
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // epilogue: rows scaled by -cs, the tile through shared memory (the ring
+    // is free once both warpgroups are done with it), then 16-byte rows
+    const int row_lo = 64 * wg + 16 * (warp % 4) + lane / 4;
+    const float c_lo = m0 + row_lo < p.N ? -p.cs[m0 + row_lo] : 0.0f;
+    const float c_hi = m0 + row_lo + 8 < p.N ? -p.cs[m0 + row_lo + 8] : 0.0f;
+    named_sync<kConsumers>(3);
+    float* tile = reinterpret_cast<float*>(smem);  // [BM][kOutLd]
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(tile + row_lo * kOutLd + col) =
+          make_float2(c_lo * acc[4 * j], c_lo * acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(tile + (row_lo + 8) * kOutLd + col) =
+          make_float2(c_hi * acc[4 * j + 2], c_hi * acc[4 * j + 3]);
+    }
+    named_sync<kConsumers>(3);
+    const bool vec = p.Hj % 4 == 0 && reinterpret_cast<size_t>(p.smear) % 16 == 0;
+    for (int r = warp; r < BM && m0 + r < p.N; r += kConsumers / 32) {
+      for (int c = 4 * lane; c < BN && n0 + c < p.Hj; c += 128) {
+        const float4 v = *reinterpret_cast<const float4*>(tile + r * kOutLd + c);
+        float* out = p.smear + static_cast<size_t>(m0 + r) * p.Hj + n0 + c;
+        if (vec) {  // Hj % 4 == 0: the 4 columns are all inside
+          *reinterpret_cast<float4*>(out) = v;
+        } else {
+          const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (n0 + c + q < p.Hj) out[q] = e[q];
+        }
+      }
+    }
+  }
+}
+
+// How a launch over these operands stages and tiles (for the kernel and
+// for the logs): the staging of u and of w, the grid.
+struct Plan {
+  int u_mode, w_mode, tiles_rows, tiles_hj, stages, smem;
+};
+
+template <class U>
+Plan plan(U src, const void* w, int N, int Hj, int K) {
+  Plan pl{sm90::kAsync4, sm90::kAsync4, (N + BM - 1) / BM, (Hj + BN - 1) / BN,
+          Layout<U>::kStages, Layout<U>::kBytes};
+  if (K > 0) {
+    pl.u_mode = sm90::staging(src.raw(), static_cast<size_t>(K) * U::kBytes, U::kBytes);
+    pl.w_mode = sm90::staging(w, static_cast<size_t>(K) * 2, 2);
+  }
+  return pl;
+}
+
+template <class U>
+int launch(U src, const void* w, const float* cs, float* smear, int N, int Hj, int K,
+           cudaStream_t stream) {
+  const Plan pl = plan(src, w, N, Hj, K);
+  CUtensorMap umap{}, wmap{};  // left zero for an operand cp.async stages
+  int err = 0;
+  if (pl.u_mode == sm90::kTma)
+    err = sm90::tensor_map_2d(&umap, src.raw(), U::kTmaType, N, K,
+                              static_cast<uint64_t>(K) * U::kBytes, BM, BK, Layout<U>::kDirect);
+  if (err == 0 && pl.w_mode == sm90::kTma)
+    err = sm90::tensor_map_2d(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, Hj, K,
+                              static_cast<uint64_t>(K) * 2, BN, BK, true);
+  if (err != 0) return err;
+  const auto kernel = joint_bwd_dh_sm90_kernel<U>;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem));
+  if (err != 0) return err;
+  const Params params{static_cast<const uint8_t*>(w), cs, smear, N, Hj, K,
+                      pl.u_mode, pl.w_mode, pl.tiles_hj};
+  const unsigned blocks = static_cast<unsigned>(pl.tiles_rows) * pl.tiles_hj;
+  kernel<<<blocks, kThreads, pl.smem, stream>>>(umap, wmap, src, params);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace passa
+
 // ------------------------------------------------------------------ launches
 // One launch each; dtype 0 = float32, 1 = bfloat16 (of w for pass A, of h
 // for pass B). Return the CUDA error (0 on success).
@@ -673,8 +899,7 @@ int launch_dh(U src, const void* w, const float* cs, float* smear, int N, int Hj
     joint_bwd_dh_kernel<U><<<grid, kThreads, 0, s>>>(
         src, static_cast<const float*>(w), cs, smear, N, Hj, K);
   else if (dtype == 1)
-    joint_bwd_dh_tc_kernel<U><<<grid, kThreads, 0, s>>>(
-        src, static_cast<const tc::bf16*>(w), cs, smear, N, Hj, K);
+    return passa::launch(src, w, cs, smear, N, Hj, K, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

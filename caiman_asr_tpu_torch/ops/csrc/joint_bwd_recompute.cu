@@ -18,8 +18,9 @@
 // What bounds them: each is two products of 2 N Hj K operations (the
 // derivation and the pass) over h, w and b only, so operation-bound; what
 // is parked between the two launches stays in HBM (a bf16 tile the caller
-// asked for, or the fp32 workspace: 8 bytes moved per element, far below
-// the products' time at the WMMA rates of joint_tile.cuh).
+// asked for, or the fp32 workspace: 8 bytes moved per element against
+// 4 Hj operations, below the products' time: the derivation on
+// joint_tile.cuh's WMMA tiles, the passes as wgmma).
 //
 // Design. As K6-fused (joint_bwd_fused.cu): the rows are walked in chunks
 // that fit a caller-given fp32 workspace of fixed size, per chunk one

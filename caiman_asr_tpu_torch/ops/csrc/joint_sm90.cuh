@@ -2,18 +2,20 @@
 // mbarriers, TMA and cp.async staging into shared memory, warpgroup matrix
 // multiplies (wgmma) reading both operands from shared memory, and the
 // register hand-over between a producer warpgroup and its consumers.
-// joint_bwd.cuh's pass B is built from them.
+// joint_bwd.cuh's two bf16 passes are built from them: pass B (passb) and
+// pass A (passa).
 //
-// Shared-memory operands of wgmma are stored MN-major (the M or N index
-// contiguous, the contraction running over rows) in 128-byte-swizzled
-// panels: a panel is 64 bf16 wide (128 bytes) and as many rows deep as the
-// stage; row r sits 128 r bytes in, and its 16-byte chunk c at chunk
-// c ^ (r % 8). That is what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes into a
-// 1024-byte-aligned destination and what a wgmma descriptor of layout B128
-// reads; swz128() gives the same offsets to threads that write a panel
-// themselves (cp.async staging, a tile built in registers). No operand is
-// transposed element by element: wgmma's transpose bits read both as they
-// lie.
+// Shared-memory operands of wgmma are stored in 128-byte-swizzled rows:
+// a row is 64 bf16 (128 bytes); row r sits 128 r bytes in, and its 16-byte
+// chunk c at chunk c ^ (r % 8). That is what TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes into a 1024-byte-aligned destination
+// and what a wgmma descriptor of layout B128 reads; swz128() gives the same
+// offsets to threads that write such rows themselves (cp.async staging, a
+// tile built in registers). Pass B's operands are MN-major (the M or N
+// index runs along a row, the contraction over rows, in panels of 64);
+// pass A's are K-major (the contraction runs along a row, 64 of it per
+// slice). No operand is transposed element by element: wgmma's transpose
+// bits read both as they lie (1, 1 for MN-major, 0, 0 for K-major).
 //
 // TMA descriptors are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint so that
@@ -35,6 +37,8 @@ namespace sm90 {
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+constexpr int align1024(int n) { return (n + 1023) / 1024 * 1024; }
 
 // ----------------------------------------------------------------- mbarriers
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -204,6 +208,18 @@ __device__ __forceinline__ uint64_t desc_mn_b128(uint32_t addr, uint32_t mn_pane
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// Descriptor of a 1024-byte-aligned K-major operand in 128-byte-swizzled
+// rows: 64 contraction elements per row, groups of 8 rows 1024 bytes apart
+// (the stride byte offset; this layout does not read the leading byte
+// offset). The k16 steps of a 64-wide slice lie inside the row: step kk
+// starts 32 kk bytes in (not a panel further on, as MN-major steps do); the
+// hardware swizzles the addresses it forms from that start, so they match
+// what TMA wrote.
+__device__ __forceinline__ uint64_t desc_k_b128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -251,6 +267,49 @@ __device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t a, 
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B for one warpgroup: A [64 x 16] and B [16 x 256], bf16, both
+// K-major in shared memory (transpose bits 0, 0), d fp32 in registers.
+// accumulate = 0 overwrites d. Thread t of the warpgroup holds, for
+// j < 32, d[4j + e] at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2) and
+// column 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_m64n256k16_k(float (&d)[128], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
+      "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "
+      "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+      "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

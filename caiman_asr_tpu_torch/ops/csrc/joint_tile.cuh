@@ -22,9 +22,10 @@
 //   8 (l % 2) .. +8.
 //
 // No cp.async, no double buffering, no wgmma: right first, fast later. The
-// forward, the derivation and pass A run on these tiles; the bf16 pass B
-// has moved to a Hopper design (asynchronous staging, wgmma; passb in
-// joint_bwd.cuh on joint_sm90.cuh) that pass A is to follow.
+// forward and the derivation run on the bf16 tiles, the fp32 passes on the
+// fp32 ones; both bf16 passes of the backward have moved to a Hopper design
+// (asynchronous staging, wgmma; passa and passb in joint_bwd.cuh on
+// joint_sm90.cuh).
 
 #pragma once
 

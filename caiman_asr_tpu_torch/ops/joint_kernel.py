@@ -72,12 +72,13 @@ What bounds the kernels on an H100: each is one to three GEMMs of
 ``2 N Hj K`` operations with an elementwise prologue or epilogue, and the
 slab moves ``N K`` to ``2 N K`` bytes, so all are operation-bound
 (``chip_smoke.py`` computes both bounds). bf16 inputs (the train step's
-compute dtype) run the products on the tensor cores: pass B, under every
-backward, as ``wgmma`` fed by TMA or ``cp.async`` (``csrc/joint_bwd.cuh``'s
-``passb`` on ``csrc/joint_sm90.cuh``; :func:`pass_b_plan` says how it stages
-a call's operands), the rest with WMMA; fp32 inputs run them on the CUDA
-cores, so that fp32 stays fp32 (``csrc/joint_tile.cuh``). All accumulate in
-fp32.
+compute dtype) run the products on the tensor cores: pass A and pass B,
+under every backward, as ``wgmma`` fed by TMA or ``cp.async``
+(``csrc/joint_bwd.cuh``'s ``passa`` and ``passb`` on
+``csrc/joint_sm90.cuh``; :func:`pass_a_plan` and :func:`pass_b_plan` say how
+they stage a call's operands), the forward and the derivation with WMMA;
+fp32 inputs run them on the CUDA cores, so that fp32 stays fp32
+(``csrc/joint_tile.cuh``). All accumulate in fp32.
 
 Every wrapper launches its kernel for CUDA tensors and uses the plain
 version only for CPU tensors; it never falls back from one to the other.
@@ -473,6 +474,7 @@ def _bwd_lib():
         "joint_bwd_dh_u8": ([P] * 5 + [I] * 5 + [P], I),
         "joint_bwd_dw_u8": ([P] * 8 + [I] * 5 + [P], I),
         "joint_bwd_dw_plan": ([P] * 2 + [I] * 4 + [P], I),
+        "joint_bwd_dh_plan": ([P] * 2 + [I] * 4 + [P], I),
     })
 
 
@@ -631,6 +633,25 @@ def pass_b_plan(h, u) -> dict:
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     return {"h": _STAGING[out[0]], "u": _STAGING[out[1]], "tile": "128 Hj x 128 K x 64 rows",
             "grid": (out[2], out[3]), "blocks": tiles, "waves": tiles / sms,
+            "stages": out[4], "smem_bytes": out[5]}
+
+
+def pass_a_plan(u, w) -> dict:
+    """How the bf16 pass A kernel (every backward's pass A with bf16 w)
+    stages ``u`` [N, K] (the bf16 slab, the int8 slab or an fp32 workspace)
+    and ``w`` [Hj, K] and tiles the output, as the C side decides it from
+    their addresses and widths (as :func:`pass_b_plan`). The grid walks the
+    Hj tiles of a row tile side by side, so that they read its u together.
+    CUDA tensors."""
+    N, K = u.shape
+    Hj = w.shape[0]
+    out = (I * 6)()
+    check(_bwd_lib().joint_bwd_dh_plan(u.data_ptr(), w.data_ptr(), N, Hj, K,
+                                       u.element_size(), out), "joint_bwd_dh_plan")
+    blocks = out[2] * out[3]
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    return {"u": _STAGING[out[0]], "w": _STAGING[out[1]], "tile": "128 rows x 256 Hj x 64 K",
+            "grid": (out[2], out[3]), "blocks": blocks, "waves": blocks / sms,
             "stages": out[4], "smem_bytes": out[5]}
 
 

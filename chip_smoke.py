@@ -39,7 +39,9 @@ Phases:
      against its plain path and against the bf16-slab route;
   8. every kernel at the main path's shapes against its plain version, with
      times beside the bound and the library call (K8-fwd and K8-bwd at
-     base-85M's post-stack, G=6, beside cuDNN's 6-layer nn.LSTM);
+     base-85M's post-stack, G=6, beside cuDNN's 6-layer nn.LSTM), and the
+     plans of the bf16 passes A and B (staging, tile, grid, waves) in the
+     pass A and pass B summaries;
   9. the wavefront multi-layer LSTM (run_lstm_stack_wavefront, K8-fwd and
      K8-bwd) at full width, bf16, forward and forward + backward: base-85M's
      and large-196M's post-stacks (G=6) and the JAX A/B script's default
@@ -742,17 +744,18 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
         return {"rel_err": share if ok else float("inf"), "tol": Q_SHARE,
                 "max_abs_err": q_abs, "err_of": "q (int8 steps)"}
 
-    def k5_a():
-        smear, ref = jk.joint_bwd_dh(ref_u, w, cs), jk.joint_bwd_dh_plain(ref_u, w, cs)
-        return {"rel_err": rel_err(smear, ref), "tol": JOINT_RTOL,
-                "max_abs_err": (smear - ref).abs().max().item(), "err_of": "smear"}
-
     def same_twice(name, call):
         """call() twice; the two results must be equal bit for bit."""
         got, again = call(), call()
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             raise AssertionError(f"{name}: two calls on the same inputs differ")
         return got
+
+    def k5_a():
+        smear = same_twice("K5-A", lambda: (jk.joint_bwd_dh(ref_u, w, cs),))[0]
+        ref = jk.joint_bwd_dh_plain(ref_u, w, cs)
+        return {"rel_err": rel_err(smear, ref), "tol": JOINT_RTOL,
+                "max_abs_err": (smear - ref).abs().max().item(), "err_of": "smear"}
 
     def k5_b():
         got = same_twice("K5-B", lambda: jk.joint_bwd_dw(h, ref_u, cs, cl, labels))
@@ -787,7 +790,7 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
                      jk.joint_bwd_fused_u_plain(h, ref_u, w, cs, cl, labels), JOINT_RTOL)
 
     def k7_a8():
-        smear = jk.joint_bwd_dh_u8(ref_q, ref_s, w, cs, kt)
+        smear = same_twice("K7-A8", lambda: (jk.joint_bwd_dh_u8(ref_q, ref_s, w, cs, kt),))[0]
         ref = jk.joint_bwd_dh_u8_plain(ref_q, ref_s, w, cs, kt)
         return {"rel_err": rel_err(smear, ref), "tol": JOINT_RTOL,
                 "max_abs_err": (smear - ref).abs().max().item(), "err_of": "smear"}
@@ -926,6 +929,12 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
                 f"{plan['tile']}, grid {plan['grid']} = {plan['blocks']} blocks = "
                 f"{plan['waves']:.2f} waves of one block per SM; {plan['stages']} stages, "
                 f"{plan['smem_bytes']} bytes of shared memory")
+        if name in ("K5-A", "K7-A8"):
+            plan = r["pass_a"] = jk.pass_a_plan(ref_u if name == "K5-A" else ref_q, w_bf)
+            log(f"    {name}, pass A: u staged by {plan['u']}, w by {plan['w']}; tile "
+                f"{plan['tile']}, grid {plan['grid']} (row tiles, Hj tiles fastest) = "
+                f"{plan['blocks']} blocks = {plan['waves']:.2f} waves of one block per SM; "
+                f"{plan['stages']} stages, {plan['smem_bytes']} bytes of shared memory")
     return out
 
 
@@ -1845,6 +1854,13 @@ def main() -> int:
                      "K7-fused-u8": strip(joint["K7-fused-u8"]),
                      "K6-fused": strip(joint["K6-fused"]), "K4-B": strip(joint["K4-B"]),
                      "rechunked backward": rechunked}}))
+    log("pass A summary: " + json.dumps({
+        f"K5-A {joint_shape}": strip(joint["K5-A"]), f"K5-A {shape16}": strip(large16["K5-A"]),
+        f"K7-A8 {shape32}": strip(joint["K7-A8"]),
+        "A halves": {"K5-fused-u": strip(joint["K5-fused-u"]),
+                     "K7-fused-u8": strip(joint["K7-fused-u8"]),
+                     "K6-fused": strip(joint["K6-fused"]), "K4-A": strip(joint["K4-A"]),
+                     "K6-derive-a": strip(joint["K6-derive-a"])}}))
     log("wavefront summary: " + json.dumps(
         {name: r for name, r in wavefront.items() if name != "launches"}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -7,9 +7,9 @@ backwards over the bf16 slab (K5-fused-u), over the int8 slab (K7-fused-u8)
 and with no slab (K6-fused), and the backwards that derive again per pass
 (K6-derive-a for the rechunked route, K4-A and K4-B over a column range)
 (``csrc/joint_fwd.cu``, ``csrc/joint_bwd.cu``, ``csrc/joint_bwd_fused.cu``,
-``csrc/joint_bwd_recompute.cu``), the bf16 pass B under all of them on each
-of its staging paths (``csrc/joint_bwd.cuh``, ``csrc/joint_sm90.cuh``), and
-the wavefront multi-layer LSTM's
+``csrc/joint_bwd_recompute.cu``), the bf16 passes A and B under all of them
+on each of their staging paths (``csrc/joint_bwd.cuh``,
+``csrc/joint_sm90.cuh``), and the wavefront multi-layer LSTM's
 forward, without and with stored gates (K8-fwd), and backward (K8-bwd)
 (``csrc/lstm_wavefront.cu``, ``csrc/lstm_wavefront_bwd.cu``).
 
@@ -469,6 +469,157 @@ def test_pass_b_over_a_long_contraction(cuda):
     got = jk.joint_bwd_dw(h, u, cs, cl, labels)
     for g, r in zip(got, jk.joint_bwd_dw_plain(h, u, cs, cl, labels)):
         _rel_close(g, r)
+
+
+# ------------------- pass A on Hopper (wgmma over K-major operands, by TMA)
+def _at_offset(t, elems: int):
+    """A contiguous copy of ``t`` whose base lies ``elems`` elements past the
+    start of its allocation (allocations are 512-byte aligned): an offset of
+    8, 4 or 2 bytes (or one bf16) takes the operand off TMA."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _pass_a_operands(N, Hj, K, device, seed):
+    """The bf16 slab u [N, K], w [Hj, K] bf16 and cs [N]."""
+    h, wt, b, _, cs, _ = _joint_inputs(N, Hj, K, torch.bfloat16, device, seed=seed)
+    return h, wt, b, jk.joint_fwd_store_plain(h, wt, b)[1], wt.t().contiguous(), cs
+
+
+# N no multiple of the 128-row tile, Hj none of the 256-wide tile (but 768
+# and 1,024, base's and large's), K none of the 64-wide slice
+@pytest.mark.parametrize("Hj", [200, 768, 1024])
+@pytest.mark.parametrize("K", [600, 1000, 8704])
+def test_pass_a_kernel_crosses_every_tail(cuda, Hj, K):
+    N = 333
+    _, _, _, u, w, cs = _pass_a_operands(N, Hj, K, cuda, seed=21)
+    plan = jk.pass_a_plan(u, w)
+    assert (plan["u"], plan["w"]) == ("TMA", "TMA")
+    assert plan["grid"] == (-(-N // 128), -(-Hj // 256))
+    before = jk.joint_bwd_dh.launches
+    smear = jk.joint_bwd_dh(u, w, cs)
+    torch.cuda.synchronize()
+    assert jk.joint_bwd_dh.launches == before + 1
+    _rel_close(smear, jk.joint_bwd_dh_plain(u, w, cs))
+
+
+# (u's offset, w's offset, in bf16 elements; K; how u is staged, how w is):
+# rows of 16-byte multiples on 16-byte bases take TMA, of 8 or 4 bytes
+# cp.async, of an odd number of bf16 element copies
+PASS_A_STAGING = [
+    (0, 4, 1000, "TMA", "cp.async, 8 bytes"),
+    (4, 0, 1000, "cp.async, 8 bytes", "TMA"),
+    (2, 2, 1000, "cp.async, 4 bytes", "cp.async, 4 bytes"),
+    (1, 0, 1000, "element copies", "TMA"),
+    (0, 1, 600, "TMA", "element copies"),
+    (0, 0, 1001, "element copies", "element copies"),
+    (0, 0, 1002, "cp.async, 4 bytes", "cp.async, 4 bytes"),
+    (0, 0, 1004, "cp.async, 8 bytes", "cp.async, 8 bytes"),
+]
+
+
+@pytest.mark.parametrize("u_off,w_off,K,u_staging,w_staging", PASS_A_STAGING)
+def test_pass_a_kernel_takes_each_staging(cuda, u_off, w_off, K, u_staging, w_staging):
+    N, Hj = 301, 520
+    _, _, _, u, w, cs = _pass_a_operands(N, Hj, K, cuda, seed=22)
+    u, w = _at_offset(u, u_off), _at_offset(w, w_off)
+    plan = jk.pass_a_plan(u, w)
+    assert (plan["u"], plan["w"]) == (u_staging, w_staging)
+    smear = jk.joint_bwd_dh(u, w, cs)
+    torch.cuda.synchronize()
+    _rel_close(smear, jk.joint_bwd_dh_plain(u, w, cs))
+
+
+# the int8 slab: scale tiles of 8 (eight in every slice), 40 (slices that
+# straddle two) and 2,048 (ragged last tile); its rows are K bytes, so
+# K = 1,000 takes 8-byte cp.async, 4,500 4-byte, 1,001 element copies,
+# 1,024 and 4,608 TMA
+@pytest.mark.parametrize("K,kt,staging", [
+    (1000, 8, "cp.async, 8 bytes"), (1024, 8, "TMA"), (1000, 40, "cp.async, 8 bytes"),
+    (1001, 40, "element copies"), (4500, 2048, "cp.async, 4 bytes"), (4608, 2048, "TMA"),
+])
+def test_pass_a_int8_slab_matches_plain(cuda, K, kt, staging):
+    N, Hj = 300, 200
+    h, wt, b, _, cs, _ = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=23)
+    _, q, s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+    w = wt.t().contiguous()
+    assert jk.pass_a_plan(q, w)["u"] == staging
+    before = jk.joint_bwd_dh_u8.launches
+    smear = jk.joint_bwd_dh_u8(q, s, w, cs, kt)
+    torch.cuda.synchronize()
+    assert jk.joint_bwd_dh_u8.launches == before + 1
+    _rel_close(smear, jk.joint_bwd_dh_u8_plain(q, s, w, cs, kt))
+
+
+# the fp32 workspace: the no-slab routes derive each row chunk into it and
+# hand pass A the chunk's rows of smear and cs (smear + r0 Hj, cs + r0).
+# Chunked and whole agree bit for bit (each row's sums are its own); against
+# the plain versions 1e-3 of scale, as for those routes' other tests (u is
+# rounded to bf16 from values that differ in their last fp32 bits). Hj = 201
+# takes the scalar stores.
+@pytest.mark.parametrize("Hj", [200, 201, 768])
+def test_pass_a_over_the_fp32_workspace_in_row_chunks(cuda, monkeypatch, Hj):
+    N, K = 1000, 1000
+    h, wt, b, labels, cs, cl = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=24)
+    w = wt.t().contiguous()
+    denom = jk.joint_fwd_plain(h, wt, b)[0].log()
+    assert jk.pass_a_plan(torch.empty((N, K), device=cuda), w)["u"] == "TMA"
+    whole = (jk.joint_bwd_dh_recompute(h, w, b, denom, cs),
+             jk.joint_bwd_fused(h, w, b, cs, cl, labels)[0])
+    monkeypatch.setattr(jk, "FUSED_WS_BYTES", 256 * K * 4)
+    assert -(-N // jk.fused_workspace_rows(N, K)) == 4
+    chunked = (jk.joint_bwd_dh_recompute(h, w, b, denom, cs),
+               jk.joint_bwd_fused(h, w, b, cs, cl, labels)[0])
+    torch.cuda.synchronize()
+    for g, r in zip(chunked, whole):
+        assert torch.equal(g, r)
+    _rel_close(whole[0], jk.joint_bwd_dh_recompute_plain(h, w, b, denom, cs),
+               RECOMPUTE_TOL[torch.bfloat16])
+    _rel_close(whole[1], jk.joint_bwd_fused_plain(h, w, b, cs, cl, labels)[0],
+               RECOMPUTE_TOL[torch.bfloat16])
+
+
+def test_pass_a_is_deterministic(cuda):
+    """Two calls on the same inputs are bit for bit equal (no atomics)."""
+    N, Hj, K, kt = 3000, 768, 1536, 1024
+    h, wt, b, u, w, cs = _pass_a_operands(N, Hj, K, cuda, seed=25)
+    _, q, s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+    for call in (lambda: jk.joint_bwd_dh(u, w, cs), lambda: jk.joint_bwd_dh_u8(q, s, w, cs, kt)):
+        assert torch.equal(call(), call())
+
+
+@pytest.mark.parametrize("source", ["bf16 slab", "int8 slab"])
+def test_pass_a_over_a_long_contraction(cuda, source):
+    """K = 17,408 (large-196M's vocabulary, 1,088 k16 steps): the tensor
+    cores' truncating fp32 sums, never flushed, stay within 1e-4 of the
+    plain version's scale."""
+    N, Hj, K, kt = 2000, 1024, 17408, 2048
+    h, wt, b, u, w, cs = _pass_a_operands(N, Hj, K, cuda, seed=26)
+    if source == "bf16 slab":
+        got, want = jk.joint_bwd_dh(u, w, cs), jk.joint_bwd_dh_plain(u, w, cs)
+    else:
+        _, q, s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+        got, want = jk.joint_bwd_dh_u8(q, s, w, cs, kt), jk.joint_bwd_dh_u8_plain(q, s, w, cs, kt)
+    _rel_close(got, want)
+
+
+def test_pass_a_rejects_what_it_does_not_take(cuda):
+    h, wt, b, u, w, cs = _pass_a_operands(300, 200, 600, cuda, seed=27)
+    _, q, s = jk.joint_fwd_store8_plain(h, wt, b, 40)
+    with pytest.raises(TypeError):
+        jk.joint_bwd_dh(u.float(), w, cs)  # the slab is bf16
+    with pytest.raises(TypeError):
+        jk.joint_bwd_dh(u, w.half(), cs)
+    with pytest.raises(ValueError):
+        jk.joint_bwd_dh(u, w[:, :599].contiguous(), cs)
+    with pytest.raises(ValueError):
+        jk.joint_bwd_dh(u.t().contiguous().t(), w, cs)  # not contiguous
+    with pytest.raises(ValueError):
+        jk.joint_bwd_dh_u8(q, s, w, cs, 12)  # the scale tile is no multiple of 8
+    with pytest.raises(RuntimeError):
+        jk.pass_a_plan(u.double(), w)  # no source of u has 8-byte elements
 
 
 # ------------------------------------- the backwards that derive per pass
