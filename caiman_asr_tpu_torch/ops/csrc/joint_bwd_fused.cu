@@ -32,8 +32,8 @@
 //   in place from the second chunk on. u is parked in fp32, so the roundings
 //   are K6's (pallas_joint.py:220-235) and not the bf16-parked rechunked
 //   route's; the workspace stays in HBM, 12 bytes moved per element against
-//   6 Hj operations, below the products' time (the derivation on
-//   joint_tile.cuh's WMMA tiles, the passes as wgmma).
+//   6 Hj operations, below the products' time (the derivation and the
+//   passes as wgmma).
 //   Three launches per chunk.
 
 #include "joint_bwd.cuh"

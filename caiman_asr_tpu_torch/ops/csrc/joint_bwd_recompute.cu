@@ -19,8 +19,8 @@
 // derivation and the pass) over h, w and b only, so operation-bound; what
 // is parked between the two launches stays in HBM (a bf16 tile the caller
 // asked for, or the fp32 workspace: 8 bytes moved per element against
-// 4 Hj operations, below the products' time: the derivation on
-// joint_tile.cuh's WMMA tiles, the passes as wgmma).
+// 4 Hj operations, below the products' time; the derivation and the
+// passes run as wgmma).
 //
 // Design. As K6-fused (joint_bwd_fused.cu): the rows are walked in chunks
 // that fit a caller-given fp32 workspace of fixed size, per chunk one
@@ -131,6 +131,36 @@ int joint_bwd_dw_recompute(const void* h, const void* wt, const void* bias, cons
                     s);
     if (err != 0) return err;
   }
+  return 0;
+}
+
+// The derivation alone, one launch (N >= 0): out32 fp32 and / or out16
+// bf16 [N, K] (either may be null) = exp(h wt^T + bias - shift), shift [N]
+// or null; h [N, Hj] and wt [K, Hj] in the compute dtype. The routes above
+// reach it through their chunks; this entry serves tests and timing.
+int joint_derive(const void* h, const void* wt, const void* bias, const void* shift, void* out32,
+                 void* out16, int N, int Hj, int K, int dtype, void* stream) {
+  if (out32 == nullptr && out16 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_derive(h, wt, static_cast<const float*>(bias),
+                       static_cast<const float*>(shift), static_cast<float*>(out32),
+                       static_cast<__nv_bfloat16*>(out16), N, Hj, K, dtype,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 derivation's plan, for the logs: out[0..6] = how h and wt are
+// staged (joint_sm90.cuh's Staging: 0 TMA, 8 or 4 cp.async bytes, 2 or 1
+// element copies), row tiles, vocab tiles (the tiles' order: vocab tiles
+// fastest), blocks of the persistent grid, ring stages and dynamic shared
+// memory bytes.
+int joint_derive_plan(const void* h, const void* wt, int N, int Hj, int K, int* out) {
+  if (N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  derive::Plan pl;
+  const int err =
+      derive::plan(derive::params(h, wt, nullptr, nullptr, nullptr, nullptr, N, Hj, K), &pl);
+  if (err != 0) return err;
+  const int v[7] = {pl.h_mode, pl.w_mode, pl.tiles_rows, pl.tiles_k, pl.blocks, pl.stages,
+                    pl.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
   return 0;
 }
 

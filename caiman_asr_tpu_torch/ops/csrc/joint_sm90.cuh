@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the joint's tensor-core kernels:
 // mbarriers, TMA and cp.async staging into shared memory, warpgroup matrix
-// multiplies (wgmma) reading both operands from shared memory, and the
-// register hand-over between a producer warpgroup and its consumers.
-// joint_bwd.cuh's two bf16 passes are built from them: pass B (passb) and
-// pass A (passa).
+// multiplies (wgmma) reading both operands from shared memory, the
+// register hand-over between a producer warpgroup and its consumers, and
+// cluster barriers with loads from another block's shared memory.
+// joint_bwd.cuh's two bf16 passes are built from them (pass B, passb, and
+// pass A, passa), and so is joint_prod_sm90.cuh, the product of the bf16
+// forward and derivation.
 //
 // Shared-memory operands of wgmma are stored in 128-byte-swizzled rows:
 // a row is 64 bf16 (128 bytes); row r sits 128 r bytes in, and its 16-byte
@@ -187,6 +189,52 @@ __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kCount) : "memory");
 }
 
+// ------------------------------------------------------------------ clusters
+// The block's rank in its thread-block cluster and the cluster's index.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+
+// A barrier over every thread of the cluster: the arrival releases this
+// thread's writes to shared memory, the wait acquires the others'. Each
+// thread alternates arrive and wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+// The address of the same shared-memory location in block `rank` of the
+// cluster, and loads from it (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float cluster_load(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 cluster_load2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr)
+               : "memory");
+  return v;
+}
+
 template <int kRegs>
 __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kRegs));
@@ -256,6 +304,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t a, 
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B for one warpgroup: A [64 x 16] and B [16 x 128], bf16, both
+// K-major in shared memory (transpose bits 0, 0), d fp32 in registers,
+// laid out as wgmma_m64n128k16_mn's.
+__device__ __forceinline__ void wgmma_m64n128k16_k(float (&d)[64], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),

@@ -76,9 +76,13 @@ compute dtype) run the products on the tensor cores: pass A and pass B,
 under every backward, as ``wgmma`` fed by TMA or ``cp.async``
 (``csrc/joint_bwd.cuh``'s ``passa`` and ``passb`` on
 ``csrc/joint_sm90.cuh``; :func:`pass_a_plan` and :func:`pass_b_plan` say how
-they stage a call's operands), the forward and the derivation with WMMA;
-fp32 inputs run them on the CUDA cores, so that fp32 stays fp32
-(``csrc/joint_tile.cuh``). All accumulate in fp32.
+they stage a call's operands), and the forward and the derivation as one
+``wgmma`` product over Hj (``csrc/joint_prod_sm90.cuh``): the forward in
+clusters of 8 blocks that share 128 rows, the int8 slab's row maxima met
+through distributed shared memory so the product is done once
+(:func:`fwd_plan`), the derivation on a persistent grid
+(:func:`derive_plan`). fp32 inputs run them on the CUDA cores, so that fp32
+stays fp32 (``csrc/joint_tile.cuh``). All accumulate in fp32.
 
 Every wrapper launches its kernel for CUDA tensors and uses the plain
 version only for CPU tensors; it never falls back from one to the other.
@@ -463,7 +467,8 @@ def joint_bwd_dw_recompute_plain(h, w, b, denom, c, cl, labels, lo: int = 0,
 @functools.cache
 def _fwd_lib():
     return load("joint_fwd", {"joint_fwd": ([P] * 5 + [I] * 4 + [P], I),
-                              "joint_fwd_store8": ([P] * 6 + [I] * 5 + [P], I)})
+                              "joint_fwd_store8": ([P] * 6 + [I] * 5 + [P], I),
+                              "joint_fwd_plan": ([P] * 2 + [I] * 4 + [P], I)})
 
 
 @functools.cache
@@ -493,6 +498,8 @@ def _recompute_lib():
         "joint_derive_a": ([P] * 7 + [I] + [P] + [I] * 4 + [P], I),
         "joint_bwd_dh_recompute": ([P] * 7 + [I] + [P] + [I] * 4 + [P], I),
         "joint_bwd_dw_recompute": ([P] * 8 + [I] + [P] * 2 + [I] * 4 + [P], I),
+        "joint_derive": ([P] * 6 + [I] * 4 + [P], I),
+        "joint_derive_plan": ([P] * 2 + [I] * 3 + [P], I),
     })
 
 
@@ -500,6 +507,17 @@ def _dtype_code(t: torch.Tensor, what: str) -> int:
     if t.dtype not in DTYPE_CODE:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODE[t.dtype]
+
+
+# The scale tiles the forward kernels take: multiples of 128 that divide
+# 2,048, the vocabulary a cluster of the bf16 forward walks per round (the
+# plain version takes any width).
+FWD_SCALE_TILES = (128, 256, 512, 1024, 2048)
+
+
+def _fwd_scale_tile(kt: int, what: str) -> None:
+    if kt not in FWD_SCALE_TILES:
+        raise ValueError(f"{what}: the scale tile must be one of {FWD_SCALE_TILES}, got {kt}")
 
 
 def _launch_fwd(h, wt, b, store: Optional[str], kt: int = 0):
@@ -511,8 +529,7 @@ def _launch_fwd(h, wt, b, store: Optional[str], kt: int = 0):
                        "b": (b, (K,), torch.float32)}, what)
     sums = torch.empty((N,), dtype=torch.float32, device=h.device)
     if store == "i8":
-        if kt <= 0 or kt % 128:
-            raise ValueError(f"{what}: the scale tile must be a multiple of 128 wide, got {kt}")
+        _fwd_scale_tile(kt, what)
         q = torch.empty((N, K), dtype=torch.int8, device=h.device)
         s = torch.empty((-(-K // kt), N), dtype=torch.float32, device=h.device)
         check(_fwd_lib().joint_fwd_store8(
@@ -653,6 +670,48 @@ def pass_a_plan(u, w) -> dict:
     return {"u": _STAGING[out[0]], "w": _STAGING[out[1]], "tile": "128 rows x 256 Hj x 64 K",
             "grid": (out[2], out[3]), "blocks": blocks, "waves": blocks / sms,
             "stages": out[4], "smem_bytes": out[5]}
+
+
+def fwd_plan(h, wt, kt: Optional[int] = None) -> dict:
+    """How the bf16 forward kernel (K2, K5-store; K7-store8 with a scale
+    tile ``kt``) stages ``h`` [N, Hj] and ``wt`` [K, Hj] and tiles the call,
+    as the C side decides it from their addresses and widths (as
+    :func:`pass_b_plan`): clusters of 8 blocks over 128 rows each, walking
+    the vocabulary in rounds of 2,048 columns; ``clusters_resident`` is the
+    occupancy calculator's count of clusters that stand at once on this
+    card, ``waves`` the row tiles over it. A ``kt`` the kernel does not take
+    raises ``ValueError``. CUDA tensors."""
+    N, Hj = h.shape
+    K = wt.shape[0]
+    if kt is not None:
+        _fwd_scale_tile(kt, "fwd_plan")
+    out = (I * 8)()
+    check(_fwd_lib().joint_fwd_plan(h.data_ptr(), wt.data_ptr(), N, Hj, K,
+                                    0 if kt is None else 2, out), "joint_fwd_plan")
+    row_tiles = out[3] // out[2]
+    return {"h": _STAGING[out[0]], "wt": _STAGING[out[1]],
+            "tile": "128 rows x 256 K x 64 Hj", "cluster": out[2], "grid": out[3],
+            "rounds": out[4], "idle_share": 1 - K / (out[4] * 2048),
+            "clusters_resident": out[5],
+            "waves": row_tiles / out[5] if out[5] else float("inf"),
+            "stages": out[6], "smem_bytes": out[7]}
+
+
+def derive_plan(h, wt) -> dict:
+    """How the bf16 derivation (K6-fused, K6-derive-a, K4-A, K4-B and
+    :func:`joint_derive`) stages ``h`` [N, Hj] and ``wt`` [K, Hj] and tiles
+    the call: [128 x 256] tiles, the vocab tiles of a row tile adjacent, on a
+    persistent grid of one block per SM. CUDA tensors."""
+    N, Hj = h.shape
+    K = wt.shape[0]
+    out = (I * 7)()
+    check(_recompute_lib().joint_derive_plan(h.data_ptr(), wt.data_ptr(), N, Hj, K, out),
+          "joint_derive_plan")
+    tiles = out[2] * out[3]
+    return {"h": _STAGING[out[0]], "wt": _STAGING[out[1]],
+            "tile": "128 rows x 256 K x 64 Hj", "tiles": (out[2], out[3]),
+            "blocks": out[4], "waves": tiles / out[4], "stages": out[5],
+            "smem_bytes": out[6]}
 
 
 def _scale_tile(kt: int, what: str) -> None:
@@ -798,6 +857,57 @@ def joint_bwd_fused(h, w, b, cs, cl, labels):
         N, Hj, K, code, stream_of(h)), what)
     joint_bwd_fused.launches += 3 * -(-N // rows)
     return smear, dw, db
+
+
+def joint_derive_plain(h, wt, b, shift=None, out32: bool = True, out16: bool = False):
+    """The derivation the no-slab backwards run per row chunk, alone:
+    v = exp(h wt^T + b - shift) [N, K], computed in fp32 (shift [N] fp32 or
+    None for 0), returned as (fp32 v or None, bf16 v or None) as asked."""
+    if not (out32 or out16):
+        raise ValueError("joint_derive: ask for the fp32 or the bf16 output")
+    N, K = h.shape[0], wt.shape[0]
+    v32 = torch.empty((N, K), dtype=torch.float32, device=h.device) if out32 else None
+    v16 = torch.empty((N, K), dtype=torch.bfloat16, device=h.device) if out16 else None
+    for lo, hi in _row_chunks(N):
+        v = h[lo:hi].float() @ wt.float().t() + b.float()
+        if shift is not None:
+            v = v - shift[lo:hi, None]
+        v = torch.exp(v)
+        if out32:
+            v32[lo:hi] = v
+        if out16:
+            v16[lo:hi] = v.to(torch.bfloat16)
+    return v32, v16
+
+
+@counted
+def joint_derive(h, wt, b, shift=None, out32: bool = True, out16: bool = False):
+    """The derivation alone (the first launch of each chunk of K6-fused,
+    K6-derive-a, K4-A and K4-B); same contract as
+    :func:`joint_derive_plain`. One launch, counted in
+    ``joint_derive.launches``. For tests and timing: the routes reach the
+    derivation through their own entry points."""
+    if not _on_cuda(h):
+        return joint_derive_plain(h, wt, b, shift, out32, out16)
+    what = "joint_derive"
+    if not (out32 or out16):
+        raise ValueError(f"{what}: ask for the fp32 or the bf16 output")
+    N, Hj = h.shape
+    K = wt.shape[0]
+    code = _dtype_code(h, what)
+    named = {"h": (h, (N, Hj), h.dtype), "wt": (wt, (K, Hj), h.dtype),
+             "b": (b, (K,), torch.float32)}
+    if shift is not None:
+        named["shift"] = (shift, (N,), torch.float32)
+    check_operands(h, named, what)
+    v32 = torch.empty((N, K), dtype=torch.float32, device=h.device) if out32 else None
+    v16 = torch.empty((N, K), dtype=torch.bfloat16, device=h.device) if out16 else None
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    check(_recompute_lib().joint_derive(
+        h.data_ptr(), wt.data_ptr(), b.data_ptr(), ptr(shift), ptr(v32), ptr(v16), N, Hj, K,
+        code, stream_of(h)), what)
+    joint_derive.launches += 1
+    return v32, v16
 
 
 @counted

@@ -39,9 +39,11 @@ Phases:
      against its plain path and against the bf16-slab route;
   8. every kernel at the main path's shapes against its plain version, with
      times beside the bound and the library call (K8-fwd and K8-bwd at
-     base-85M's post-stack, G=6, beside cuDNN's 6-layer nn.LSTM), and the
-     plans of the bf16 passes A and B (staging, tile, grid, waves) in the
-     pass A and pass B summaries;
+     base-85M's post-stack, G=6, beside cuDNN's 6-layer nn.LSTM), the bf16
+     derivation alone beside a fill of the bytes it stores, and the plans
+     of the bf16 passes A and B, the forward and the derivation (staging,
+     tile, cluster, grid, waves) in the pass A, pass B, forward and derive
+     summaries;
   9. the wavefront multi-layer LSTM (run_lstm_stack_wavefront, K8-fwd and
      K8-bwd) at full width, bf16, forward and forward + backward: base-85M's
      and large-196M's post-stacks (G=6) and the JAX A/B script's default
@@ -929,12 +931,67 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
                 f"{plan['tile']}, grid {plan['grid']} = {plan['blocks']} blocks = "
                 f"{plan['waves']:.2f} waves of one block per SM; {plan['stages']} stages, "
                 f"{plan['smem_bytes']} bytes of shared memory")
+        if name in ("K2", "K5-store", "K7-store8"):
+            plan = r["forward"] = jk.fwd_plan(h, wt, kt if name == "K7-store8" else None)
+            log(f"    {name}, forward: h staged by {plan['h']}, wt by {plan['wt']}; tile "
+                f"{plan['tile']}, clusters of {plan['cluster']}, grid {plan['grid']} blocks, "
+                f"{plan['rounds']} rounds of 2,048 columns (idle share {plan['idle_share']:.3f}); "
+                f"{plan['clusters_resident']} clusters resident = {plan['waves']:.2f} waves; "
+                f"{plan['stages']} stages, {plan['smem_bytes']} bytes of shared memory")
+        if name in ("K6-fused", "K6-derive-a", "K4-A", "K4-B"):
+            # the derivation of one chunk of the fp32 workspace (of the whole
+            # call for K6-derive-a's bf16 tile)
+            rows = N if name == "K6-derive-a" else jk.fused_workspace_rows(N, Kc)
+            wt_c = wt if name in ("K6-fused", "K6-derive-a") else wt[lo:hi].contiguous()
+            plan = r["derive"] = jk.derive_plan(h[:rows], wt_c)
+            log(f"    {name}, derivation: h staged by {plan['h']}, wt by {plan['wt']}; tile "
+                f"{plan['tile']}, {plan['tiles']} tiles on a persistent grid of "
+                f"{plan['blocks']} blocks = {plan['waves']:.2f} tiles per block; "
+                f"{plan['stages']} stages, {plan['smem_bytes']} bytes of shared memory")
         if name in ("K5-A", "K7-A8"):
             plan = r["pass_a"] = jk.pass_a_plan(ref_u if name == "K5-A" else ref_q, w_bf)
             log(f"    {name}, pass A: u staged by {plan['u']}, w by {plan['w']}; tile "
                 f"{plan['tile']}, grid {plan['grid']} (row tiles, Hj tiles fastest) = "
                 f"{plan['blocks']} blocks = {plan['waves']:.2f} waves of one block per SM; "
                 f"{plan['stages']} stages, {plan['smem_bytes']} bytes of shared memory")
+    return out
+
+
+def time_derivation(N: int, Hj: int, K: int) -> dict:
+    """The bf16 derivation alone (``joint_derive``, the first launch of each
+    chunk of K6-fused, K6-derive-a, K4-A and K4-B) at [N, Hj] x [Hj, K],
+    writing the fp32 workspace (K4, K6-fused) and the bf16 tile
+    (K6-derive-a), beside the store alone: a fill of the same bytes. Each
+    output against the plain version."""
+    import torch
+
+    from caiman_asr_tpu_torch.ops import joint_kernel as jk
+
+    h, wt, b, *_ = joint_inputs(N, Hj, K, torch.bfloat16, N + K)
+    shift = jk.joint_fwd_plain(h, wt, b)[0].log()
+    out = {"plan": jk.derive_plan(h, wt)}
+    for tag, (o32, o16) in {"fp32": (True, False), "bf16": (False, True)}.items():
+        got = [t for t in jk.joint_derive(h, wt, b, shift, o32, o16) if t is not None][0]
+        want = [t for t in jk.joint_derive_plain(h, wt, b, shift, o32, o16) if t is not None][0]
+        _, err, _ = slab_errs(got, want)
+        tol = 1e-3 if o32 else U_RTOL  # z's last fp32 bits; one bf16 step
+        if not err <= tol:
+            raise AssertionError(f"the derivation ({tag}) differs by {err} (tol {tol})")
+        del got, want
+        ms = cuda_ms(lambda: jk.joint_derive(h, wt, b, shift, o32, o16), reps=5, warmup=1)
+        target = torch.empty((N, K), dtype=torch.float32 if o32 else torch.bfloat16,
+                             device="cuda")
+        fill = cuda_ms(lambda: target.fill_(1.0), reps=5, warmup=1)
+        del target
+        nbytes = N * K * (4 if o32 else 2)
+        out[tag] = {"ms": ms, "rel_err": err, "tflops": 2.0 * N * Hj * K / ms / 1e9,
+                    "store_alone_ms": fill, "bound_ms": bound_ms(
+                        2 * (N * Hj + K * Hj) + 4 * (K + N) + nbytes, 2.0 * N * Hj * K,
+                        "bfloat16")[0]}
+        log(f"  derivation alone N={N} Hj={Hj} K={K}, {tag} out: {ms:.3f} ms "
+            f"({out[tag]['tflops']:.1f} TFLOP/s), relative err {err:.3g} (tol {tol:.3g}); the "
+            f"store alone (a fill of its {nbytes / 2**20:.0f} MiB) {fill:.3f} ms; bound "
+            f"{out[tag]['bound_ms']:.4f} ms")
     return out
 
 
@@ -1717,7 +1774,7 @@ def main() -> int:
     joint.update(check_joint(n32, Hj_l, K_l, "bfloat16", timed=True,
                              only=("K7-store8", "K7-fused-u8"), reps=3))
     torch.cuda.empty_cache()
-    check_joint(n64, Hj_l, K_l, "bfloat16", timed=True, only=("K2",), reps=2)
+    k2_64 = check_joint(n64, Hj_l, K_l, "bfloat16", timed=True, only=("K2",), reps=2)
     torch.cuda.empty_cache()
     joint.update(check_joint(n64, Hj_l, K_l, "bfloat16", timed=True,
                              only=("K6-fused", "K4-A", "K4-B"), reps=2))
@@ -1733,6 +1790,8 @@ def main() -> int:
     chunk = rechunk_rows(n64, Hj_l, K_l)
     joint.update(check_joint(chunk, Hj_l, K_l, "bfloat16", timed=True, only=("K6-derive-a",),
                              reps=3))
+    derivation = time_derivation(chunk, Hj_l, K_l)
+    torch.cuda.empty_cache()
     rechunked = time_rechunked(n64, Hj_l, K_l, "bfloat16")
     ks = knob["train"]["hybrid"]["plan"]["ks"]
     hybrid = {"stored": check_joint(n32, Hj_l, ks, "bfloat16", timed=True,
@@ -1861,6 +1920,17 @@ def main() -> int:
                      "K7-fused-u8": strip(joint["K7-fused-u8"]),
                      "K6-fused": strip(joint["K6-fused"]), "K4-A": strip(joint["K4-A"]),
                      "K6-derive-a": strip(joint["K6-derive-a"])}}))
+    log("forward summary: " + json.dumps({
+        f"K2 {joint_shape}": strip(joint["K2"]), f"K5-store {joint_shape}": strip(joint["K5-store"]),
+        f"K5-store {shape16}": strip(large16["K5-store"]),
+        f"K7-store8 {shape32}": strip(joint["K7-store8"]), f"K2 {shape64}": strip(k2_64["K2"]),
+        "hybrid K5-store": strip(hybrid["stored"]["K5-store"])}))
+    log("derive summary: " + json.dumps({
+        f"derivation alone, N={chunk} Hj={Hj_l} K={K_l}": derivation,
+        "K6-derive-a": strip(joint["K6-derive-a"]), "K4-A": strip(joint["K4-A"]),
+        "K4-B": strip(joint["K4-B"]), "K6-fused": strip(joint["K6-fused"]),
+        "hybrid K4-A": strip(hybrid["recomputed"]["K4-A"]),
+        "hybrid K4-B": strip(hybrid["recomputed"]["K4-B"])}))
     log("wavefront summary: " + json.dumps(
         {name: r for name, r in wavefront.items() if name != "launches"}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

@@ -395,6 +395,56 @@ def test_derive_a_twin_rounds_the_smear_from_the_fp32_u(small_chunks, bf16):
         assert (smear - from_tile).abs().max() > 1e-5 * smear.abs().max()
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("out32,out16", [(True, False), (False, True), (True, True)])
+def test_derive_twin_matches_jax_numerators(small_chunks, bf16, shifted, out32, out16):
+    """The derivation alone (the first launch of each chunk of K6-fused,
+    K6-derive-a and K4): exp(h w + b - shift), the numerators JAX's no-slab
+    kernels recompute (pallas_joint.py:144-162, :165-187, :190-235), in fp32
+    and / or rounded once to bf16. fp32 1e-6 (sums in another order); bf16
+    one step where the fp32 values round to neighbours."""
+    h, w, b, *_ = make(n=90, hj=24, k=333, seed=12)
+    if bf16:  # both sides take the same bf16-representable inputs
+        h, w = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in (h, w))
+    z = jnp.matmul(h, w, precision=jax.lax.Precision.HIGHEST) + b
+    shift = np.array(jax.nn.logsumexp(z, axis=1)) if shifted else None
+    want = np.asarray(jnp.exp(z - (shift[:, None] if shifted else 0.0)))
+    ht, wt = (torch.from_numpy(a) for a in (h, np.ascontiguousarray(w.T)))
+    if bf16:
+        ht, wt = ht.to(torch.bfloat16), wt.to(torch.bfloat16)
+    before = jk.joint_derive.launches
+    v32, v16 = jk.joint_derive(ht, wt, torch.from_numpy(b),
+                               torch.from_numpy(shift) if shifted else None, out32, out16)
+    assert jk.joint_derive.launches == before  # the plain version: nothing launched
+    assert (v32 is None) != out32 and (v16 is None) != out16
+    if out32:
+        np.testing.assert_allclose(v32.numpy(), want, rtol=1e-6, atol=0)
+    if out16:
+        assert v16.dtype == torch.bfloat16
+        np.testing.assert_allclose(v16.float().numpy(), want, rtol=2 ** -8, atol=0)
+    if out32 and out16:
+        assert torch.equal(v16, v32.to(torch.bfloat16))
+
+
+def test_derive_twin_asks_for_an_output():
+    h, w, b, *_ = _direct_inputs()
+    with pytest.raises(ValueError, match="output"):
+        jk.joint_derive(h, w.t().contiguous(), b, None, False, False)
+
+
+@pytest.mark.parametrize("hj", [8, 96, 512, 768, 1023, 1024, 1536])
+def test_the_forward_kernel_takes_every_scale_tile_the_policy_makes(hj):
+    """The bf16 forward takes scale tiles that divide its 2,048-column
+    rounds; the store policy (the JAX package's tile sizes) only ever asks
+    for 1,024 or 2,048. The plain version takes any width."""
+    assert jk._tiles(hj)[1] == pj._tiles(hj)[1] and jk._tiles(hj)[1] in jk.FWD_SCALE_TILES
+    assert jk.FWD_SCALE_TILES == tuple(k for k in range(128, 2049, 128) if 2048 % k == 0)
+    h, w, b, *_ = _direct_inputs(n=20, hj=8, k=300)
+    for kt in (8, 100, 384):
+        assert jk.joint_fwd_store8(h, w.t().contiguous(), b, kt)[2].shape == (-(-300 // kt), 20)
+
+
 @pytest.mark.parametrize("lo,hi", [(0, None), (100, 333), (0, 128), (37, 205)])
 def test_recompute_twins_match_a_direct_formula_over_a_column_range(small_chunks, lo, hi):
     """K4-A and K4-B over [lo, hi): the softmax with the unscaled

@@ -9,7 +9,9 @@ and with no slab (K6-fused), and the backwards that derive again per pass
 (``csrc/joint_fwd.cu``, ``csrc/joint_bwd.cu``, ``csrc/joint_bwd_fused.cu``,
 ``csrc/joint_bwd_recompute.cu``), the bf16 passes A and B under all of them
 on each of their staging paths (``csrc/joint_bwd.cuh``,
-``csrc/joint_sm90.cuh``), and the wavefront multi-layer LSTM's
+``csrc/joint_sm90.cuh``), the bf16 forward (its three modes) and the
+derivation alone on each of theirs (``csrc/joint_prod_sm90.cuh``), and the
+wavefront multi-layer LSTM's
 forward, without and with stored gates (K8-fwd), and backward (K8-bwd)
 (``csrc/lstm_wavefront.cu``, ``csrc/lstm_wavefront_bwd.cu``).
 
@@ -798,6 +800,184 @@ def test_new_joint_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # dw to add into has another shape
         jk.joint_bwd_dw(h, u, cs, cl, labels, out=(torch.zeros(8, 39, device=cuda),
                                                    torch.zeros(40, device=cuda)))
+
+
+# ---------------- the forward and the derivation on Hopper (one wgmma product)
+def _check_forward(h, wt, b, kt):
+    """K2, K5-store and K7-store8 on the same inputs: their sums equal bit for
+    bit, each output against the plain versions at the tolerances above."""
+    before = (jk.joint_fwd.launches, jk.joint_fwd_store.launches, jk.joint_fwd_store8.launches)
+    sums, _ = jk.joint_fwd(h, wt, b)
+    sums_u, u = jk.joint_fwd_store(h, wt, b)
+    sums_q, q, s = jk.joint_fwd_store8(h, wt, b, kt)
+    torch.cuda.synchronize()
+    assert (jk.joint_fwd.launches, jk.joint_fwd_store.launches,
+            jk.joint_fwd_store8.launches) == tuple(n + 1 for n in before)
+    assert torch.equal(sums, sums_u) and torch.equal(sums, sums_q)
+    ref_sums, ref_u = jk.joint_fwd_store_plain(h, wt, b)
+    _, ref_q, ref_s = jk.joint_fwd_store8_plain(h, wt, b, kt)
+    torch.testing.assert_close(sums, ref_sums, rtol=1e-5, atol=0)
+    torch.testing.assert_close(u.float(), ref_u.float(), rtol=2 ** -7, atol=0)
+    torch.testing.assert_close(s, ref_s, rtol=5e-5, atol=0)
+    diff = (q.int() - ref_q.int()).abs()
+    assert diff.max().item() <= 1 and (diff != 0).float().mean().item() <= 1e-3
+    assert q.max().item() == 127 and q.min().item() >= 0
+    return sums, u, q, s
+
+
+# (N, Hj, K, kt): Hj from 8 (one slice, mostly zeros past Hj) to large-196M's
+# 1,024, 96 and 768 no multiple of the 64-wide slice; N no multiple of the
+# 128-row tile; K none of the 256-column tile, or large-196M's 17,408
+# (8.5 rounds of 2,048: half the cluster idle in the last); every scale tile
+# the kernel takes
+FWD_SHAPES = [(200, 8, 1000, 128), (333, 96, 2500, 1024), (129, 768, 8704, 1024),
+              (300, 1024, 17408, 2048), (77, 96, 300, 2048), (260, 1024, 4000, 256),
+              (140, 768, 4100, 512)]
+
+
+@pytest.mark.parametrize("N,Hj,K,kt", FWD_SHAPES)
+def test_forward_kernel_crosses_every_tail(cuda, N, Hj, K, kt):
+    h, wt, b, *_ = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=31)
+    plan = jk.fwd_plan(h, wt, kt)
+    assert (plan["h"], plan["wt"]) == ("TMA", "TMA")
+    assert plan["cluster"] == 8 and plan["grid"] == 8 * -(-N // 128)
+    assert plan["rounds"] == -(-K // 2048) and plan["clusters_resident"] >= 1
+    _check_forward(h, wt, b, kt)
+
+
+# (h's offset, wt's offset, in bf16 elements; Hj; how h is staged, how wt
+# is): rows of 16-byte multiples on 16-byte bases take TMA, of 8 or 4 bytes
+# cp.async, of an odd number of bf16 element copies
+FWD_STAGING = [
+    (0, 4, 96, "TMA", "cp.async, 8 bytes"),
+    (4, 0, 96, "cp.async, 8 bytes", "TMA"),
+    (2, 2, 96, "cp.async, 4 bytes", "cp.async, 4 bytes"),
+    (1, 0, 96, "element copies", "TMA"),
+    (0, 1, 96, "TMA", "element copies"),
+    (0, 0, 100, "cp.async, 8 bytes", "cp.async, 8 bytes"),
+    (0, 0, 98, "cp.async, 4 bytes", "cp.async, 4 bytes"),
+    (0, 0, 99, "element copies", "element copies"),
+]
+
+
+@pytest.mark.parametrize("h_off,w_off,Hj,h_staging,w_staging", FWD_STAGING)
+def test_forward_kernel_takes_each_staging(cuda, h_off, w_off, Hj, h_staging, w_staging):
+    N, K = 301, 1000
+    h, wt, b, *_ = _joint_inputs(N, Hj, K, torch.bfloat16, cuda, seed=32)
+    h, wt = _at_offset(h, h_off), _at_offset(wt, w_off)
+    plan = jk.fwd_plan(h, wt, 128)
+    assert (plan["h"], plan["wt"]) == (h_staging, w_staging)
+    _check_forward(h, wt, b, 128)
+
+
+# the slab's own alignment: an odd K takes the element stores of u and q
+@pytest.mark.parametrize("K", [999, 1001])
+def test_forward_kernel_stores_an_odd_width(cuda, K):
+    h, wt, b, *_ = _joint_inputs(150, 96, K, torch.bfloat16, cuda, seed=33)
+    _check_forward(h, wt, b, 1024)
+
+
+def test_forward_kernel_is_deterministic(cuda):
+    """Two calls of each mode on the same inputs are bit for bit equal."""
+    h, wt, b, *_ = _joint_inputs(1000, 768, 4000, torch.bfloat16, cuda, seed=34)
+    calls = (lambda: jk.joint_fwd(h, wt, b)[:1], lambda: jk.joint_fwd_store(h, wt, b),
+             lambda: jk.joint_fwd_store8(h, wt, b, 1024))
+    for call in calls:
+        assert all(torch.equal(x, y) for x, y in zip(call(), call()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kt", [64, 100, 384, 640, 4096])
+def test_forward_kernel_rejects_a_scale_tile_it_does_not_take(cuda, dtype, kt):
+    """The scale tile is a multiple of 128 that divides 2,048, for both
+    dtypes; the plain version takes any."""
+    h, wt, b, *_ = _joint_inputs(100, 96, 1000, dtype, cuda, seed=35)
+    before = jk.joint_fwd_store8.launches
+    with pytest.raises(ValueError, match="scale tile"):
+        jk.joint_fwd_store8(h, wt, b, kt)
+    with pytest.raises(ValueError, match="scale tile"):
+        jk.fwd_plan(h.bfloat16(), wt.bfloat16(), kt)
+    assert jk.joint_fwd_store8.launches == before
+    assert jk.joint_fwd_store8_plain(h, wt, b, kt)[2].shape == (-(-1000 // kt), 100)
+
+
+# The derivation alone. fp32 v = exp(z + b - shift) inherits the absolute
+# error of z (fp32 sums over Hj in another order, truncated by the tensor
+# cores: up to ~1e-4 at |z| ~ 15) as a relative one: rtol 1e-3. The bf16 v
+# one bf16 step (2^-7 relative), as the slab u above.
+DERIVE_SHAPES = [(200, 8, 300), (333, 96, 1000), (129, 1024, 17408), (1000, 768, 8704)]
+
+
+def _derive_operands(N, Hj, K, seed):
+    h, wt, b, *_ = _joint_inputs(N, Hj, K, torch.bfloat16, "cuda", seed=seed)
+    shift = jk.joint_fwd_plain(h, wt, b)[0].log()
+    return h, wt, b, shift
+
+
+def _check_derive(h, wt, b, shift, out32, out16):
+    before = jk.joint_derive.launches
+    v32, v16 = jk.joint_derive(h, wt, b, shift, out32, out16)
+    torch.cuda.synchronize()
+    assert jk.joint_derive.launches == before + 1
+    r32, r16 = jk.joint_derive_plain(h, wt, b, shift, out32, out16)
+    assert (v32 is None) == (not out32) and (v16 is None) == (not out16)
+    if out32:
+        torch.testing.assert_close(v32, r32, rtol=1e-3, atol=0)
+    if out16:
+        assert v16.dtype == torch.bfloat16
+        torch.testing.assert_close(v16.float(), r16.float(), rtol=2 ** -7, atol=0)
+    if out32 and out16:  # both from the same fp32 value
+        assert torch.equal(v16, v32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("N,Hj,K", DERIVE_SHAPES)
+@pytest.mark.parametrize("out", ["fp32", "bf16", "both"])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_derive_kernel_crosses_every_tail(cuda, N, Hj, K, out, shifted):
+    """fp32 only (K6-fused, K4), bf16 only (K6-derive-a with bf16 weights),
+    both (the fp32 derive_a's outputs, here through the bf16 kernel), with
+    the row's log-sum-exp as the shift (K4) or none (K6)."""
+    h, wt, b, shift = _derive_operands(N, Hj, K, seed=36)
+    plan = jk.derive_plan(h, wt)
+    assert (plan["h"], plan["wt"]) == ("TMA", "TMA")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles = -(-N // 128) * -(-K // 256)
+    assert plan["tiles"] == (-(-N // 128), -(-K // 256)) and plan["blocks"] == min(tiles, sms)
+    _check_derive(h, wt, b, shift if shifted else None, out != "bf16", out != "fp32")
+
+
+@pytest.mark.parametrize("h_off,w_off,Hj,h_staging,w_staging", FWD_STAGING)
+def test_derive_kernel_takes_each_staging(cuda, h_off, w_off, Hj, h_staging, w_staging):
+    h, wt, b, shift = _derive_operands(301, Hj, 1000, seed=37)
+    h, wt = _at_offset(h, h_off), _at_offset(wt, w_off)
+    plan = jk.derive_plan(h, wt)
+    assert (plan["h"], plan["wt"]) == (h_staging, w_staging)
+    _check_derive(h, wt, b, shift, True, True)
+
+
+@pytest.mark.parametrize("K", [999, 1001])
+def test_derive_kernel_stores_an_odd_width(cuda, K):
+    h, wt, b, shift = _derive_operands(150, 96, K, seed=38)
+    _check_derive(h, wt, b, shift, True, True)
+
+
+def test_derive_kernel_is_deterministic(cuda):
+    """Two calls on the same inputs are bit for bit equal, on a grid of more
+    tiles than blocks (each block walks several)."""
+    h, wt, b, shift = _derive_operands(3000, 768, 8704, seed=39)
+    assert jk.derive_plan(h, wt)["waves"] > 1
+    one, two = (jk.joint_derive(h, wt, b, shift, True, True) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+
+
+def test_derive_kernel_rejects_what_it_does_not_take(cuda):
+    h, wt, b, shift = _derive_operands(100, 96, 600, seed=40)
+    with pytest.raises(ValueError, match="output"):
+        jk.joint_derive(h, wt, b, shift, False, False)
+    with pytest.raises(ValueError):
+        jk.joint_derive(h, wt, b, shift[:99])
+    with pytest.raises(TypeError):
+        jk.joint_derive(h, wt.float(), b)
 
 
 # ------------------------------------------------------------ the wavefront
