@@ -43,24 +43,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_kernels() -> Dict[str, str]:
-    """Compile every ``csrc/*.cu`` into ``build/kernels/lib<name>.so``, one
-    ``nvcc`` per source, all started together. A library newer than its
-    source and every shared header is kept. Returns the compiler's messages
-    (registers, shared memory, spills) per source; raises if any build
-    fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build_kernels(build_dir: Path = BUILD_DIR, defines: Tuple[str, ...] = (),
+                  stems: Tuple[str, ...] = ()) -> Dict[str, str]:
+    """Compile every ``csrc/*.cu`` (or those named in ``stems``) into
+    ``build_dir/lib<name>.so``, one ``nvcc`` per source, all started
+    together, with ``-D`` for each of ``defines`` (the LSTM kernels' timing
+    variants, ``bench_lstm.phases``). A library newer than its source and
+    every shared header is kept. Returns the compiler's messages (registers,
+    shared memory, spills) per source; raises if any build fails."""
+    build_dir.mkdir(parents=True, exist_ok=True)
     headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")), default=0.0)
     procs: List[Tuple[str, Path, Path, subprocess.Popen]] = []
     logs: Dict[str, str] = {}
     for src in sorted(CSRC.glob("*.cu")):
-        out = BUILD_DIR / f"lib{src.stem}.so"
+        if stems and src.stem not in stems:
+            continue
+        out = build_dir / f"lib{src.stem}.so"
         if out.exists() and out.stat().st_mtime >= max(src.stat().st_mtime, headers):
             logs[src.stem] = "up to date"
             continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp, str(src)]
         procs.append((src.stem, Path(tmp), out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
@@ -83,11 +87,14 @@ def _built() -> None:
     build_kernels()
 
 
-def load(stem: str, signatures: Dict[str, Tuple[list, object]]) -> ctypes.CDLL:
-    """Build (once per process) and load ``lib<stem>.so``, declaring each
+def load(stem: str, signatures: Dict[str, Tuple[list, object]],
+         build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """Build (once per process) and load ``lib<stem>.so`` (from
+    ``build_dir``, where a caller built a variant itself), declaring each
     function's ``argtypes`` and ``restype``."""
-    _built()
-    lib = ctypes.CDLL(str(BUILD_DIR / f"lib{stem}.so"))
+    if build_dir == BUILD_DIR:
+        _built()
+    lib = ctypes.CDLL(str(build_dir / f"lib{stem}.so"))
     for name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

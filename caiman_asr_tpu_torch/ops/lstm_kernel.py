@@ -21,11 +21,14 @@ What bounds them on an H100: per step the work is ``2*B*H*4H`` FLOPs against
 little to fill the card, so the least time for a layer is set by reading
 ``w_hh`` once and streaming the per-step tensors, or by the FLOPs at the
 card's peak, whichever is larger (``chip_smoke.py`` computes both). The
-steps are sequential, so the real limit is per-step latency: the simple
-designs launch once per step and re-read ``w_hh`` from L2/HBM every step.
-The Pallas kernels keep ``w_hh`` resident in VMEM; the Hopper answer is a
-persistent cooperative kernel with ``w_hh`` split across the SMs' shared
-memory and a grid-wide sync per step, left for a later change.
+steps are sequential, so the real limit is per-step latency. As the Pallas
+kernels keep ``w_hh`` resident in VMEM, each kernel here is one cooperative
+launch per layer that keeps ``w_hh`` resident in the SMs' shared memory,
+split by hidden units over the blocks, with one grid-wide barrier a step
+(``csrc/lstm_persist.cuh``). :func:`lstm_plan` chooses the split; where a
+block's rows do not all fit (fp32 at H=1536), the rows that fit stay
+resident and the rest are read from L2 every step: the partly resident
+mode.
 
 Every wrapper launches its kernel for CUDA tensors and uses the plain
 version only for CPU tensors; it never falls back from one to the other.
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 from typing import Tuple
 
 import torch
@@ -45,23 +49,220 @@ from caiman_asr_tpu_torch.ops.cuda_build import (
 from caiman_asr_tpu_torch.ops.lstm import cell_activation, gate_activations, gate_math
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
+logger = logging.getLogger(__name__)
+
+Z = ctypes.c_size_t
+
+
+FWD_SIGNATURES = {
+    "lstm_recurrence_fwd": ([P] * 8 + [I] * 11 + [Z, P], I),
+    "lstm_recurrence_smem_bytes": ([I] * 8, Z),
+    "lstm_barrier_loop": ([P, I, I, I, Z, P], I),
+}
+BWD_SIGNATURES = {"lstm_recurrence_bwd": ([P] * 10 + [I] * 11 + [Z, P], I)}
 
 
 @functools.cache
 def _fwd_lib():
-    return load("lstm_recurrence", {
-        "lstm_recurrence_fwd": ([P] * 6 + [I] * 5 + [P], I),
-        "lstm_recurrence_fwd_sg": ([P] * 7 + [I] * 5 + [P], I),
-        "lstm_recurrence_fwd_smem_bytes": ([I, I], ctypes.c_size_t),
-    })
+    return load("lstm_recurrence", FWD_SIGNATURES)
 
 
 @functools.cache
 def _bwd_lib():
-    return load("lstm_recurrence_bwd", {
-        "lstm_recurrence_bwd": ([P] * 9 + [I] * 5 + [P], I),
-        "lstm_recurrence_bwd_smem_bytes": ([I], ctypes.c_size_t),
-    })
+    return load("lstm_recurrence_bwd", BWD_SIGNATURES)
+
+
+# ---------------------------------------------------------------- the plan
+# The kernels' layout constants (csrc/lstm_persist.cuh): bf16's partial
+# sums per row of their buffer and batch rows a group holds; fp32's chunk
+# stages of the contraction and the chunks a plan may take (longest
+# first); and the codes their launch returns when the grid cannot all be
+# resident or a plan does not fit the shape.
+RED_FLOATS_BF16 = 256
+MAX_PIECES = 128  # 4-unit pieces of a staged batch row
+X_STAGES = 4
+CHUNKS = (256, 128, 64, 32)
+NOT_CO_RESIDENT, BAD_PLAN = -1, -2
+H100_SMS = 132
+MAX_BATCH_SPLIT = 4
+# The fewest batch rows a slice keeps, forward and backward: the backward's
+# exchange (B x 4H a step) is 4x the forward's, and a split paid off there
+# from 8 rows (one mma tile) up, in the forward only at 32 (timed with
+# bench_lstm.py on an H100 at splits of 1 and 4; PERF.md §6).
+MIN_SLICE_ROWS = {False: 32, True: 8}
+
+
+def _resident_ld(K: int, esize: int) -> int:
+    return K + (32 - K) % 64 if esize == 2 else K + 4
+
+
+def fp32_ksplit(rows: int, group: int) -> int:
+    """fp32's parts of the contraction (``fp32_ksplit`` of the kernels):
+    256 threads over tiles of 8, 6 or 4 rows (the first that divides the
+    rows into a power of two, else 8 or 4) by 8 batch rows of the group
+    where that makes at least 8 tiles, else 4."""
+    tile = next((t for t in (8, 6, 4) if rows % t == 0 and (rows // t) & (rows // t - 1) == 0),
+                8 if rows % 8 == 0 else 4)
+    row_tiles = -(-rows // tile)
+    tiles = row_tiles * group // (8 if row_tiles * group // 8 >= 8 else 4)
+    return 256 // tiles if tiles < 256 else 1
+
+
+def smem_bytes(rows: int, res_rows: int, K: int, stage_elems: int, esize: int, carry: int,
+               chunk: int, group: int) -> int:
+    """A block's shared memory, as the kernels compute it (``smem_bytes`` of
+    ``csrc/lstm_persist.cuh``): res_rows resident rows of length K, two
+    stages of ``stage_elems`` per-step inputs a batch row of a group of
+    ``group`` rows, the scratch (bf16's partial sums of ``rows`` rows; in
+    fp32 the larger of the chunk stages, the group's rows of the exchange
+    and the rows not resident at ``chunk`` floats each, and the partial sums
+    they make room for) and ``carry`` fp32 values."""
+    if esize == 2:
+        scratch = 4 * RED_FLOATS_BF16 * (-(-rows // 16) * 16 + 4)
+    else:
+        xstage = X_STAGES * (group + rows - res_rows) * (chunk + 4) * 4
+        scratch = max(xstage, 4 * fp32_ksplit(rows, group) * (group * rows + 1))
+    return (res_rows * _resident_ld(K, esize) * esize + 2 * group * stage_elems * esize
+            + scratch + 4 * carry)
+
+
+def lstm_plan(B: int, H: int, dtype, backward: bool = False, sms: int = H100_SMS) -> dict:
+    """How the persistent kernel (K1/K3a forward, K3b ``backward``) splits a
+    layer of width H at batch B over the card's ``sms`` SMs, one block each.
+
+    The grid is ``blocks`` x ``bsplit``: each block owns ``units`` hidden
+    units (a multiple of 4, the fewest that give at most ``sms`` blocks) and
+    one of ``bsplit`` slices of the batch, and keeps its rows of w_hh in
+    shared memory: the forward 4 * units rows of w_hh (length H), the
+    backward units rows of w_hh^T (length 4H). fp32 also stages the
+    contraction through shared memory in chunks of ``chunk`` floats (the
+    first of ``CHUNKS`` at which every row stays resident, else the first
+    after it at which the block's buffers fit; 0 in bf16), in groups of
+    ``group`` batch rows (64 in bf16; in fp32 the slice rounded up to 8 and
+    at most 64, or 32, 16 or 8 where that keeps every row resident or reads
+    fewer bytes a step), its threads in ``ksplit`` parts of k (fp32; a plan
+    whose chunk gives a part no step is taken only where no other fits). ``mode`` is "resident" when all rows fit beside the partial
+    sums, the staged inputs and the fp32 carry, else "partial": the first
+    ``resident_rows`` stay resident and the rest are read from L2 every
+    step (in fp32 staged with the exchange, once a batch group of
+    ``group`` rows). The batch split ``bsplit`` is one of ``MAX_BATCH_SPLIT``,
+    ..., 2, 1 (powers of two) whose slices hold at least ``MIN_SLICE_ROWS``
+    rows each: a block then reads only its slice of the exchange, at the
+    cost of twice the units and rows per block. It is the largest whose
+    rows all stay resident, else (partly resident) the one that reads the
+    fewest bytes from L2 a step; fp32's group likewise. Also returns the
+    bytes of shared memory a block asks for (``smem_bytes``), of resident
+    rows per block, and per step: the weight bytes read from L2, the
+    exchanged state the grid reads (h_{t-1} [B, H] forward, dgates[t+1]
+    [B, 4H] backward, once per block of a slice), and their sum with the
+    step's own inputs and outputs (``l2_bytes_per_step``).
+    """
+    if H % 8 or H <= 0:
+        raise ValueError(f"hidden size must be a positive multiple of 8, got {H}")
+    plans = []
+    for bsplit in (MAX_BATCH_SPLIT >> i for i in range(MAX_BATCH_SPLIT.bit_length())):
+        slice_rows = -(-B // bsplit)
+        if bsplit > 1 and (slice_rows < MIN_SLICE_ROWS[backward]
+                           or (bsplit - 1) * slice_rows >= B):
+            continue
+        top = min(64, -(-slice_rows // 8) * 8)
+        groups = {g for g in (top, 32, 16, 8) if g <= top} if dtype.itemsize == 4 else {64}
+        for group in sorted(groups, reverse=True):
+            try:
+                plans.append(_plan_split(B, H, dtype.itemsize, backward, sms, bsplit, group))
+            except ValueError:  # these buffers alone do not fit
+                pass
+    if not plans:
+        raise ValueError(f"H={H}, B={B}: no plan fits a block's shared memory")
+    # fp32: a chunk short of a 4-column step for each part of k idles threads
+    plans = [plan for plan in plans if plan["chunk"] >= 4 * plan["ksplit"]] or plans
+    resident = [plan for plan in plans if plan["mode"] == "resident"]
+    if resident:
+        return resident[0]
+    return min(plans, key=lambda plan: plan["l2_bytes_per_step"])
+
+
+def _plan_split(B: int, H: int, esize: int, backward: bool, sms: int, bsplit: int,
+                group: int) -> dict:
+    units = 4
+    while -(-H // units) * bsplit > sms:
+        units += 4
+    blocks = -(-H // units)
+    rows, K, stage = (units, 4 * H, 8 * units) if backward else (4 * units, H, 4 * units)
+    if stage // 4 > MAX_PIECES:
+        raise ValueError(f"H={H}: {units} units a block is more than the kernels stage")
+    slice_rows = -(-B // bsplit)
+    carry = slice_rows * units
+
+    def size(res_rows: int, chunk: int) -> int:
+        return smem_bytes(rows, res_rows, K, stage, esize, carry, chunk, group)
+
+    chunks = CHUNKS if esize == 4 else (0,)
+    chunk = next((c for c in chunks if size(rows, c) <= MAX_SMEM_BYTES), None)
+    if chunk is None:  # partly resident
+        chunk = next((c for c in chunks[1:] if size(0, c) <= MAX_SMEM_BYTES), chunks[-1])
+    res_rows = next((r for r in range(rows, -1, -1) if size(r, chunk) <= MAX_SMEM_BYTES), None)
+    if res_rows is None:
+        raise ValueError(f"H={H}, B={B}: a block's buffers alone need {size(0, chunk)} bytes "
+                         "of shared memory")
+    ld = _resident_ld(K, esize)
+    groups = -(-slice_rows // group)
+    exchange = blocks * B * K * esize
+    weights = blocks * bsplit * groups * (rows - res_rows) * K * esize
+    own = B * (8 * H if backward else 6 * H) * esize  # gx, ys, cs / gates, 4 states, dgates
+    return {"blocks": blocks, "bsplit": bsplit, "units": units, "rows": rows,
+            "resident_rows": res_rows, "mode": "resident" if res_rows == rows else "partial",
+            "chunk": chunk, "group": group,
+            "ksplit": fp32_ksplit(rows, group) if esize == 4 else 0,
+            "smem_bytes": size(res_rows, chunk), "row_bytes": ld * esize, "carry_floats": carry, "resident_bytes": res_rows * K * esize,
+            "l2_weight_bytes_per_step": weights, "exchange_bytes_per_step": exchange,
+            "l2_bytes_per_step": weights + exchange + own}
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _plan(B: int, H: int, dtype, backward: bool, sms: int) -> dict:
+    """lstm_plan, logged where it is partly resident."""
+    plan = lstm_plan(B, H, dtype, backward, sms)
+    if plan["mode"] == "partial":
+        logger.info("lstm %s B=%d H=%d %s: %d of %d rows of a block resident, %d bytes of "
+                    "w_hh read from L2 a step", "backward" if backward else "forward", B, H,
+                    dtype, plan["resident_rows"], plan["rows"],
+                    plan["l2_weight_bytes_per_step"])
+    return plan
+
+
+def _plan_on(t: torch.Tensor, B: int, H: int, backward: bool) -> dict:
+    return _plan(B, H, t.dtype, backward, _sm_count(t.device.index or 0))
+
+
+def barrier_loop(T: int, plan: dict, device="cuda") -> None:
+    """The step floor of a plan's grid: one cooperative launch of
+    ``plan["blocks"]`` x ``plan["bsplit"]`` blocks with its shared memory that only passes T - 1
+    step barriers. For timing; no model path runs it."""
+    ctr = torch.zeros(1, dtype=torch.int32, device=device)
+    err = _fwd_lib().lstm_barrier_loop(ctr.data_ptr(), T, plan["blocks"], plan["bsplit"],
+                                       plan["smem_bytes"], stream_of(ctr))
+    _check_launch(err, "lstm_barrier_loop", plan)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels read 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_launch(err: int, what: str, plan: dict) -> None:
+    if err == NOT_CO_RESIDENT:
+        raise ValueError(f"{what}: {plan['blocks']} blocks of {plan['smem_bytes']} bytes of "
+                         "shared memory cannot all be resident on this card")
+    if err == BAD_PLAN:
+        raise ValueError(f"{what}: the kernel refused the plan {plan}")
+    check(err, what)
 
 
 # ------------------------------------------------------------ plain versions
@@ -148,14 +349,11 @@ def _check_fwd(gates_x, w_hh, h0, c0, what):
     check_operands(gates_x, {"gates_x": (gates_x, (T, B, H4), dtype),
                              "w_hh": (w_hh, (H4, H), dtype), "h0": (h0, (B, H), dtype),
                              "c0": (c0, (B, H), dtype)}, what)
-    if w_hh.data_ptr() % 16:
-        raise ValueError("w_hh must be 16-byte aligned")
-    if _fwd_lib().lstm_recurrence_fwd_smem_bytes(H, DTYPE_CODE[dtype]) > MAX_SMEM_BYTES:
-        raise ValueError(f"H={H} needs more shared memory than a block has")
     return T, B, H
 
 
 def _launch_fwd(gates_x, w_hh, h0, c0, hard, store_gates):
+    """One cooperative launch for the layer (none when T is 0)."""
     what = "lstm_recurrence_fwd_sg" if store_gates else "lstm_recurrence_fwd"
     T, B, H = _check_fwd(gates_x, w_hh, h0, c0, what)
     dtype = gates_x.dtype
@@ -164,18 +362,15 @@ def _launch_fwd(gates_x, w_hh, h0, c0, hard, store_gates):
     gs = torch.empty_like(gates_x) if store_gates else None
     if T == 0:
         return ys, cs, gs
-    h_buf = torch.empty((2, B, H), dtype=torch.float32, device=gates_x.device)
-    c_buf = torch.empty_like(h_buf)
-    h_buf[0].copy_(h0)
-    c_buf[0].copy_(c0)
-    lib = _fwd_lib()
-    common = (gates_x.data_ptr(), w_hh.data_ptr(), h_buf.data_ptr(), c_buf.data_ptr(),
-              ys.data_ptr(), cs.data_ptr())
-    tail = (T, B, H, int(hard), DTYPE_CODE[dtype], stream_of(gates_x))
-    if store_gates:
-        check(lib.lstm_recurrence_fwd_sg(*common, gs.data_ptr(), *tail), what)
-    else:
-        check(lib.lstm_recurrence_fwd(*common, *tail), what)
+    plan = _plan_on(gates_x, B, H, backward=False)
+    ctr = torch.zeros(1, dtype=torch.int32, device=gates_x.device)
+    err = _fwd_lib().lstm_recurrence_fwd(
+        *(_aligned(t).data_ptr() for t in (gates_x, w_hh, h0, c0)), ys.data_ptr(),
+        cs.data_ptr(), gs.data_ptr() if store_gates else None, ctr.data_ptr(), T, B, H,
+        int(hard), DTYPE_CODE[dtype], plan["blocks"], plan["bsplit"], plan["units"],
+        plan["resident_rows"], plan["chunk"], plan["group"], plan["smem_bytes"],
+        stream_of(gates_x))
+    _check_launch(err, what, plan)
     return ys, cs, gs
 
 
@@ -184,38 +379,38 @@ def lstm_recurrence(gates_x, w_hh, h0, c0, hard: bool = False) -> Pair:
     """K1: one layer's forward recurrence; same contract as
     :func:`lstm_recurrence_plain`.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel, once
-    per time step, and add one to ``lstm_recurrence.launches`` per launch;
-    anything the kernel does not take raises.
+    CPU tensors take the plain version. CUDA tensors launch the persistent
+    kernel, once per layer (T > 0), and add one to
+    ``lstm_recurrence.launches``; anything the kernel does not take raises.
     """
     if gates_x.device.type == "cpu":
         return lstm_recurrence_plain(gates_x, w_hh, h0, c0, hard)
     if gates_x.device.type != "cuda":
         raise ValueError(f"unsupported device {gates_x.device}")
     ys, cs, _ = _launch_fwd(gates_x, w_hh, h0, c0, hard, False)
-    lstm_recurrence.launches += gates_x.shape[0]  # one launch per time step
+    lstm_recurrence.launches += int(gates_x.shape[0] > 0)
     return ys, cs
 
 
 @counted
 def lstm_recurrence_sg(gates_x, w_hh, h0, c0, hard: bool = False):
     """K3a: K1 that also returns the pre-activations gs; same contract as
-    :func:`lstm_recurrence_sg_plain`. One launch per step, counted in
+    :func:`lstm_recurrence_sg_plain`. One launch per layer, counted in
     ``lstm_recurrence_sg.launches``."""
     if gates_x.device.type == "cpu":
         return lstm_recurrence_sg_plain(gates_x, w_hh, h0, c0, hard)
     if gates_x.device.type != "cuda":
         raise ValueError(f"unsupported device {gates_x.device}")
     out = _launch_fwd(gates_x, w_hh, h0, c0, hard, True)
-    lstm_recurrence_sg.launches += gates_x.shape[0]
+    lstm_recurrence_sg.launches += int(gates_x.shape[0] > 0)
     return out
 
 
 @counted
 def lstm_recurrence_bwd(gates, c_prev, cs, dys, dcs, w_hh, hard: bool = False):
     """K3b: the reverse recurrence; same contract as
-    :func:`lstm_recurrence_bwd_plain`. T+1 launches (one per reverse step,
-    one for dh0), counted in ``lstm_recurrence_bwd.launches``."""
+    :func:`lstm_recurrence_bwd_plain`. One launch per layer, dh0 included
+    (none when T is 0), counted in ``lstm_recurrence_bwd.launches``."""
     if gates.device.type == "cpu":
         return lstm_recurrence_bwd_plain(gates, c_prev, cs, dys, dcs, w_hh, hard)
     if gates.device.type != "cuda":
@@ -232,19 +427,23 @@ def lstm_recurrence_bwd(gates, c_prev, cs, dys, dcs, w_hh, hard: bool = False):
     check_operands(gates, {"gates": (gates, (T, B, H4), dtype), "c_prev": (c_prev, *state),
                            "cs": (cs, *state), "dys": (dys, *state), "dcs": (dcs, *state),
                            "w_hh": (w_hh, (H4, H), dtype)}, what)
-    lib = _bwd_lib()
-    if lib.lstm_recurrence_bwd_smem_bytes(DTYPE_CODE[dtype]) > MAX_SMEM_BYTES:
-        raise ValueError("the backward block needs more shared memory than a block has")
-    w_t = w_hh.t().contiguous()  # [H, 4H]: a unit's contraction is contiguous
     dgates = torch.empty_like(gates)
-    dh0 = torch.empty((B, H), dtype=torch.float32, device=gates.device)
-    dc_buf = torch.zeros((2, B, H), dtype=torch.float32, device=gates.device)
-    check(lib.lstm_recurrence_bwd(
-        gates.data_ptr(), c_prev.data_ptr(), cs.data_ptr(), dys.data_ptr(), dcs.data_ptr(),
-        w_t.data_ptr(), dgates.data_ptr(), dh0.data_ptr(), dc_buf.data_ptr(),
-        T, B, H, int(hard), DTYPE_CODE[dtype], stream_of(gates)), what)
-    lstm_recurrence_bwd.launches += T + 1
-    return dgates, dh0, dc_buf[T % 2]
+    dh0 = torch.zeros((B, H), dtype=torch.float32, device=gates.device)
+    dc0 = torch.zeros_like(dh0)
+    if T == 0:
+        return dgates, dh0, dc0
+    plan = _plan_on(gates, B, H, backward=True)
+    w_t = w_hh.t().contiguous()  # [H, 4H]: a unit's contraction is contiguous
+    ctr = torch.zeros(1, dtype=torch.int32, device=gates.device)
+    err = _bwd_lib().lstm_recurrence_bwd(
+        *(_aligned(t).data_ptr() for t in (gates, c_prev, cs, dys, dcs)), w_t.data_ptr(),
+        dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), ctr.data_ptr(), T, B, H, int(hard),
+        DTYPE_CODE[dtype], plan["blocks"], plan["bsplit"], plan["units"],
+        plan["resident_rows"], plan["chunk"], plan["group"], plan["smem_bytes"],
+        stream_of(gates))
+    _check_launch(err, what, plan)
+    lstm_recurrence_bwd.launches += 1
+    return dgates, dh0, dc0
 
 
 # ----------------------------------------------------------------- autograd

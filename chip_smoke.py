@@ -38,7 +38,12 @@ Phases:
      each, the route shown by the launch counts; then each of these routes
      against its plain path and against the bf16-slab route;
   8. every kernel at the main path's shapes against its plain version, with
-     times beside the bound and the library call (K8-fwd and K8-bwd at
+     times beside the bound and the library call (the LSTM kernels, one
+     launch a layer, at a base-85M encoder layer and at large-196M's
+     post-stack layer at B=64, bf16 and fp32: the median of 5 rounds, µs a
+     step, their plan and step floor, and cuDNN's layer, training forward
+     and backward as the median of 5 rounds, also less the GEMMs it does
+     beside the recurrence, in the lstm summary; K8-fwd and K8-bwd at
      base-85M's post-stack, G=6, beside cuDNN's 6-layer nn.LSTM), the bf16
      derivation alone beside a fill of the bytes it stores, and the plans
      of the bf16 passes A and B, the forward and the derivation (staging,
@@ -339,9 +344,8 @@ def recurrence_bound_ms(T: int, dtype: str, B: int = B, H: int = H) -> tuple[flo
     return bound_ms(nbytes, 2.0 * B * H * 4 * H * T, dtype)
 
 
-def check_recurrence(T: int, dtype_name: str, hard: bool, timed: bool, B: int = B,
-                     H: int = H) -> dict:
-    """Kernel vs plain version on the card at [T, B, 4H]."""
+def check_recurrence(T: int, dtype_name: str, hard: bool, B: int = B, H: int = H) -> dict:
+    """K1 vs its plain version on the card at [T, B, 4H]."""
     import torch
 
     from caiman_asr_tpu_torch.ops import lstm_kernel
@@ -365,29 +369,6 @@ def check_recurrence(T: int, dtype_name: str, hard: bool, timed: bool, B: int = 
         f"max|kernel - plain| = {err:.3g} (tol {TOL[dtype_name]})")
     if not err <= TOL[dtype_name]:
         raise AssertionError(f"kernel disagrees with its plain version: {res}")
-    if timed:
-        res["ms"] = cuda_ms(lambda: lstm_kernel.lstm_recurrence(gx, w_hh, h0, c0, hard))
-        res["plain_ms"] = cuda_ms(
-            lambda: lstm_kernel.lstm_recurrence_plain(gx, w_hh, h0, c0, hard), reps=3, warmup=1)
-        res["bound_ms"], res["bound_by"] = recurrence_bound_ms(T, dtype_name, B, H)
-        # library yardstick: one cuDNN LSTM layer (input width H), which also
-        # does the input GEMM — so compare it with kernel + that GEMM
-        x = torch.randn((T, B, H), generator=g, device="cuda").to(dtype)
-        w_ih_t = ((torch.rand((H, 4 * H), generator=g, device="cuda") * 2 - 1) * bound).to(dtype)
-        lib = torch.nn.LSTM(H, H, device="cuda", dtype=dtype)
-        lib.flatten_parameters()
-        res["library_flat_weights"] = (
-            lib.weight_ih_l0.untyped_storage().data_ptr()
-            == lib.weight_hh_l0.untyped_storage().data_ptr())
-        with torch.no_grad():
-            res["library_ms"] = cuda_ms(lambda: lib(x, (h0[None], c0[None])))
-        res["gemm_ms"] = cuda_ms(lambda: torch.matmul(x.reshape(T * B, H), w_ih_t))
-        res["kernel_plus_gemm_ms"] = res["ms"] + res["gemm_ms"]
-        log(f"    kernel {res['ms']:.4f} ms | plain {res['plain_ms']:.4f} ms | "
-            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) | "
-            f"cuDNN nn.LSTM layer (with input GEMM) {res['library_ms']:.4f} ms vs "
-            f"kernel + input GEMM {res['kernel_plus_gemm_ms']:.4f} ms "
-            f"(cuDNN weights in one buffer: {res['library_flat_weights']})")
     return res
 
 
@@ -484,8 +465,7 @@ def run_slice(name: str = "base-85M") -> dict:
     feats, feat_lens = fp(audio, lens)
     T_pre = feats.shape[0]
     T_post = -(-T_pre // model.cfg.enc_stack_time_factor)
-    expected = (model.cfg.enc_pre_rnn_layers * T_pre
-                + model.cfg.enc_post_rnn_layers * T_post)
+    expected = model.cfg.enc_pre_rnn_layers + model.cfg.enc_post_rnn_layers  # one a layer
     log(f"  {N_UTTS} utterances, {audio_secs:.2f} s of audio; encoder T={T_pre} "
         f"(pre) / {T_post} (post), B={N_UTTS}")
     log(f"  blank bias raised by {calibrate_blank(model, feats, feat_lens):.4f} "
@@ -584,10 +564,8 @@ def max_err(got, want) -> float:
     return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
 
 
-def check_lstm_train(T: int, dtype_name: str, hard: bool, timed: bool, B: int = B,
-                     H: int = H) -> dict:
-    """K3a and K3b against their plain versions on the card at [T, B, 4H];
-    timed, also their times, bounds and the cuDNN yardsticks."""
+def check_lstm_train(T: int, dtype_name: str, hard: bool, B: int = B, H: int = H) -> dict:
+    """K3a and K3b against their plain versions on the card at [T, B, 4H]."""
     import torch
 
     from caiman_asr_tpu_torch.ops import lstm_kernel as lk
@@ -611,35 +589,53 @@ def check_lstm_train(T: int, dtype_name: str, hard: bool, timed: bool, B: int = 
             f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
         if not r["max_abs_err"] <= r["tol"]:
             raise AssertionError(f"{name} disagrees with its plain version: {r}")
-    if not timed:
-        return out
+    return out
+
+
+def time_lstm(T: int, B: int, H: int, dtype_name: str = "bfloat16") -> dict:
+    """K1, K3a and K3b at [T, B, 4H] (``bench_lstm``): the median of 5
+    rounds and their spread, µs per step, the plan, the step floor (the
+    plan's grid passing only its barriers); the plain versions' times; the
+    bounds; cuDNN's layer (K1), training forward (K3a) and backward (K3b) as
+    the library times, the median of 5 rounds, and each also less the GEMMs
+    cuDNN does beside the recurrence, timed alone."""
+    import torch
+
+    from caiman_asr_tpu_torch import bench_lstm
+    from caiman_asr_tpu_torch.ops import lstm_kernel as lk
+
+    dtype = getattr(torch, dtype_name)
+    out = bench_lstm.time_kernels(T, B, H, dtype, rounds=5)
+    yard = bench_lstm.cudnn_yardsticks(T, B, H, dtype, rounds=5)
+    fwd, bwd = bench_lstm.layer_inputs(T, B, H, dtype)
     es = 4 if dtype_name == "float32" else 2
-    k3a, k3b = out["K3a"], out["K3b"]
-    k3a["ms"] = cuda_ms(lambda: lk.lstm_recurrence_sg(gx, w_hh, h0, c0, hard))
-    k3a["plain_ms"] = cuda_ms(lambda: lk.lstm_recurrence_sg_plain(gx, w_hh, h0, c0, hard),
-                              reps=3, warmup=1)
+    k1, k3a, k3b = out["K1"], out["K3a"], out["K3b"]
+    k1["plain_ms"] = cuda_ms(lambda: lk.lstm_recurrence_plain(*fwd, False), reps=3, warmup=1)
+    k3a["plain_ms"] = cuda_ms(lambda: lk.lstm_recurrence_sg_plain(*fwd, False), reps=3, warmup=1)
+    k3b["plain_ms"] = cuda_ms(lambda: lk.lstm_recurrence_bwd_plain(*bwd, False), reps=3,
+                              warmup=1)
+    k1["bound_ms"], k1["bound_by"] = recurrence_bound_ms(T, dtype_name, B, H)
     k3a["bound_ms"], k3a["bound_by"] = bound_ms(
         es * (4 * H * H + 2 * T * B * 4 * H + 2 * T * B * H + 2 * B * H),
         2.0 * B * H * 4 * H * T, dtype_name)
-    k3b["ms"] = cuda_ms(lambda: lk.lstm_recurrence_bwd(*bwd_args))
-    k3b["plain_ms"] = cuda_ms(lambda: lk.lstm_recurrence_bwd_plain(*bwd_args), reps=3, warmup=1)
     k3b["bound_ms"], k3b["bound_by"] = bound_ms(
         es * (4 * H * H + 2 * T * B * 4 * H + 4 * T * B * H) + 4 * 2 * B * H,
         2.0 * B * 4 * H * H * (T + 1), dtype_name)
-    # library yardsticks: one cuDNN LSTM layer, its training forward and its
-    # backward (both also do the input-projection GEMMs, and the backward
-    # the weight gradients)
-    lib = torch.nn.LSTM(H, H, device="cuda", dtype=dtype)
-    lib.flatten_parameters()
-    x = torch.randn((T, B, H), device="cuda").to(dtype).requires_grad_()
-    state = (h0[None], c0[None])
-    k3a["library_ms"] = cuda_ms(lambda: lib(x, state))
-    y, _ = lib(x, state)
-    leaves = [x, *lib.parameters()]
-    k3b["library_ms"] = cuda_ms(lambda: torch.autograd.grad(y, leaves, dys, retain_graph=True))
+    for r, lib, less, gemms in ((k1, "layer", "layer_less_gemm_ms", "input_gemm_ms"),
+                                (k3a, "train_forward", "train_forward_less_gemm_ms",
+                                 "input_gemm_ms"),
+                                (k3b, "backward", "backward_less_gemms_ms", "backward_gemms_ms")):
+        r.update(library_ms=yard[lib]["ms"], library_spread=yard[lib]["spread"],
+                 library_less_gemms_ms=yard[less], kernel_plus_gemms_ms=r["ms"] + yard[gemms],
+                 library_flat_weights=yard["flat_weights"])
     for name, r in out.items():
-        log(f"    {name}: kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | cuDNN {r['library_ms']:.4f} ms")
+        log(f"    {name} T={T} B={B} H={H} {dtype_name}: kernel {r['ms']:.4f} ms "
+            f"({r['us_per_step']:.2f} us a step, spread {r['spread']:.3f}; floor "
+            f"{r['floor_us_per_step']:.2f} us) | plain {r['plain_ms']:.4f} | bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) | cuDNN {r['library_ms']:.4f} (spread "
+            f"{r['library_spread']:.3f}; less its GEMMs {r['library_less_gemms_ms']:.4f}; "
+            f"kernel + those GEMMs {r['kernel_plus_gemms_ms']:.4f}; weights flat: "
+            f"{r['library_flat_weights']})")
     return out
 
 
@@ -1685,12 +1681,13 @@ def main() -> int:
     log("== kernels vs plain versions")
     for dtype in ("float32", "bfloat16"):
         for hard in (False, True):
-            check_recurrence(64, dtype, hard, timed=not hard)
-            check_lstm_train(64, dtype, hard, timed=False)
-        # large-196M's widths: the encoder at B=32, the predictor at B=64
+            check_recurrence(64, dtype, hard)
+            check_lstm_train(64, dtype, hard)
+        # large-196M's widths: the encoder at B=32 (fp32 partly resident),
+        # the predictor at B=64 (its batch split)
         for Bl, Hl in ((32, 1536), (64, 768)):
-            check_recurrence(32, dtype, False, False, Bl, Hl)
-            check_lstm_train(32, dtype, False, False, Bl, Hl)
+            check_recurrence(32, dtype, False, Bl, Hl)
+            check_lstm_train(32, dtype, False, Bl, Hl)
         check_joint(1000, 96, 1000, dtype, timed=False)  # N and K unaligned
         check_joint(300, 96, 2500, dtype, timed=False,   # three scale tiles, the last ragged
                     only=("K7-store8", "K7-fused-u8", "K6-fused", "K7-A8", "K7-B8"))
@@ -1755,13 +1752,22 @@ def main() -> int:
 
     # 8. every kernel at the main path's shapes
     log("== kernels at the main path's shapes")
-    per_shape = {}
+    # the LSTM kernels at a base-85M encoder layer (and K1 at its post-stack
+    # length, as the transcription runs it) and at large-196M's post-stack
+    # layer at B=64, in both dtypes: each against its plain version, then
+    # timed
     for name in ("float32", "bfloat16"):
-        for T in (sl["T_pre"], sl["T_post"]):
-            per_shape[(name, T)] = check_recurrence(T, name, False, timed=True)
-    lstm_train = check_lstm_train(sl["T_pre"], "bfloat16", False, timed=True)
-    check_recurrence(sl["T_pre"], "bfloat16", False, True, 32, 1536)  # a large-196M layer
-    check_lstm_train(sl["T_pre"], "bfloat16", False, True, 32, 1536)
+        check_recurrence(sl["T_post"], name, False)
+    lstm_shapes = {"base": (sl["T_pre"], B, H), "large": (sl["T_post"], 64, 1536)}
+    lstm = {}
+    for cell, (T, Bs, Hs) in lstm_shapes.items():
+        for name in ("bfloat16", "float32"):
+            errs = {"K1": check_recurrence(T, name, False, Bs, Hs),
+                    **check_lstm_train(T, name, False, Bs, Hs)}
+            lstm[cell, name] = time_lstm(T, Bs, Hs, name)
+            for kernel, r in lstm[cell, name].items():
+                r["max_abs_err"] = errs[kernel]["max_abs_err"]
+        torch.cuda.empty_cache()
     joint = check_joint(N, 768, 8704, "bfloat16", timed=True,
                         only=("K2", "K5-store", "K5-A", "K5-B"))
     cells = large["train"]
@@ -1826,12 +1832,12 @@ def main() -> int:
         return (joint[check], cell["bfloat16"]["rows"][-1]["launches"][wrapper], shape,
                 f"large-196M train step, B={cell['B']}, {cell['knobs']}")
     rows = {
-        "lstm_recurrence": (per_shape[("bfloat16", sl["T_pre"])], sl["bfloat16"]["launches"],
-                            layer, "base-85M transcription"),
-        "lstm_recurrence_sg": (lstm_train["K3a"], train_counts["lstm_recurrence_sg"], layer,
-                               base_step),
-        "lstm_recurrence_bwd": (lstm_train["K3b"], train_counts["lstm_recurrence_bwd"], layer,
-                                base_step),
+        "lstm_recurrence": (lstm["base", "bfloat16"]["K1"], sl["bfloat16"]["launches"], layer,
+                            "base-85M transcription"),
+        "lstm_recurrence_sg": (lstm["base", "bfloat16"]["K3a"],
+                               train_counts["lstm_recurrence_sg"], layer, base_step),
+        "lstm_recurrence_bwd": (lstm["base", "bfloat16"]["K3b"],
+                                train_counts["lstm_recurrence_bwd"], layer, base_step),
         "joint_fwd": (joint["K2"], val["launches"]["joint_fwd"], joint_shape,
                       "base-85M validation batch"),
         "joint_fwd_store": (joint["K5-store"], train_counts["joint_fwd_store"], joint_shape,
@@ -1931,6 +1937,9 @@ def main() -> int:
         "K4-B": strip(joint["K4-B"]), "K6-fused": strip(joint["K6-fused"]),
         "hybrid K4-A": strip(hybrid["recomputed"]["K4-A"]),
         "hybrid K4-B": strip(hybrid["recomputed"]["K4-B"])}))
+    log("lstm summary: " + json.dumps({
+        f"{cell} T={T} B={Bs} H={Hs} {name}": lstm[cell, name]
+        for cell, (T, Bs, Hs) in lstm_shapes.items() for name in ("bfloat16", "float32")}))
     log("wavefront summary: " + json.dumps(
         {name: r for name, r in wavefront.items() if name != "launches"}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

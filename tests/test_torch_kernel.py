@@ -85,7 +85,7 @@ def test_kernel_matches_plain(cuda, dtype, hard, T, B, H):
     before = lstm_kernel.lstm_recurrence.launches
     ys, cs = lstm_kernel.lstm_recurrence(*args, hard)
     torch.cuda.synchronize()
-    assert lstm_kernel.lstm_recurrence.launches == before + T
+    assert lstm_kernel.lstm_recurrence.launches == before + 1  # one launch per layer
     ys_ref, cs_ref = lstm_kernel.lstm_recurrence_plain(*args, hard)
     assert ys.dtype == cs.dtype == dtype
     _close(ys, ys_ref, LSTM_TOL[dtype])
@@ -100,7 +100,7 @@ def test_store_gates_kernel_matches_plain(cuda, dtype, hard, T, B, H):
     before = lstm_kernel.lstm_recurrence_sg.launches
     got = lstm_kernel.lstm_recurrence_sg(*args, hard)
     torch.cuda.synchronize()
-    assert lstm_kernel.lstm_recurrence_sg.launches == before + T
+    assert lstm_kernel.lstm_recurrence_sg.launches == before + 1
     want = lstm_kernel.lstm_recurrence_sg_plain(*args, hard)
     for g, w in zip(got, want):
         assert g.dtype == dtype
@@ -128,7 +128,7 @@ def test_backward_kernel_matches_plain(cuda, dtype, hard, T, B, H):
     before = lstm_kernel.lstm_recurrence_bwd.launches
     dg, dh0, dc0 = lstm_kernel.lstm_recurrence_bwd(*args, hard)
     torch.cuda.synchronize()
-    assert lstm_kernel.lstm_recurrence_bwd.launches == before + T + 1
+    assert lstm_kernel.lstm_recurrence_bwd.launches == before + 1  # dh0 in the same launch
     dg_ref, dh0_ref, dc0_ref = lstm_kernel.lstm_recurrence_bwd_plain(*args, hard)
     assert dg.dtype == dtype and dh0.dtype == dc0.dtype == torch.float32
     scale = max(1.0, dg_ref.float().abs().max().item())
@@ -162,6 +162,103 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     gx, w, h0, c0 = _inputs(4, 2, 12, torch.float32, cuda)
     with pytest.raises(ValueError):  # H not a multiple of 8
         lstm_kernel.lstm_recurrence(gx, w, h0, c0)
+
+
+# The persistent kernels at the model's widths (the predictor's 512 and
+# 768, the encoders' 1024 and 1536) and batches; fp32 at 1536 takes the
+# partly resident mode. T=1 and T=2: the greedy predictor and the serving
+# tick.
+PLAN_SHAPES = [(4, B, H) for H in (512, 1024, 1536) for B in (8, 16, 64)] + [
+    (1, 8, 512), (2, 16, 1024), (1, 64, 768), (2, 5, 1536)]
+
+
+def _check_layer(cuda, dtype, hard, T, B, H, seed):
+    args = _inputs(T, B, H, dtype, cuda, seed)
+    kept = [a.clone() for a in args]
+    counts = (lstm_kernel.lstm_recurrence_sg.launches, lstm_kernel.lstm_recurrence_bwd.launches)
+    got = lstm_kernel.lstm_recurrence_sg(*args, hard)
+    torch.cuda.synchronize()
+    want = lstm_kernel.lstm_recurrence_sg_plain(*args, hard)
+    for g, w in zip(got, want):
+        _close(g, w, LSTM_TOL[dtype])
+    ys, cs = lstm_kernel.lstm_recurrence(*args, hard)
+    assert torch.equal(ys, got[0]) and torch.equal(cs, got[1])
+    bwd_args = _bwd_inputs(T, B, H, dtype, cuda, hard, seed + 1)
+    dg, dh0, dc0 = lstm_kernel.lstm_recurrence_bwd(*bwd_args, hard)
+    torch.cuda.synchronize()
+    ref = lstm_kernel.lstm_recurrence_bwd_plain(*bwd_args, hard)
+    scale = max(1.0, ref[0].float().abs().max().item())
+    for g, w in zip((dg, dh0, dc0), ref):
+        _close(g, w, LSTM_TOL[dtype] * scale)
+    assert (lstm_kernel.lstm_recurrence_sg.launches,
+            lstm_kernel.lstm_recurrence_bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    for a, k in zip(args, kept):  # h0 and c0 (and every input) are not written
+        assert torch.equal(a, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("T,B,H", PLAN_SHAPES)
+def test_persistent_kernels_at_model_widths(cuda, dtype, hard, T, B, H):
+    _check_layer(cuda, dtype, hard, T, B, H, seed=5)
+
+
+@pytest.mark.parametrize("B", [5, 20])
+@pytest.mark.parametrize("H", [2048, 4096])
+def test_fp32_tiles_past_the_model_widths(cuda, B, H):
+    # fp32's threads sum tiles of 8 rows at H=2,048 (64 rows forward, 16
+    # backward) and at H=4,096 (128 rows forward, staged in chunks of 64
+    # floats, and 32 backward); B=5 leaves most of a batch group empty,
+    # B=20 takes two
+    for backward in (False, True):
+        plan = lstm_kernel.lstm_plan(B, H, torch.float32, backward,
+                                     lstm_kernel._sm_count(cuda.index or 0))
+        assert plan["rows"] == (H // plan["blocks"] if backward else 4 * H // plan["blocks"])
+    _check_layer(cuda, torch.float32, False, 3, B, H, seed=12)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_fp32_at_1536_is_partly_resident(cuda, backward):
+    plan = lstm_kernel.lstm_plan(16, 1536, torch.float32, backward,
+                                 lstm_kernel._sm_count(cuda.index or 0))
+    assert plan["mode"] == "partial" and 0 < plan["resident_rows"] < plan["rows"]
+    _check_layer(cuda, torch.float32, False, 6, 16, 1536, seed=7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_persistent_kernels_are_deterministic(cuda, dtype):
+    args = _inputs(12, 33, 1024, dtype, cuda, seed=8)
+    a, b = (lstm_kernel.lstm_recurrence_sg(*args) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    bwd_args = _bwd_inputs(12, 33, 1024, dtype, cuda, False, seed=9)
+    a, b = (lstm_kernel.lstm_recurrence_bwd(*bwd_args) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_a_grid_that_cannot_be_resident_raises(cuda, monkeypatch):
+    # as if the card had 1,000 SMs: the plan takes 512 blocks of 8 units at
+    # H=4096, each with nearly all of an SM's shared memory
+    monkeypatch.setattr(lstm_kernel, "_sm_count", lambda index: 1000)
+    gx, w, h0, c0 = _inputs(2, 2, 4096, torch.bfloat16, cuda, seed=10)
+    assert lstm_kernel.lstm_plan(2, 4096, torch.bfloat16, sms=1000)["blocks"] == 512
+    with pytest.raises(ValueError, match="cannot all be resident"):
+        lstm_kernel.lstm_recurrence(gx, w, h0, c0)
+    bwd_args = _bwd_inputs(2, 2, 4096, torch.bfloat16, cuda, False, seed=11)
+    with pytest.raises(ValueError, match="cannot all be resident"):
+        lstm_kernel.lstm_recurrence_bwd(*bwd_args)
+
+
+def test_the_kernels_shared_memory_matches_the_plan(cuda):
+    lib = lstm_kernel._fwd_lib()
+    for H in (512, 768, 1024, 1536, 2048):
+        for dtype in (torch.float32, torch.bfloat16):
+            for backward in (False, True):
+                plan = lstm_kernel.lstm_plan(16, H, dtype, backward)
+                u, es = plan["units"], dtype.itemsize
+                K, stage = (4 * H, 8 * u) if backward else (H, 4 * u)
+                assert lib.lstm_recurrence_smem_bytes(
+                    plan["rows"], plan["resident_rows"], K, stage, es,
+                    plan["carry_floats"], plan["chunk"], plan["group"]) == plan["smem_bytes"]
 
 
 # ---------------------------------------------------------------- the joint
