@@ -15,12 +15,23 @@ events, after warm-up), with the card's name and power limit:
     python -m caiman_asr_tpu_torch.bench_wavefront [--large] [-B 96] [-T 200]
         [-G 2] [--t-blk 4] [--i0 0] [--fwd-only]
 
+``--kernels`` times the kernels alone instead (:func:`kernel_times`: K8-fwd,
+K8-fwd storing its gates and K8-bwd, median of 5 rounds, µs a superstep)
+and prints their plan and superstep floor (:func:`superstep_floors`);
+``--dtype float32`` for fp32. :func:`kernel_times` uses only the kernels'
+wrappers, so run from the root of another checkout it times that
+checkout's kernels and two trees compare in one call::
+
+    python -c "import json, runpy; f = runpy.run_path('<this file>')['kernel_times'];
+        print(json.dumps(f(6, 1024, 16, 134)))"
+
 Runs on the card; raises when there is none.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import subprocess
 from typing import Dict, List, Optional, Sequence
@@ -74,6 +85,93 @@ def grads(fwd, layers, x, h0, c0, wy, **kw) -> List[torch.Tensor]:
     with torch.enable_grad():
         loss = (fwd(layers, x, h0, c0, **kw) * wy).float().sum()
         return list(torch.autograd.grad(loss, leaves))
+
+
+def median_ms(fn, reps: int = 3, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the mean device time of ``reps`` calls of
+    fn(), CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
+
+
+def kernel_operands(G: int, H: int, B: int, T: int, dtype, device="cuda", seed: int = 0):
+    """K8-fwd's operands (gates_x0, biases, w0_hh, w_cats, h0, c0, no masks)
+    and K8-bwd's (the forward's gates and states, random cotangents), random
+    from a seeded generator."""
+    from caiman_asr_tpu_torch.ops import wavefront_kernel as wk
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape, s: (torch.randn(shape, generator=g, device=device) * s).to(dtype)
+    uni = lambda *shape, b: ((torch.rand(shape, generator=g, device=device) * 2 - 1) * b).to(dtype)
+    fwd = (rnd(T, B, 4 * H, s=0.5),
+           torch.randn((max(G - 1, 1), 4 * H), generator=g, device=device) * 0.1,
+           uni(4 * H, H, b=1 / math.sqrt(H)), uni(G - 1, 4 * H, 2 * H, b=1 / math.sqrt(2 * H)),
+           rnd(G, B, H, s=0.1), rnd(G, B, H, s=0.1), None)
+    _, cs, gs = wk.lstm_wavefront_sg(*fwd)
+    c_prev = torch.cat([fwd[5][:, None], cs[:, :-1]], dim=1)
+    w0, w_cats = fwd[2], fwd[3]
+    bwd = (gs, cs, c_prev, rnd(G, T, B, H, s=0.1), rnd(G, T, B, H, s=0.03), None,
+           torch.cat([w0[None], w_cats[:, :, H:]]), w_cats[:, :, :H].contiguous())
+    return fwd, bwd
+
+
+def plan_summary(plan: dict) -> Dict[str, object]:
+    """What a wavefront plan reports: blocks per layer, units, resident rows,
+    the resident share of the weights, MB streamed and exchanged a superstep,
+    shared memory a block and each type's chunk."""
+    return {"blocks_per_layer": plan["blocks_per_layer"],
+            "units_per_block": plan["units_per_block"], "resident_rows": plan["resident_rows"],
+            "resident_share": plan["resident_bytes"] / plan["weight_bytes"],
+            "streamed_MB": plan["streamed_bytes_per_superstep"] / 1e6,
+            "exchange_MB": plan["exchange_bytes_per_superstep"] / 1e6,
+            "smem_bytes": plan["smem_bytes"],
+            "chunks": [t["kc"] for t in plan["types"] if t]}
+
+
+def kernel_times(G: int, H: int, B: int, T: int, dtype=torch.bfloat16, device="cuda"):
+    """K8-fwd, K8-fwd storing its gates and K8-bwd alone at one shape, through
+    their wrappers: ms a call (median of 5 rounds) and µs a superstep."""
+    from caiman_asr_tpu_torch.ops import wavefront_kernel as wk
+
+    fwd, bwd = kernel_operands(G, H, B, T, dtype, device)
+    out: Dict[str, float] = {
+        "fwd_ms": median_ms(lambda: wk.lstm_wavefront(*fwd)),
+        "sg_ms": median_ms(lambda: wk.lstm_wavefront_sg(*fwd)),
+        "bwd_ms": median_ms(lambda: wk.lstm_wavefront_bwd(*bwd))}
+    out["fwd_us_per_superstep"] = 1e3 * out["fwd_ms"] / (T + G - 1)
+    out["sg_us_per_superstep"] = 1e3 * out["sg_ms"] / (T + G - 1)
+    out["bwd_us_per_superstep"] = 1e3 * out["bwd_ms"] / (T + G)
+    return out
+
+
+def superstep_floors(G: int, H: int, B: int, T: int, dtype=torch.bfloat16):
+    """Each direction's plan (:func:`plan_summary`) and superstep floor: the
+    streamed weight bytes at 3.35 TB/s plus one grid barrier, timed on the
+    plan's grid (``lstm_kernel.barrier_loop``, median of 5 rounds)."""
+    from caiman_asr_tpu_torch.ops import lstm_kernel
+    from caiman_asr_tpu_torch.ops import wavefront_kernel as wk
+
+    out: Dict[str, object] = {}
+    for key, backward, steps in (("fwd", False, T + G - 1), ("bwd", True, T + G)):
+        plan = wk.wavefront_plan(G, B, H, dtype, backward)
+        grid = {"blocks": plan["blocks"], "bsplit": 1, "smem_bytes": plan["smem_bytes"]}
+        barrier_us = 1e3 * median_ms(lambda: lstm_kernel.barrier_loop(steps + 1, grid)) / steps
+        out[f"{key}_plan"] = plan_summary(plan)
+        out[f"{key}_barrier_us"] = barrier_us
+        out[f"{key}_floor_us_per_superstep"] = (
+            plan["streamed_bytes_per_superstep"] / 3.35e6 + barrier_us)
+    return out
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -138,11 +236,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--t-blk", type=int, default=4)
     ap.add_argument("--i0", type=int, default=0, help="layer-0 input width (default H)")
     ap.add_argument("--fwd-only", action="store_true")
+    ap.add_argument("--kernels", action="store_true", help="time the kernels alone")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     H = 1536 if args.large else 1024
     I0 = args.i0 or H
+    if args.kernels:
+        dtype = getattr(torch, args.dtype)
+        print(card())
+        print(json.dumps({"G": args.G, "H": H, "B": args.B, "T": args.T, "dtype": args.dtype,
+                          **kernel_times(args.G, H, args.B, args.T, dtype, device),
+                          **superstep_floors(args.G, H, args.B, args.T, dtype)}))
+        return
     r = ab(args.G, H, I0, args.B, args.T, args.t_blk, args.fwd_only, device)
     print(card())
     print(f"G={args.G} H={H} I0={I0} B={args.B} T={args.T} t_blk={args.t_blk} bfloat16")

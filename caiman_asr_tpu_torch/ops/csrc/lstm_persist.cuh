@@ -73,6 +73,50 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// The gates' activations, soft or hard (clip(0.5 + z/8, 0, 1) and
+// clip(z, -1, 1)), for the forwards.
+__device__ __forceinline__ float act_sig(float z, int hard) {
+  return hard ? fminf(fmaxf(0.5f + z * 0.125f, 0.0f), 1.0f) : 1.0f / (1.0f + expf(-z));
+}
+__device__ __forceinline__ float act_tanh(float z, int hard) {
+  return hard ? fminf(fmaxf(z, -1.0f), 1.0f) : tanhf(z);
+}
+
+// The backwards' activations recomputed from the pre-activations gi, gf,
+// gg, go and the cell state ct, with their derivatives (soft, or the hard
+// clip windows of pallas_lstm.py:215-223).
+struct GateGrads {
+  float i, f, g, o, di, df, dg, dout, tanh_c, dtanh_c;
+};
+__device__ __forceinline__ GateGrads gate_grads(float gi, float gf, float gg, float go, float ct,
+                                                int hard) {
+  GateGrads a;
+  if (hard) {
+    a.i = fminf(fmaxf(0.5f + gi * 0.125f, 0.0f), 1.0f);
+    a.f = fminf(fmaxf(0.5f + gf * 0.125f, 0.0f), 1.0f);
+    a.o = fminf(fmaxf(0.5f + go * 0.125f, 0.0f), 1.0f);
+    a.g = fminf(fmaxf(gg, -1.0f), 1.0f);
+    a.di = (gi > -4.0f && gi < 4.0f) ? 0.125f : 0.0f;
+    a.df = (gf > -4.0f && gf < 4.0f) ? 0.125f : 0.0f;
+    a.dout = (go > -4.0f && go < 4.0f) ? 0.125f : 0.0f;
+    a.dg = (gg > -1.0f && gg < 1.0f) ? 1.0f : 0.0f;
+    a.tanh_c = fminf(fmaxf(ct, -1.0f), 1.0f);
+    a.dtanh_c = (ct > -1.0f && ct < 1.0f) ? 1.0f : 0.0f;
+  } else {
+    a.i = 1.0f / (1.0f + expf(-gi));
+    a.f = 1.0f / (1.0f + expf(-gf));
+    a.o = 1.0f / (1.0f + expf(-go));
+    a.g = tanhf(gg);
+    a.di = a.i * (1.0f - a.i);
+    a.df = a.f * (1.0f - a.f);
+    a.dout = a.o * (1.0f - a.o);
+    a.dg = 1.0f - a.g * a.g;
+    a.tanh_c = tanhf(ct);
+    a.dtanh_c = 1.0f - a.tanh_c * a.tanh_c;
+  }
+  return a;
+}
+
 // --------------------------------------------------------------- the plan
 // Row stride of the resident rows, in elements: 16-byte aligned; in bf16
 // also an odd multiple of 64 bytes, so that the 16-byte fragment loads of

@@ -48,13 +48,6 @@ struct FwdArgs {
   int steps, B, H, hard, units, res_rows, chunk, group;
 };
 
-__device__ __forceinline__ float act_sig(float z, int hard) {
-  return hard ? fminf(fmaxf(0.5f + z * 0.125f, 0.0f), 1.0f) : 1.0f / (1.0f + expf(-z));
-}
-__device__ __forceinline__ float act_tanh(float z, int hard) {
-  return hard ? fminf(fmaxf(z, -1.0f), 1.0f) : tanhf(z);
-}
-
 template <typename T, bool kStoreGates, int kMT, int kNT>
 __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(const FwdArgs<T> p) {
   extern __shared__ __align__(16) unsigned char smem[];

@@ -133,38 +133,15 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_kernel(const BwdArgs<T> 
       const float gg = to_f32(sb[2 * u + j]), go = to_f32(sb[3 * u + j]);
       const float ct = to_f32(sb[4 * u + j]), cp = to_f32(sb[5 * u + j]);
       const float dy = to_f32(sb[6 * u + j]), dcs = to_f32(sb[7 * u + j]);
-      float i_a, f_a, g_a, o_a, di_a, df_a, dg_a, do_a, tanh_c, dtanh_c;
-      if (p.hard) {
-        i_a = fminf(fmaxf(0.5f + gi * 0.125f, 0.0f), 1.0f);
-        f_a = fminf(fmaxf(0.5f + gf * 0.125f, 0.0f), 1.0f);
-        o_a = fminf(fmaxf(0.5f + go * 0.125f, 0.0f), 1.0f);
-        g_a = fminf(fmaxf(gg, -1.0f), 1.0f);
-        di_a = (gi > -4.0f && gi < 4.0f) ? 0.125f : 0.0f;
-        df_a = (gf > -4.0f && gf < 4.0f) ? 0.125f : 0.0f;
-        do_a = (go > -4.0f && go < 4.0f) ? 0.125f : 0.0f;
-        dg_a = (gg > -1.0f && gg < 1.0f) ? 1.0f : 0.0f;
-        tanh_c = fminf(fmaxf(ct, -1.0f), 1.0f);
-        dtanh_c = (ct > -1.0f && ct < 1.0f) ? 1.0f : 0.0f;
-      } else {
-        i_a = 1.0f / (1.0f + expf(-gi));
-        f_a = 1.0f / (1.0f + expf(-gf));
-        o_a = 1.0f / (1.0f + expf(-go));
-        g_a = tanhf(gg);
-        di_a = i_a * (1.0f - i_a);
-        df_a = f_a * (1.0f - f_a);
-        do_a = o_a * (1.0f - o_a);
-        dg_a = 1.0f - g_a * g_a;
-        tanh_c = tanhf(ct);
-        dtanh_c = 1.0f - tanh_c * tanh_c;
-      }
+      const GateGrads a = gate_grads(gi, gf, gg, go, ct, p.hard);
       const float dh = dy + dh_next;
-      const float dc = dc_carry + dcs + dh * o_a * dtanh_c;
+      const float dc = dc_carry + dcs + dh * a.o * a.dtanh_c;
       T* dr = p.dg + (static_cast<size_t>(t) * B + bb0 + b0 + b) * H4;
-      dr[0 * H + unit] = from_f32<T>(dc * g_a * di_a);
-      dr[1 * H + unit] = from_f32<T>(dc * cp * df_a);
-      dr[2 * H + unit] = from_f32<T>(dc * i_a * dg_a);
-      dr[3 * H + unit] = from_f32<T>(dh * tanh_c * do_a);
-      dc_carry = dc * f_a;
+      dr[0 * H + unit] = from_f32<T>(dc * a.g * a.di);
+      dr[1 * H + unit] = from_f32<T>(dc * cp * a.df);
+      dr[2 * H + unit] = from_f32<T>(dc * a.i * a.dg);
+      dr[3 * H + unit] = from_f32<T>(dh * a.tanh_c * a.dout);
+      dc_carry = dc * a.f;
     }
     if (item + 1 < steps_items) {  // the next item's stage, under the barrier's wait
       fetch(item + 1);

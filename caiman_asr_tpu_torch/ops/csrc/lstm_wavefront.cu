@@ -12,302 +12,219 @@
 //   c = sig(f) * c + sig(i) * tnh(g);  h = sig(o) * tnh(c)
 // Gate order i, f, g, o; soft or hard (clip(0.5 + z/8, 0, 1) / clip(z, -1,
 // 1)) activations; products accumulate in fp32 and the fp32 bias adds to the
-// sum. c is carried in fp32 (c_state [G, B, H], each element read and
-// written by one thread, in place); h enters a product in the compute dtype,
-// which is exactly its stored output, so h^l_{t-1} is read from ys[l, t-1]
-// (h0[l] at t = 0) and layer l-1's handoff from ys[l-1, t]. Both were
-// written by the previous launch, so a layer that idles (s < l) keeps its
-// state untouched. Outputs ys, cs [G, T, B, H] (gs [G, T, B, 4H]).
+// sum. c is carried in fp32; h enters a product in the compute dtype, which
+// is exactly its stored output, so h^l_{t-1} is read from ys[l, t-1] (h0[l]
+// at t = 0) and the handoff from ys[l-1, t]; with masks, the layer below
+// also writes the masked handoff x into a two-slot ring xm [G-1, 2, B, H]
+// (slot t % 2), which the layer above reads a superstep later. Outputs ys,
+// cs [G, T, B, H] (gs [G, T, B, 4H]).
 //
 // What bounds it: a superstep reads every layer's weights once, 4H*H +
 // (G-1)*4H*2H values (92 MB in bf16 at G=6, H=1024), against
-// 2*B*4H*(H + (G-1)*2H) FLOPs: at B=16 the bytes. Design (simple first):
-// one launch per superstep, the grid (unit tiles, batch tiles, G) with
-// blockIdx.z the layer, guarded to its window l <= s < T + l. As in
-// lstm_recurrence.cu each block owns kUnits hidden units across all four
-// gates, so the gate math stays in the block: it stages its batch rows'
-// contraction input ([x ; h] for an inner layer, 2H wide) in shared memory
-// with 16-byte copies (element-wise staging, one load in flight per thread,
-// took 21.4 ms at G=6, T=134, B=16, H=1024 in bf16, chip_smoke.py on an
-// H100 80GB HBM3 at 700 W; 16-byte copies 10.4 ms),
-// each warp contracts kRowsPerWarp weight rows (torch layout, contiguous
-// along the contraction) with 16-byte loads, and one pass of threads applies
-// the gate math. The weights are re-read from L2/HBM every superstep.
+// 2*B*4H*(H + (G-1)*2H) FLOPs: at B=16 the bytes. Design
+// (lstm_wavefront.cuh): one cooperative launch for all T + G - 1
+// supersteps, one grid barrier between them; layer 0 on the plan's type-A
+// blocks, each inner layer on type-B blocks (about twice as many, the
+// rows being twice as long); each block keeps the first rows of its 4u
+// rows resident in shared memory and streams the rest once a superstep
+// through a TMA ring that runs ahead across the barrier (from its own
+// packed image of them, which it writes before the first superstep), so a superstep
+// costs about its streamed bytes over the memory's rate plus the gate
+// math and the barrier; c stays in the block's shared memory from the
+// first step to the last, and with it the inner layers' bias and each
+// step's gate inputs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lstm_wavefront.cuh"
 
 namespace {
 
-constexpr int kUnits = 8;                      // hidden units per block
-constexpr int kRows = 4 * kUnits;              // gate rows per block
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = kRows / kWarps;   // 4
-constexpr int kBatch = 16;                     // batch rows per block
+using namespace wfp;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// 16 bytes of T unpacked to float.
-template <typename T> struct Pack;
-template <> struct Pack<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
-template <> struct Pack<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-// 16 bytes of x times 16 bytes of mask, each product rounded to T
 template <typename T>
-__device__ __forceinline__ uint4 mul_pack(uint4 x, uint4 m) {
-  uint4 out;
-  const T* px = reinterpret_cast<const T*>(&x);
-  const T* pm = reinterpret_cast<const T*>(&m);
-  T* po = reinterpret_cast<T*>(&out);
-#pragma unroll
-  for (int j = 0; j < Pack<T>::N; ++j) po[j] = from_f32<T>(to_f32(px[j]) * to_f32(pm[j]));
-  return out;
-}
-
-__device__ __forceinline__ float act_sig(float z, int hard) {
-  return hard ? fminf(fmaxf(0.5f + z * 0.125f, 0.0f), 1.0f) : 1.0f / (1.0f + expf(-z));
-}
-__device__ __forceinline__ float act_tanh(float z, int hard) {
-  return hard ? fminf(fmaxf(z, -1.0f), 1.0f) : tanhf(z);
-}
-
-// the staged contraction input, kBatch rows of K values (K = H or 2H)
-__host__ __device__ constexpr size_t stage_bytes(int K, size_t esize) {
-  return ((static_cast<size_t>(kBatch) * K * esize) + 15) / 16 * 16;
-}
+struct FwdArgs {
+  const T* gx;        // [T, B, 4H]
+  const float* bias;  // [max(G-1, 1), 4H]
+  const T* w0;        // [4H, H]
+  const T* w_cats;    // [G-1, 4H, 2H]
+  const T* masks;     // [G-1, T, B, H] or null
+  const T* h0;        // [G, B, H]
+  const T* c0;        // [G, B, H]
+  T* ys;              // [G, T, B, H]
+  T* cs;              // [G, T, B, H]
+  T* gs;              // [G, T, B, 4H] (kStoreGates only)
+  T* xm;              // [G-1, 2, B, H] masked handoff (masks only)
+  T* packed[2];       // each type's streamed rows, per block in chunk order (scratch)
+  unsigned* ctr;      // superstep barrier, zero on entry
+  int steps, B, H, G, hard;
+  Type ty[2];
+};
 
 template <typename T, bool kStoreGates>
-__global__ void __launch_bounds__(kThreads)
-wavefront_step_kernel(const T* __restrict__ gx0,       // [T, B, 4H]
-                      const float* __restrict__ bias,  // [max(G-1, 1), 4H]
-                      const T* __restrict__ w0,        // [4H, H]
-                      const T* __restrict__ w_cats,    // [G-1, 4H, 2H]
-                      const T* __restrict__ masks,     // [G-1, T, B, H] or null
-                      const T* __restrict__ h0,        // [G, B, H]
-                      float* __restrict__ c_state,     // [G, B, H] fp32, in place
-                      T* __restrict__ ys,              // [G, T, B, H]
-                      T* __restrict__ cs,              // [G, T, B, H]
-                      T* __restrict__ gs,              // [G, T, B, 4H] (kStoreGates only)
-                      int s, int T_steps, int B, int H, int hard) {
-  const int l = blockIdx.z;
-  const int t = s - l;
-  if (t < 0 || t >= T_steps) return;  // outside the layer's window: idle
-
+__global__ void __launch_bounds__(kThreads, 1) wavefront_fwd_kernel(const FwdArgs<T> p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int K = l == 0 ? H : 2 * H;
-  T* x_s = reinterpret_cast<T*>(smem);                                   // [kBatch, K]
-  float* g_s = reinterpret_cast<float*>(smem + stage_bytes(K, sizeof(T)));  // [kRows, kBatch]
+  const int H = p.H, B = p.B, T_steps = p.steps;
+  const int nb0 = p.ty[0].blocks;
+  const int bx = blockIdx.x;
+  const int l = bx < nb0 ? 0 : 1 + (bx - nb0) / p.ty[1].blocks;
+  const int type = l == 0 ? 0 : 1;
+  const Type ty = p.ty[type];
+  const int u = ty.units, u0 = (bx < nb0 ? bx : (bx - nb0) % ty.blocks) * u;
+  const Shape sh = shape_of(type, u, H, false);
+  const int K = sh.K;
+  const Layout L = layout(ty, sh.rows, K, 1, sh.naux, B, sizeof(T));
+  // this block's streamed rows: its index among its type's blocks
+  T* const pk = p.packed[type] + (bx - (type ? nb0 : 0)) * (L.nch * L.astage / sizeof(T));
+  // the weights first, while little else is live: block row r is gate
+  // r / u of unit u0 + r % u, a row of w0 / w_cat[l-1]
+  const T* wl = l == 0 ? p.w0 : p.w_cats + static_cast<size_t>(l - 1) * 4 * H * K;
+  load_weights<T, false>(smem, pk, L, ty, [wl, u, u0, H, K](int r, int, int k) -> uint4 {
+    const int unit = u0 + r % u;
+    if (r >= 4 * u || unit >= H) return make_uint4(0u, 0u, 0u, 0u);
+    return *reinterpret_cast<const uint4*>(wl + static_cast<size_t>((r / u) * H + unit) * K + k);
+  });
+  Product<T> pr;
+  pr.init(smem, pk, L, ty, B);
+  float* carry = reinterpret_cast<float*>(smem + pr.L.carry);  // [B][u]
+  float* bias = reinterpret_cast<float*>(smem + L.bias);  // [4][u], an inner layer's
+  for (int i = threadIdx.x; i < B * u; i += kThreads) {
+    const int b = i / u, unit = u0 + i % u;
+    carry[i] = unit < H ? lstmp::to_f32(p.c0[(static_cast<size_t>(l) * B + b) * H + unit]) : 0.0f;
+  }
+  for (int i = threadIdx.x; l > 0 && i < 4 * u; i += kThreads) {
+    const int q = i / u, unit = u0 + i % u;
+    bias[i] = unit < H ? p.bias[static_cast<size_t>(l - 1) * 4 * H + q * H + unit] : 0.0f;
+  }
+  pr.prefetch();
 
   const size_t bh = static_cast<size_t>(B) * H;
   const size_t layer = static_cast<size_t>(T_steps) * bh;  // one layer of a [G, T, B, H] stream
-  const T* h_prev = t == 0 ? h0 + l * bh : ys + l * layer + (t - 1) * bh;
-  const size_t below = (l - 1) * layer + t * bh;  // ys[l-1, t] and masks[l-1, t]
-  const int u0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kBatch;
-  const int nb = min(kBatch, B - b0);
+  float acc[kAcc];
+  for (int s = 0; s < T_steps + p.G - 1; ++s) {
+    if (s > 0) lstmp::grid_sync(p.ctr, gridDim.x * static_cast<unsigned>(s));
+    const int t = s - l;
+    if (t < 0 || t >= T_steps) continue;  // outside the layer's window: only the barriers
+    const T* h = t == 0 ? p.h0 + l * bh : p.ys + l * layer + (t - 1) * bh;
+    const T* xb = l == 0 ? nullptr
+                  : p.masks ? p.xm + (static_cast<size_t>(l - 1) * 2 + (t & 1)) * bh
+                            : p.ys + (l - 1) * layer + t * bh;
+    const bool handoff = p.masks && l + 1 < p.G;  // this layer writes the masked handoff
+    pr.run(acc, [&](int b, int, int k) -> const T* {
+      const size_t r = static_cast<size_t>(b) * H;
+      return l == 0 ? h + r + k : k < H ? xb + r + k : h + r + k - H;
+    }, [](float*) {}, [&] {  // layer 0's gx[t], an inner layer's mask, for its units
+      pr.stage_aux(sh.naux, min(u, H - u0), [&](int b, int q) -> const T* {
+        const size_t rowi = static_cast<size_t>(t) * B + b;
+        if (q + 1 < sh.naux) return p.gx + rowi * 4 * H + q * H + u0;  // layer 0's gates
+        return handoff ? p.masks + l * layer + rowi * H + u0 : nullptr;
+      });
+    });
+    pr.flush(acc);
+    __syncthreads();
 
-  // 1. stage the contraction input in the compute dtype, 16 bytes per copy
-  // (H is a multiple of 8, so no copy straddles x and h and every row starts
-  // 16-byte aligned), several copies in flight; rows past B are zero
-  constexpr int N = Pack<T>::N;
-  const int row_vecs = K / N;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kBatch * row_vecs; i += kThreads) {
-    const int b = i / row_vecs;
-    const int k = N * (i - b * row_vecs);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (b < nb) {
-      const size_t row = static_cast<size_t>(b0 + b) * H;
-      if (k >= K - H) {
-        v = *reinterpret_cast<const uint4*>(h_prev + row + k - (K - H));
-      } else {
-        v = *reinterpret_cast<const uint4*>(ys + below + row + k);
-        if (masks != nullptr)  // the masked handoff rounds here, as x * mask in the dtype
-          v = mul_pack<T>(v, *reinterpret_cast<const uint4*>(masks + below + row + k));
+    // gate math: one thread per (batch row, unit)
+    for (int i = threadIdx.x; i < B * u; i += kThreads) {
+      const int b = i / u, j = i - b * u, unit = u0 + j;
+      if (unit >= H) continue;
+      const size_t rowi = static_cast<size_t>(t) * B + b;
+      float pre[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        pre[q] = pr.sum(q * u + j, b) +
+                 (l == 0 ? lstmp::to_f32(pr.aux(b, q, sh.naux)[j]) : bias[q * u + j]);
+      if (kStoreGates) {
+        T* gsb = p.gs + (static_cast<size_t>(l) * T_steps * B + rowi) * 4 * H;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gsb[q * H + unit] = lstmp::from_f32<T>(pre[q]);
       }
-    }
-    *reinterpret_cast<uint4*>(x_s + b * K + k) = v;
-  }
-  __syncthreads();
-
-  // 2. each warp: kRowsPerWarp weight rows against kBatch staged rows
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const T* wbase = l == 0 ? w0 : w_cats + static_cast<size_t>(l - 1) * 4 * H * K;
-  const T* wrow[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int lr = warp * kRowsPerWarp + r;          // local gate row
-    const int unit = min(u0 + lr % kUnits, H - 1);   // clamped; tail units are not stored
-    wrow[r] = wbase + static_cast<size_t>((lr / kUnits) * H + unit) * K;
-  }
-  float acc[kRowsPerWarp][kBatch];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) acc[r][b] = 0.0f;
-
-  for (int k = lane * N; k < K; k += 32 * N) {
-    float w[kRowsPerWarp][N];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) Pack<T>::load(wrow[r] + k, w[r]);
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      float x[N];
-      Pack<T>::load(x_s + b * K + k, x);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-        for (int j = 0; j < N; ++j) acc[r][b] = fmaf(w[r][j], x[j], acc[r][b]);
+      using lstmp::act_sig, lstmp::act_tanh;
+      const float c_new = act_sig(pre[1], p.hard) * carry[i] +
+                          act_sig(pre[0], p.hard) * act_tanh(pre[2], p.hard);
+      const float h_new = act_sig(pre[3], p.hard) * act_tanh(c_new, p.hard);
+      carry[i] = c_new;
+      const size_t idx = static_cast<size_t>(b) * H + unit, out = l * layer + t * bh + idx;
+      const T y = lstmp::from_f32<T>(h_new);
+      p.ys[out] = y;
+      p.cs[out] = lstmp::from_f32<T>(c_new);
+      if (handoff)  // the handoff to layer l + 1, masked and rounded
+        p.xm[(static_cast<size_t>(l) * 2 + (t & 1)) * bh + idx] =
+            lstmp::from_f32<T>(lstmp::to_f32(y) * lstmp::to_f32(pr.aux(b, sh.naux - 1, sh.naux)[j]));
     }
   }
-
-  // 3. reduce across lanes; lane 0 holds the sums
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      float v = acc[r][b];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      acc[r][b] = v;
-    }
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) g_s[(warp * kRowsPerWarp + r) * kBatch + b] = acc[r][b];
-  }
-  __syncthreads();
-
-  // 4. gate math: one thread per (batch row, unit) of the block's tile
-  if (threadIdx.x >= kUnits * kBatch) return;
-  const int u = threadIdx.x % kUnits;
-  const int b = threadIdx.x / kUnits;
-  const int unit = u0 + u;
-  if (b >= nb || unit >= H) return;
-  const size_t row = static_cast<size_t>(b0 + b);
-  float pre[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float dot = g_s[(q * kUnits + u) * kBatch + b];
-    const int col = q * H + unit;
-    pre[q] = l == 0 ? to_f32(gx0[(static_cast<size_t>(t) * B + row) * 4 * H + col]) + dot
-                    : dot + bias[static_cast<size_t>(l - 1) * 4 * H + col];
-  }
-  if (kStoreGates) {
-    T* gsb = gs + ((static_cast<size_t>(l) * T_steps + t) * B + row) * 4 * H;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) gsb[q * H + unit] = from_f32<T>(pre[q]);
-  }
-  const size_t idx = row * H + unit;
-  float* c = c_state + l * bh + idx;
-  const float c_new = act_sig(pre[1], hard) * *c + act_sig(pre[0], hard) * act_tanh(pre[2], hard);
-  const float h_new = act_sig(pre[3], hard) * act_tanh(c_new, hard);
-  *c = c_new;
-  const size_t out = l * layer + t * bh + idx;
-  ys[out] = from_f32<T>(h_new);
-  cs[out] = from_f32<T>(c_new);
+  pr.drain();  // the ring's copies past the last superstep
 }
 
 template <typename T, bool kStoreGates>
-int run(const T* gx0, const float* bias, const T* w0, const T* w_cats, const T* masks,
-        const T* h0, float* c_state, T* ys, T* cs, T* gs, int T_steps, int B, int H, int G,
-        int hard, cudaStream_t stream) {
-  const size_t smem =
-      stage_bytes(G > 1 ? 2 * H : H, sizeof(T)) + sizeof(float) * kRows * kBatch;
-  cudaError_t err = cudaFuncSetAttribute(
-      wavefront_step_kernel<T, kStoreGates>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((H + kUnits - 1) / kUnits, (B + kBatch - 1) / kBatch, G);
-  for (int s = 0; s < T_steps + G - 1; ++s) {
-    wavefront_step_kernel<T, kStoreGates><<<grid, kThreads, smem, stream>>>(
-        gx0, bias, w0, w_cats, masks, h0, c_state, ys, cs, gs, s, T_steps, B, H, hard);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+int run(const FwdArgs<T>& a, size_t smem, cudaStream_t stream) {
+  int err = check_plan(a.ty, a.G, a.H, a.B, sizeof(T), false, smem);
+  if (!err) err = check_packed(a.ty, a.packed, a.G, a.H, a.B, false);
+  if (err) return err;
+  auto kernel = wavefront_fwd_kernel<T, kStoreGates>;
+  const long blocks = grid_of(a.ty, a.G);
+  if ((err = lstmp::prepare(kernel, blocks, smem))) return err;
+  void* params[] = {const_cast<FwdArgs<T>*>(&a)};
+  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                                      dim3(blocks), dim3(kThreads), params,
+                                                      smem, stream));
 }
 
-template <bool kStoreGates>
-int dispatch(const void* gx0, const void* bias, const void* w0, const void* w_cats,
-             const void* masks, const void* h0, void* c_state, void* ys, void* cs, void* gs,
-             int T, int B, int H, int G, int hard, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  float* c = static_cast<float*>(c_state);
-  if (dtype == 0)
-    return run<float, kStoreGates>(
-        static_cast<const float*>(gx0), b, static_cast<const float*>(w0),
-        static_cast<const float*>(w_cats), static_cast<const float*>(masks),
-        static_cast<const float*>(h0), c, static_cast<float*>(ys), static_cast<float*>(cs),
-        static_cast<float*>(gs), T, B, H, G, hard, st);
-  if (dtype == 1)
-    return run<__nv_bfloat16, kStoreGates>(
-        static_cast<const __nv_bfloat16*>(gx0), b, static_cast<const __nv_bfloat16*>(w0),
-        static_cast<const __nv_bfloat16*>(w_cats), static_cast<const __nv_bfloat16*>(masks),
-        static_cast<const __nv_bfloat16*>(h0), c, static_cast<__nv_bfloat16*>(ys),
-        static_cast<__nv_bfloat16*>(cs), static_cast<__nv_bfloat16*>(gs), T, B, H, G, hard,
-        st);
-  return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int dispatch(const void* gx, const void* bias, const void* w0, const void* w_cats,
+             const void* masks, const void* h0, const void* c0, void* ys, void* cs, void* gs,
+             void* xm, void* packed_a, void* packed_b, void* ctr, int steps,
+             int B, int H, int G, int hard, const int* plan, size_t smem, cudaStream_t stream) {
+  FwdArgs<T> a{static_cast<const T*>(gx), static_cast<const float*>(bias),
+               static_cast<const T*>(w0), static_cast<const T*>(w_cats),
+               static_cast<const T*>(masks), static_cast<const T*>(h0),
+               static_cast<const T*>(c0), static_cast<T*>(ys), static_cast<T*>(cs),
+               static_cast<T*>(gs), static_cast<T*>(xm),
+               {static_cast<T*>(packed_a), static_cast<T*>(packed_b)},
+               static_cast<unsigned*>(ctr), steps, B, H, G, hard, {}};
+  for (int type = 0; type < 2; ++type) {
+    const int* v = plan + type * kTypeInts;
+    a.ty[type] = Type{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]};
+  }
+  if (masks && G > 1 && !xm) return kBadPlan;
+  return gs ? run<T, true>(a, smem, stream) : run<T, false>(a, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs at width H with G layers (dtype 0 =
-// float32, 1 = bfloat16).
-size_t lstm_wavefront_fwd_smem_bytes(int H, int G, int dtype) {
-  const size_t esize = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
-  return stage_bytes(G > 1 ? 2 * H : H, esize) + sizeof(float) * kRows * kBatch;
-}
-
-// Runs T + G - 1 supersteps, one launch each. masks may be null (no
-// dropout); c_state holds c0 in fp32 on entry and c^l_{T-1} on return.
-// Returns the first CUDA error (0 on success).
+// Runs all T + G - 1 supersteps in one cooperative launch. plan: 16 ints,
+// type A's then type B's (blocks, units, resident rows, chunk, X stages, mma tiles a
+// warp, k parts of the warps, k parts of an fp32 tile's threads), and
+// `smem` bytes a block (from wavefront_plan, checked here). masks may be
+// null (no dropout; else xm [G-1, 2, B, H] is the handoff's scratch); gs
+// null runs K8-fwd, else K8-fwd storing the gates. packed_a / packed_b:
+// scratch for each type's packed streamed rows, which the kernel writes
+// (wavefront_kernel.py packed_elems; null where the type streams none).
+// The inputs are only read;
+// ctr: one zeroed uint32. Returns 0, a CUDA error, kNotCoResident (-1: the
+// grid cannot all be resident) or kBadPlan (-2).
 int lstm_wavefront_fwd(const void* gx0, const void* bias, const void* w0, const void* w_cats,
-                       const void* masks, const void* h0, void* c_state, void* ys, void* cs,
-                       int T, int B, int H, int G, int hard, int dtype, void* stream) {
-  return dispatch<false>(gx0, bias, w0, w_cats, masks, h0, c_state, ys, cs, nullptr, T, B, H,
-                         G, hard, dtype, stream);
+                       const void* masks, const void* h0, const void* c0, void* ys, void* cs,
+                       void* gs, void* xm, void* packed_a, void* packed_b,
+                       void* ctr, int T, int B, int H, int G, int hard, int dtype,
+                       const int* plan, size_t smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float>(gx0, bias, w0, w_cats, masks, h0, c0, ys, cs, gs, xm, packed_a,
+                           packed_b, ctr, T, B, H, G, hard, plan, smem, st);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(gx0, bias, w0, w_cats, masks, h0, c0, ys, cs, gs, xm,
+                                   packed_a, packed_b, ctr, T, B, H, G, hard, plan, smem, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same, also writing gs [G, T, B, 4H] (the forward of the VJP).
-int lstm_wavefront_fwd_sg(const void* gx0, const void* bias, const void* w0,
-                          const void* w_cats, const void* masks, const void* h0,
-                          void* c_state, void* ys, void* cs, void* gs, int T, int B, int H,
-                          int G, int hard, int dtype, void* stream) {
-  return dispatch<true>(gx0, bias, w0, w_cats, masks, h0, c_state, ys, cs, gs, T, B, H, G,
-                        hard, dtype, stream);
+// The layout's bytes of one type (0: A, 1: B) for the plan's numbers, as the
+// kernels compute it (wavefront_plan's arithmetic, checked on the card).
+size_t lstm_wavefront_smem_bytes(const int* type_plan, int type, int H, int B, int esize,
+                                 int backward) {
+  const Type ty{type_plan[0], type_plan[1], type_plan[2], type_plan[3],
+                type_plan[4], type_plan[5], type_plan[6], type_plan[7]};
+  const Shape sh = shape_of(type, ty.units, H, backward != 0);
+  return layout(ty, sh.rows, sh.K, sh.nseg, sh.naux, B, esize).total;
 }
 
 }  // extern "C"

@@ -10,9 +10,10 @@ Phases:
      build/kernels/), TF32 off;
   2. every kernel against its plain PyTorch version at small unaligned
      shapes (the per-pass recompute also over a range of vocab columns; the
-     wavefront at G = 1, 2, 3, soft and hard, masks on and off), at
-     large-196M's LSTM widths, and every joint kernel once past 2^31 slab
-     elements (N = 131,072 rows at large-196M's Hj and K);
+     wavefront at G = 1, 2, 3, soft and hard, masks on and off, and at
+     base-85M's post-stack width, G=6, where most of each block's rows
+     stream), at large-196M's LSTM widths, and every joint kernel once past
+     2^31 slab elements (N = 131,072 rows at large-196M's Hj and K);
   3. the slice at full width: base-85M (random weights from a seeded
      generator) transcribes 16 synthetic utterances offline with greedy
      decoding, in fp32 and bf16; the launch counts must equal the expected
@@ -44,7 +45,9 @@ Phases:
      step, their plan and step floor, and cuDNN's layer, training forward
      and backward as the median of 5 rounds, also less the GEMMs it does
      beside the recurrence, in the lstm summary; K8-fwd and K8-bwd at
-     base-85M's post-stack, G=6, beside cuDNN's 6-layer nn.LSTM), the bf16
+     base-85M's post-stack, G=6, beside cuDNN's 6-layer nn.LSTM, and in
+     the k8 summary in bf16 and fp32 with their plan, µs a superstep and
+     superstep floor, fp32 beside the per-superstep kernels' time), the bf16
      derivation alone beside a fill of the bytes it stores, and the plans
      of the bf16 passes A and B, the forward and the derivation (staging,
      tile, cluster, grid, waves) in the pass A, pass B, forward and derive
@@ -53,8 +56,9 @@ Phases:
      K8-bwd) at full width, bf16, forward and forward + backward: base-85M's
      and large-196M's post-stacks (G=6) and the JAX A/B script's default
      (G=2, H=1536, B=96, T=200), one case with dropout 0.1; the launches
-     counted; each against the plain path (the fp32 forward, the bf16
-     gradients); the per-layer stack timed beside it.
+     counted (one a call); each against the plain path (the fp32 forward,
+     the bf16 gradients); each shape's plans, kernel times and superstep
+     floors; the per-layer stack timed beside it.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -198,6 +202,12 @@ WAVEFRONT_SHAPES = {
     "JAX A/B default": (2, 1536, 1536, 96, 200),
 }
 WAVEFRONT_DROPOUT = 0.1  # large-196M's enc_dropout, on its shape
+# K8 in fp32 at base-85M's post-stack (G=6, T=134, B=16, H=1024), ms a call,
+# forward and backward: the per-superstep kernels the persistent ones
+# replaced, as PERF.md §6 records them (bench_wavefront.kernel_times run
+# from the older checkout, its first reading in the A/B of the two on one
+# NVIDIA H100 80GB HBM3 at 700 W)
+K8_PER_SUPERSTEP_FP32_MS = (19.655, 26.798)
 # the fp32 forward against the plain path at full width: 1e-3 (fp32 sums in
 # another order over 2H = 3072, carried through 134 steps and 6 layers)
 WAVEFRONT_FWD_TOL = 1e-3
@@ -1559,6 +1569,35 @@ def check_wavefront(T: int, B: int, H: int, G: int, dtype_name: str, hard: bool,
     return out
 
 
+def k8_times(T_post: int) -> dict:
+    """K8 alone at base-85M's post-stack (G=6, B, H) in bf16 and fp32
+    (``bench_wavefront.kernel_times``: ms, µs a superstep; and
+    ``superstep_floors``: plan, floor), fp32 beside the per-superstep
+    kernels' time (K8_PER_SUPERSTEP_FP32_MS)."""
+    import torch
+
+    from caiman_asr_tpu_torch import bench_wavefront as bw
+
+    out = {}
+    for name in ("bfloat16", "float32"):
+        dtype = getattr(torch, name)
+        r = {**bw.kernel_times(6, H, B, T_post, dtype),
+             **bw.superstep_floors(6, H, B, T_post, dtype)}
+        log(f"  K8 G=6 T={T_post} B={B} H={H} {name}: forward {r['fwd_ms']:.3f} ms "
+            f"({r['fwd_us_per_superstep']:.2f} µs a superstep; floor "
+            f"{r['fwd_floor_us_per_superstep']:.2f}: {r['fwd_plan']['streamed_MB']:.1f} MB "
+            f"streamed, barrier {r['fwd_barrier_us']:.2f} µs), storing gates {r['sg_ms']:.3f} ms, backward "
+            f"{r['bwd_ms']:.3f} ms ({r['bwd_us_per_superstep']:.2f} µs; floor "
+            f"{r['bwd_floor_us_per_superstep']:.2f}); one launch a call")
+        out[f"G=6 T={T_post} B={B} H={H} {name}"] = r
+        torch.cuda.empty_cache()
+    fp32 = out[f"G=6 T={T_post} B={B} H={H} float32"]
+    fp32["per_superstep_kernels_ms"] = K8_PER_SUPERSTEP_FP32_MS
+    log(f"  K8 fp32: forward {fp32['fwd_ms']:.3f} ms, backward {fp32['bwd_ms']:.3f} ms; the "
+        f"per-superstep kernels (PERF.md) {K8_PER_SUPERSTEP_FP32_MS}")
+    return out
+
+
 def run_wavefront(T_post: int) -> dict:
     """Phase 9: ``run_lstm_stack_wavefront`` at each of WAVEFRONT_SHAPES in
     bf16, forward and forward + backward (and one forward + backward with
@@ -1579,14 +1618,14 @@ def run_wavefront(T_post: int) -> dict:
             runs.append(("dropout", dict(dropout=WAVEFRONT_DROPOUT)))
         with torch.no_grad():
             y = bw.wavefront_fwd(layers, x, h0, c0)
-        expected["lstm_wavefront"] += T + G - 1
+        expected["lstm_wavefront"] += 1  # one cooperative launch a call
         grads = {}
         for tag, kw in runs:
             if kw:
                 kw = dict(kw, generator=torch.Generator(device="cuda").manual_seed(SEED))
             grads[tag] = bw.grads(bw.wavefront_fwd, layers, x, h0, c0, wy, **kw)
-            expected["lstm_wavefront_sg"] += T + G - 1
-            expected["lstm_wavefront_bwd"] += T + G
+            expected["lstm_wavefront_sg"] += 1
+            expected["lstm_wavefront_bwd"] += 1
         torch.cuda.synchronize()
         if not (y.shape == (T, Bs, Hs) and torch.isfinite(y).all()
                 and all(torch.isfinite(g).all() for gs in grads.values() for g in gs)):
@@ -1629,6 +1668,16 @@ def run_wavefront(T_post: int) -> dict:
         if not all(v <= TOL["bfloat16"] for k, v in r.items() if k.startswith("bf16_grad")):
             raise AssertionError(f"wavefront bf16 gradients at {name}: {r}")
         del c["stack"], c["grads"]
+        torch.cuda.empty_cache()
+        # the kernels alone, bf16: plan, ms, µs a superstep, floor
+        r["kernels"] = {**bw.kernel_times(r["G"], r["H"], r["B"], r["T"]),
+                        **bw.superstep_floors(r["G"], r["H"], r["B"], r["T"])}
+        kt = r["kernels"]
+        log(f"    K8 bf16: forward {kt['fwd_ms']:.3f} ms ({kt['fwd_us_per_superstep']:.2f} µs a "
+            f"superstep, floor {kt['fwd_floor_us_per_superstep']:.2f}), storing gates "
+            f"{kt['sg_ms']:.3f} ms, backward {kt['bwd_ms']:.3f} ms "
+            f"({kt['bwd_us_per_superstep']:.2f} µs, floor {kt['bwd_floor_us_per_superstep']:.2f}); "
+            f"plan forward {json.dumps(kt['fwd_plan'])}, backward {json.dumps(kt['bwd_plan'])}")
         torch.cuda.empty_cache()
         # the A/B: per-layer stack (K1; K3a + K3b) against the wavefront
         r["ab"] = bw.ab(r["G"], r["H"], r["I0"], r["B"], r["T"], reps=5)
@@ -1702,6 +1751,7 @@ def main() -> int:
                 for with_masks in ((False, True) if G > 1 else (False,)):
                     check_wavefront(11, 5, 136, G, dtype, hard, with_masks)
         check_wavefront(5, 33, 1536, 3, dtype, False, True)  # large-196M's width, 3 batch tiles
+        check_wavefront(3, 16, 1024, 6, dtype, False, True)  # base's post-stack: rows stream
     log(f"== joint kernels past 2^31 slab elements ({BIG_N} x {BIG_K} = {BIG_N * BIG_K})")
     for dtype in ("float32", "bfloat16"):
         check_joint(BIG_N, BIG_HJ, BIG_K, dtype, timed=False)
@@ -1808,6 +1858,7 @@ def main() -> int:
     k8 = check_wavefront(sl["T_post"], B, H, 6, "bfloat16", False, False, timed=True,
                          I0=2 * H)
     torch.cuda.empty_cache()
+    k8_summary = k8_times(sl["T_post"])
 
     # 9. the wavefront multi-layer LSTM at full width
     log("== wavefront: run_lstm_stack_wavefront at full width, bf16, forward and f+b")
@@ -1940,6 +1991,7 @@ def main() -> int:
     log("lstm summary: " + json.dumps({
         f"{cell} T={T} B={Bs} H={Hs} {name}": lstm[cell, name]
         for cell, (T, Bs, Hs) in lstm_shapes.items() for name in ("bfloat16", "float32")}))
+    log("k8 summary: " + json.dumps(k8_summary))
     log("wavefront summary: " + json.dumps(
         {name: r for name, r in wavefront.items() if name != "launches"}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

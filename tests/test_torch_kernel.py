@@ -40,6 +40,8 @@ other way moves one term by 2^-8; the same for K6-derive-a, K4-A and K4-B,
 which round what they derive to bf16 for their second product.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -1089,8 +1091,9 @@ def _wf_inputs(G, T, B, H, dtype, device, with_masks, seed=10):
             mk(G, B, H, s=0.1), mk(G, B, H, s=0.1), masks)
 
 
-# aligned; unaligned B and H (H only a multiple of 8); wide, with B past one batch tile
-WF_SHAPES = [(6, 8, 32), (11, 5, 136), (3, 33, 1024)]
+# aligned; unaligned B and H (H only a multiple of 8); wide, with B past one batch tile;
+# B=96, more batch rows than a group of 64
+WF_SHAPES = [(6, 8, 32), (11, 5, 136), (3, 33, 1024), (4, 96, 136)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1124,9 +1127,9 @@ def test_wavefront_kernels_match_plain(cuda, dtype, hard, G, with_masks, T, B, H
     bwd_args = (gs, cs, c_prev, dys, dcs, masks, w_hh, w_ih, hard)
     got = wk.lstm_wavefront_bwd(*bwd_args)
     torch.cuda.synchronize()
+    # one cooperative launch per call, every superstep inside it
     assert (wk.lstm_wavefront.launches, wk.lstm_wavefront_sg.launches,
-            wk.lstm_wavefront_bwd.launches) == (before[0] + T + G - 1, before[1] + T + G - 1,
-                                                before[2] + T + G)
+            wk.lstm_wavefront_bwd.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
     ref = wk.lstm_wavefront_bwd_plain(*bwd_args)
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
     scale = max(1.0, ref[0].float().abs().max().item())
@@ -1176,8 +1179,8 @@ def test_wavefront_kernels_reject_what_they_do_not_take(cuda):
         wk.lstm_wavefront(gx, biases.bfloat16(), w0, w_cats, h0, c0, masks)
     with pytest.raises(ValueError):  # H not a multiple of 8
         wk.lstm_wavefront(*_wf_inputs(2, 4, 2, 12, torch.float32, cuda, False))
-    with pytest.raises(ValueError):  # [x ; h] at H=2048 in fp32 does not fit shared memory
-        wk.lstm_wavefront(*_wf_inputs(2, 1, 2, 2048, torch.float32, cuda, False))
+    with pytest.raises(ValueError):  # 2,048 batch rows: more fp32 tiles than a block has threads
+        wk.lstm_wavefront(*_wf_inputs(2, 1, 2048, 32, torch.float32, cuda, False))
     ys, cs, gs = wk.lstm_wavefront_sg(*args)
     c_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
     w_hh = torch.cat([w0[None], w_cats[:, :, 32:]])
@@ -1197,3 +1200,99 @@ def test_the_wavefront_benchmark_runs_on_the_card(cuda):
     assert r["fwd_max_abs_diff"] <= 2e-2 and r["grad_max_rel_diff"] <= 2e-2
     assert all(r[k] > 0 for k in ("fwd_perlayer_ms", "fwd_wavefront_ms", "fb_perlayer_ms",
                                   "fb_wavefront_ms"))
+
+
+def _wf_bwd_args(args, hard, seed=11):
+    """K8-bwd's operands for K8-fwd's ``args``: the plain forward's gates and
+    states, random cotangents from ``seed``."""
+    gx, biases, w0, w_cats, h0, c0, masks = args
+    G, B, H = h0.shape
+    T = gx.shape[0]
+    dtype = gx.dtype
+    _, cs, gs = wk.lstm_wavefront_plain(*args, hard, True)
+    c_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
+    rng = np.random.default_rng(seed)
+    dys = torch.from_numpy(rng.normal(size=(G, T, B, H)).astype(np.float32)).to(gx.device, dtype)
+    dcs = torch.from_numpy((rng.normal(size=(G, T, B, H)) * 0.3).astype(np.float32)).to(
+        gx.device, dtype)
+    w_hh = torch.cat([w0[None], w_cats[:, :, H:]])
+    w_ih = w_cats[:, :, :H].contiguous()
+    return (gs, cs, c_prev, dys, dcs, masks, w_hh, w_ih, hard)
+
+
+# full width, few steps: base-85M's and large-196M's post-stacks (G=6), whose
+# weights do not all fit the SMs' shared memory, so most rows stream
+WF_WIDE = [(3, 16, 1024), (2, 32, 1536)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hard", [False, True])
+@pytest.mark.parametrize("with_masks", [False, True])
+@pytest.mark.parametrize("T,B,H", WF_WIDE)
+def test_wavefront_partly_resident_at_full_width(cuda, dtype, hard, with_masks, T, B, H):
+    """K8-fwd, K8-bwd at G=6 and full width: the plan keeps only part of
+    each block's rows resident in both directions; every output against
+    the plain versions, one launch a call."""
+    G = 6
+    for backward in (False, True):  # most rows stream (bf16 keeps some resident)
+        plan = wk.wavefront_plan(G, B, H, dtype, backward)
+        assert plan["streamed_bytes_per_superstep"] > plan["weight_bytes"] // 2
+        assert plan["resident_bytes"] > 0 or dtype == torch.float32
+    args = _wf_inputs(G, T, B, H, dtype, cuda, with_masks, seed=20)
+    before = wk.lstm_wavefront_sg.launches, wk.lstm_wavefront_bwd.launches
+    got = wk.lstm_wavefront_sg(*args, hard)
+    torch.cuda.synchronize()
+    want = wk.lstm_wavefront_plain(*args, hard, True)
+    for g, w in zip(got, want):
+        _close(g, w, LSTM_TOL[dtype] * max(1.0, w.float().abs().max().item()))
+    bwd_args = _wf_bwd_args(args, hard)
+    got = wk.lstm_wavefront_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    ref = wk.lstm_wavefront_bwd_plain(*bwd_args)
+    scale = max(1.0, ref[0].float().abs().max().item())
+    for g, w in zip(got, ref):
+        _close(g, w, LSTM_TOL[dtype] * scale)
+    assert (wk.lstm_wavefront_sg.launches, wk.lstm_wavefront_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wavefront_kernels_are_deterministic_and_leave_inputs_unwritten(cuda, dtype):
+    """Two calls on the same inputs are bit for bit equal (the sums meet in a
+    fixed order, no atomics), and no input, c0 included, is written."""
+    args = _wf_inputs(6, 4, 16, 1024, dtype, cuda, True, seed=21)
+    bwd_args = _wf_bwd_args(args, False)
+    copies = [a.clone() for a in args + bwd_args[:-1] if a is not None]
+    runs = [(wk.lstm_wavefront(*args), wk.lstm_wavefront_sg(*args),
+             wk.lstm_wavefront_bwd(*bwd_args)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for one, two in zip(*runs):
+        assert all(torch.equal(x, y) for x, y in zip(one, two))
+    assert all(torch.equal(a, c) for a, c in
+               zip([a for a in args + bwd_args[:-1] if a is not None], copies))
+
+
+def test_wavefront_kernels_reject_a_plan_that_does_not_fit(cuda):
+    """The kernels recompute the plan's layout and refuse one that does not
+    fit the shape (ValueError), and agree with the host on its bytes."""
+    args = _wf_inputs(3, 4, 8, 256, torch.bfloat16, cuda, False, seed=22)
+    H, B = 256, 8
+    for backward in (False, True):
+        plan = wk.wavefront_plan(3, B, H, torch.bfloat16, backward)
+        for i, ty in enumerate(plan["types"]):
+            vals = (ctypes.c_int * len(wk.TYPE_KEYS))(*(ty[k] for k in wk.TYPE_KEYS))
+            assert wk._fwd_lib().lstm_wavefront_smem_bytes(vals, i, H, B, 2, int(backward)) == \
+                wk.type_smem_bytes(ty, *wk._shape(i, ty["units"], H, backward), B, 2)
+    plan = wk.wavefront_plan(3, B, H, torch.bfloat16)
+    bad = [dict(plan, smem_bytes=plan["smem_bytes"] - 16),  # not the layout's bytes
+           dict(plan, types=[dict(plan["types"][0], units=plan["types"][0]["units"] - 1),
+                             plan["types"][1]]),  # the blocks miss a unit
+           dict(plan, types=[plan["types"][0], dict(plan["types"][1], kc=48)])]  # not k blocks
+    for p in bad:
+        with pytest.raises(ValueError, match="refused"):
+            wk._launch_fwd(*args, False, False, plan=p)
+    bplan = wk.wavefront_plan(3, B, H, torch.bfloat16, True)
+    bwd_args = _wf_bwd_args(args, False)
+    with pytest.raises(ValueError, match="refused"):
+        wk._launch_bwd(*bwd_args, plan=dict(bplan, types=[
+            bplan["types"][0], dict(bplan["types"][1], pairs=wk.MAX_PAIRS + 1)]))
