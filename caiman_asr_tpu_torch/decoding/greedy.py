@@ -171,3 +171,74 @@ class GreedyDecoder:
                     hyp.confidence.append(p)
             out.append(resp)
         return out
+
+
+def make_streaming_step(
+    model,
+    blank_idx: int,
+    max_symbols_per_step: int = 8,
+    temperature: float = 1.0,
+    eos_strategy: EOSStrategy = None,
+    fuzzy_topk_logits: bool = False,
+):
+    """The per-frame streaming decode step of the serving tick
+    (``caiman_asr_tpu/decoding/greedy.py:232-323``).
+
+    Returns ``step(params, f [B, Hj], dec_state) -> (tokens [B,
+    max_symbols_per_step] int32, n [B] int32, dec_state)``: one encoder
+    frame per stream, at most ``max_symbols_per_step`` emissions, with
+    ``dec_state = (g [B, Hj], h, c [L, B, Hp])`` and ``params`` a tree as
+    ``RNNT.param_tree`` gives. The loop is unrolled ``max_symbols_per_step``
+    times on every call, with a select per lane and no host decision, so
+    its work is fixed and it can be captured in a CUDA graph: a lane stops
+    at its first blank and its state stays frozen from there. The JAX
+    package's ``CAIMAN_GREEDY_EARLY_EXIT`` loop is not ported: its exit test
+    would read a device value on the host every emission. With no EOS
+    strategy and no fuzzy top-k, the token is the argmax of the logits, the
+    same as of the log-softmax, which is then never formed.
+    """
+    fast = eos_strategy is None and not fuzzy_topk_logits
+
+    def tokens(params, f, g):
+        logits = model.joint_step(f, g, params=params)
+        if fast:
+            return logits.argmax(dim=-1).to(torch.int32)
+        if fuzzy_topk_logits:
+            logits = get_topk_logits(logits)
+        lp = torch.log_softmax(logits.float() / temperature, dim=-1)
+        return apply_eos_strategy(lp, eos_strategy, blank_idx).argmax(dim=-1).to(torch.int32)
+
+    @torch.no_grad()
+    def step(params, f, dec_state):
+        g, h, c = dec_state
+        B = f.shape[0]
+        toks = torch.full((B, max_symbols_per_step), blank_idx, dtype=torch.int32,
+                          device=f.device)
+        n = torch.zeros(B, dtype=torch.int32, device=f.device)
+        stopped = torch.zeros(B, dtype=torch.bool, device=f.device)
+        for i in range(max_symbols_per_step):
+            k = tokens(params, f, g)
+            emit = ~stopped & (k != blank_idx)
+            toks[:, i] = torch.where(emit, k, blank_idx)
+            n = n + emit.to(torch.int32)
+            g_new, (h_new, c_new) = model.pred_step(k, (h, c), params=params)
+            g = torch.where(emit[:, None], g_new, g)
+            h = torch.where(emit[None, :, None], h_new, h)
+            c = torch.where(emit[None, :, None], c_new, c)
+            stopped = stopped | ~emit
+        return toks, n, (g, h, c)
+
+    return step
+
+
+@torch.no_grad()
+def init_decode_state(model, batch_size: int, *, params=None, dtype=torch.float32):
+    """Initial (g, h, c) streaming decode state (``greedy.py:326-332``):
+    the prediction net's zero-vector SOS step from zero states in ``dtype``
+    on the model's device; ``params`` as for ``RNNT.pred_step``."""
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    h = torch.zeros((cfg.pred_rnn_layers, batch_size, cfg.pred_n_hid), dtype=dtype,
+                    device=dev)
+    g, (h, c) = model.pred_step(None, (h, torch.zeros_like(h)), params=params)
+    return g, h, c

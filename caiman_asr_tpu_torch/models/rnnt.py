@@ -232,11 +232,16 @@ class RNNT(nn.Module):
         x: torch.Tensor,
         x_lens: torch.Tensor,
         enc_state: Optional[EncoderState] = None,
+        *,
+        params: Optional[Params] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, EncoderState]:
         """x: [T, B, in_feats] time-major; x_lens: [B]. Returns (f [B, T', Hj],
         f_lens [B], state), the state being every layer's (h, c) at each
-        utterance's last non-padded frame."""
-        return self._encode(self.param_tree(), x, x_lens, enc_state)
+        utterance's last non-padded frame. ``params``: a tree as
+        :meth:`param_tree` gives (default: this module's own), e.g. the
+        streaming engine's copies in its compute dtype."""
+        return self._encode(self.param_tree() if params is None else params, x, x_lens,
+                            enc_state)
 
     # ---------------------------------------------------------- predict
     def _predict(self, p: Params, y, pred_state=None, *, add_sos=True, special_sos=None,
@@ -315,20 +320,24 @@ class RNNT(nn.Module):
         self,
         token: Optional[torch.Tensor],
         state: Tuple[torch.Tensor, torch.Tensor],
+        *,
+        params: Optional[Params] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """One prediction-net step: token [B] (None: zero-vector SOS),
-        state (h, c) [L, B, Hp]. Returns (g [B, Hj], new state)."""
-        embed = self.prediction["embed"].weight
+        state (h, c) [L, B, Hp]. Returns (g [B, Hj], new state). ``params``
+        as for :meth:`encode`."""
+        p = self.param_tree() if params is None else params
+        embed = p["prediction"]["embed"]
         h, c = state
         if token is None:
             emb = embed.new_zeros((h.shape[1], self.cfg.pred_n_hid))
         else:
             emb = embed[torch.clamp(token.long(), 0, embed.shape[0] - 1)]
         y, h_new, c_new = lstm_step(
-            self.prediction["dec_rnn"].params(), emb, h, c,
+            p["prediction"]["dec_rnn"], emb, h, c,
             hard=self.cfg.hard_activations, quantize=self.cfg.quantize,
         )
-        return _linear(_node(self.joint_pred), y), (h_new, c_new)
+        return _linear(p["joint_pred"], y), (h_new, c_new)
 
     # ------------------------------------------------------------ joint
     @torch.no_grad()
@@ -337,9 +346,12 @@ class RNNT(nn.Module):
         return _linear(_node(self.joint_net[2]), torch.relu(f[:, :, None, :] + g[:, None, :, :]))
 
     @torch.no_grad()
-    def joint_step(self, f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-        """Single-frame joint: f, g [B, Hj] -> logits [B, K]."""
-        return _linear(_node(self.joint_net[2]), torch.relu(f + g))
+    def joint_step(self, f: torch.Tensor, g: torch.Tensor, *,
+                   params: Optional[Params] = None) -> torch.Tensor:
+        """Single-frame joint: f, g [B, Hj] -> logits [B, K]. ``params`` as
+        for :meth:`encode`."""
+        p = _node(self.joint_net[2]) if params is None else params["joint_fc"]
+        return _linear(p, torch.relu(f + g))
 
 
 def _last_nonpadded_state(all_h, all_c, lens):

@@ -1,0 +1,220 @@
+"""The streaming engine's host-side C++: response serialisation and audio
+staging, built on first use and loaded with ctypes.
+
+The port's own copies of the JAX package's ``native/src/serialize.cpp`` and
+``staging.cpp`` (``caiman_asr_tpu/native/__init__.py:170-393``):
+
+- ``ResponseSerializer``: the greedy tick's responses as wire-ready JSON
+  from the packed int32 tick output, with each lane's frame index;
+- ``AudioStaging``: per-lane int16 buffers and the fill of the staging
+  matrix the tick uploads.
+
+The first use compiles ``src/*.cpp`` with ``g++`` into
+``build/native/libcaiman_serving.so`` at the root of the checkout (listed in
+``.gitignore``), rebuilding when a source is newer than the library. The
+build goes to a temporary file renamed into place, so processes that build
+at once never load a half-written library. A build that fails raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+SRCS = [Path(__file__).parent / "src" / "serialize.cpp",
+        Path(__file__).parent / "src" / "staging.cpp"]
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+LIB = BUILD_DIR / "libcaiman_serving.so"
+
+
+class NativeBuildError(RuntimeError):
+    pass
+
+
+def build(lib: Path = LIB) -> Path:
+    """Compile the sources into ``lib`` unless it is newer than all of them."""
+    if lib.exists() and all(lib.stat().st_mtime >= s.stat().st_mtime for s in SRCS):
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    cmd = ["g++", "-O2", "-shared", "-fPIC", *map(str, SRCS), "-o", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+        os.unlink(tmp)
+        raise NativeBuildError(f"building {lib.name} failed: {getattr(e, 'stderr', e)}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    vp, i, lng = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    signatures = {
+        "ser_init": ([i, i, i, ctypes.c_double, i], vp),
+        "ser_free": ([vp], None),
+        "ser_set_piece": ([vp, i, ctypes.c_char_p, i], None),
+        "ser_reset_lane": ([vp, i], None),
+        "ser_greedy_tick": ([vp, i32p, lng, i, u8p, i, ctypes.c_char_p, lng, i32p, lng,
+                             ctypes.POINTER(lng)], lng),
+        "ser_set_frame_idx": ([vp, i, ctypes.c_int64], None),
+        "ser_lane_frame_idx": ([vp, i], ctypes.c_int64),
+        "stg_init": ([i, i, i], vp),
+        "stg_free": ([vp], None),
+        "stg_reset_lane": ([vp, i], None),
+        "stg_push": ([vp, i, vp, lng], None),
+        "stg_push_i16": ([vp, i, vp, lng], None),
+        "stg_push_rows_i16": ([vp, vp, lng, vp, i, lng], None),
+        "stg_push_rows_f32": ([vp, vp, lng, vp, i, lng], None),
+        "stg_buffered": ([vp, i], lng),
+        "stg_tick": ([vp, ctypes.POINTER(ctypes.c_int16), lng, u8p, u8p, i, u8p, u8p], None),
+    }
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+class _Handle:
+    """A C state freed on ``close()`` or garbage collection, whichever comes
+    first; every call goes through ``_live()``, so a closed handle raises
+    instead of handing C a NULL pointer."""
+
+    def __init__(self, h, free):
+        import weakref
+
+        if not h:
+            raise ValueError(f"{type(self).__name__}: the native state was refused")
+        self._h = h
+        self._finalize = weakref.finalize(self, free, h)
+
+    def close(self):
+        self._finalize()
+        self._h = None
+
+    def _live(self):
+        if self._h is None:
+            raise ValueError(f"{type(self).__name__} used after close()")
+        return self._h
+
+
+class ResponseSerializer(_Handle):
+    """Greedy responses from the packed tick output (``src/serialize.cpp``):
+    per lane, the JSON of ``{start, end, is_provisional, alternatives}`` for
+    the tokens it emitted this tick, and its frame index (ticks consumed)."""
+
+    def __init__(self, max_lanes: int, frame_seconds: float, pieces):
+        self._lib = _lib()
+        super().__init__(self._lib.ser_init(max_lanes, 1, 1, float(frame_seconds),
+                                            len(pieces)), self._lib.ser_free)
+        for n, p in enumerate(pieces):
+            b = p.encode("utf-8") if isinstance(p, str) else bytes(p)
+            self._lib.ser_set_piece(self._h, n, b, len(b))
+        self._buf = ctypes.create_string_buffer(4 << 20)
+        # (lane, payload offset, payload length) a record; greedy emits at
+        # most one record a lane a tick
+        self._idx = np.zeros((3 * max_lanes + 8, 3), np.int32)
+        self._nrec = ctypes.c_long(0)
+
+    def reset_lane(self, lane: int):
+        self._lib.ser_reset_lane(self._live(), lane)
+
+    def frame_idx(self, lane: int) -> int:
+        return int(self._lib.ser_lane_frame_idx(self._live(), lane))
+
+    def set_frame_idx(self, lane: int, v: int):
+        self._lib.ser_set_frame_idx(self._live(), lane, int(v))
+
+    def greedy_tick_raw(self, packed: np.ndarray, adv: np.ndarray):
+        """packed: int32 [B, cap + 1]; adv: bool [B]. Returns (raw bytes,
+        idx int32 [n, 3] of (lane, offset, length)): ``raw[off:off+len]`` is
+        one lane's JSON. idx views a buffer the next call overwrites."""
+        h = self._live()
+        packed = np.ascontiguousarray(packed, np.int32)
+        advu = np.ascontiguousarray(adv, np.uint8)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        while True:
+            n = self._lib.ser_greedy_tick(
+                h, packed.ctypes.data_as(i32p), packed.shape[1], packed.shape[1] - 1,
+                advu.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), packed.shape[0],
+                self._buf, len(self._buf), self._idx.ctypes.data_as(i32p),
+                self._idx.shape[0], ctypes.byref(self._nrec))
+            if n >= 0:
+                return ctypes.string_at(self._buf, n), self._idx[: self._nrec.value]
+            self._buf = ctypes.create_string_buffer(len(self._buf) * 2)
+
+    def greedy_tick(self, packed: np.ndarray, adv: np.ndarray):
+        """The same as ``{lane: [json_str]}``."""
+        raw, idx = self.greedy_tick_raw(packed, adv)
+        out = {}
+        for lane, off, ln in idx.tolist():
+            out.setdefault(lane, []).append(raw[off:off + ln].decode("utf-8"))
+        return out
+
+
+class AudioStaging(_Handle):
+    """Per-lane int16 audio buffers and the staging fill (``src/staging.cpp``):
+    one ``tick`` pops ``hop`` samples of each ready lane into its row of the
+    [B, carry_len + hop] staging matrix. Float pushes are rounded to int16."""
+
+    def __init__(self, max_lanes: int, carry_len: int, hop: int):
+        self._lib = _lib()
+        super().__init__(self._lib.stg_init(max_lanes, carry_len, hop), self._lib.stg_free)
+        self._i16p = ctypes.POINTER(ctypes.c_int16)
+        self._u8p = ctypes.POINTER(ctypes.c_uint8)
+        self._adv = np.zeros(max_lanes, np.uint8)
+        self._fin = np.zeros(max_lanes, np.uint8)
+
+    def reset_lane(self, lane: int):
+        self._lib.stg_reset_lane(self._live(), lane)
+
+    def push(self, lane: int, samples: np.ndarray):
+        x = samples
+        if isinstance(x, np.ndarray) and x.dtype == np.int16:
+            x = np.ascontiguousarray(x)
+            self._lib.stg_push_i16(self._live(), lane, x.ctypes.data, x.size)
+            return
+        x = np.ascontiguousarray(x, np.float32)
+        self._lib.stg_push(self._live(), lane, x.ctypes.data, x.size)
+
+    def push_rows(self, block: np.ndarray, lanes=None):
+        """Row i of ``block`` ([m, n] int16 or float32) to lane ``lanes[i]``
+        (lane i when lanes is None), in one call."""
+        lanes_ptr = 0
+        if lanes is not None:
+            lanes = np.ascontiguousarray(lanes, np.int32)
+            lanes_ptr = lanes.ctypes.data
+        if block.dtype == np.int16:
+            block = np.ascontiguousarray(block)
+            fn = self._lib.stg_push_rows_i16
+        else:
+            block = np.ascontiguousarray(block, np.float32)
+            fn = self._lib.stg_push_rows_f32
+        fn(self._live(), block.ctypes.data, block.shape[1], lanes_ptr, block.shape[0],
+           block.shape[1])
+
+    def buffered(self, lane: int) -> int:
+        return int(self._lib.stg_buffered(self._live(), lane))
+
+    def tick(self, staging: np.ndarray, active: np.ndarray, closed: np.ndarray):
+        """staging: int16 [B, carry_len + hop], filled in place; active,
+        closed: uint8 [B]. Returns (advanced, finishing), bool [B]."""
+        if staging.dtype != np.int16 or not staging.flags.c_contiguous:
+            raise ValueError("staging must be a C-contiguous int16 matrix")
+        self._lib.stg_tick(
+            self._live(), staging.ctypes.data_as(self._i16p), staging.shape[1],
+            np.ascontiguousarray(active, np.uint8).ctypes.data_as(self._u8p),
+            np.ascontiguousarray(closed, np.uint8).ctypes.data_as(self._u8p),
+            staging.shape[0], self._adv.ctypes.data_as(self._u8p),
+            self._fin.ctypes.data_as(self._u8p))
+        return self._adv.astype(bool), self._fin.astype(bool)

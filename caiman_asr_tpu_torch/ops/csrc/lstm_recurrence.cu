@@ -27,7 +27,9 @@
 // rows that are not resident); c is carried in fp32 in shared memory. The
 // plan (lstm_plan) may also split the batch over the grid's y (bsplit
 // slices), so that a block reads only its slice's rows of the exchange.
-// One grid-wide barrier a step.
+// One grid-wide barrier a step. gx, ys, cs and gs step ldb rows a time
+// step (ldb >= B), so a launch over rows [b, b + B) of a larger batch reads
+// and writes views of that batch's tensors in place.
 
 #include "lstm_persist.cuh"
 
@@ -37,15 +39,15 @@ using namespace lstmp;
 
 template <typename T>
 struct FwdArgs {
-  const T* gx;    // [T, B, 4H]
+  const T* gx;    // [T, ldb, 4H], the first B rows of a step read
   const T* w;     // [4H, H]
   const T* h0;    // [B, H]
   const T* c0;    // [B, H]
-  T* ys;          // [T, B, H]
-  T* cs;          // [T, B, H]
-  T* gs;          // [T, B, 4H] (kStoreGates only)
+  T* ys;          // [T, ldb, H], the first B rows of a step written
+  T* cs;          // [T, ldb, H]
+  T* gs;          // [T, ldb, 4H] (kStoreGates only)
   unsigned* ctr;  // step barrier, zero on entry
-  int steps, B, H, hard, units, res_rows, chunk, group;
+  int steps, B, ldb, H, hard, units, res_rows, chunk, group;
 };
 
 template <typename T, bool kStoreGates, int kMT, int kNT>
@@ -89,7 +91,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(const FwdArgs<T> 
     const int t = item / groups, b0 = (item % groups) * sp.group;
     stage_rows(pc, u, min(sp.group, Bl - b0), bb0 + b0, rows,
                stage + (item & 1) * G * rows, [&](int, int row) {
-                 return p.gx + (static_cast<size_t>(t) * B + row) * 4 * H;
+                 return p.gx + (static_cast<size_t>(t) * p.ldb + row) * 4 * H;
                });
   };
   fetch(0);
@@ -102,7 +104,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(const FwdArgs<T> 
     else
       __syncthreads();  // the previous group's reads of red and its stage are done
     phase(item, 0);
-    const T* h = t == 0 ? p.h0 : p.ys + static_cast<size_t>(t - 1) * B * H;
+    const T* h = t == 0 ? p.h0 : p.ys + static_cast<size_t>(t - 1) * p.ldb * H;
     product<kMT, kNT>(h + static_cast<size_t>(bb0) * H, Bl, b0, A, row_src, red, xs);
     phase(item, 1);
     cp_async_wait_all();  // this item's stage, issued before the barrier
@@ -119,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_kernel(const FwdArgs<T> 
       for (int gate = 0; gate < 4; ++gate)
         gv[gate] = to_f32(gx_s[b * rows + gate * u + j]) +
                    reduced<T>(red, sp, rows, gate * u + j, b);
-      const size_t row = static_cast<size_t>(t) * B + bb0 + b0 + b;
+      const size_t row = static_cast<size_t>(t) * p.ldb + bb0 + b0 + b;
       if (kStoreGates) {
 #pragma unroll
         for (int gate = 0; gate < 4; ++gate)
@@ -186,12 +188,14 @@ int run(const FwdArgs<T>& a, int blocks, int bsplit, size_t smem, cudaStream_t s
 
 template <typename T>
 int dispatch(const void* gx, const void* w, const void* h0, const void* c0, void* ys, void* cs,
-             void* gs, void* ctr, int steps, int B, int H, int hard, int blocks, int bsplit,
-             int units, int res_rows, int chunk, int group, size_t smem, cudaStream_t stream) {
+             void* gs, void* ctr, int steps, int B, int ldb, int H, int hard, int blocks,
+             int bsplit, int units, int res_rows, int chunk, int group, size_t smem,
+             cudaStream_t stream) {
+  if (ldb < B) return static_cast<int>(cudaErrorInvalidValue);
   const FwdArgs<T> a{static_cast<const T*>(gx), static_cast<const T*>(w),
                      static_cast<const T*>(h0), static_cast<const T*>(c0), static_cast<T*>(ys),
                      static_cast<T*>(cs), static_cast<T*>(gs), static_cast<unsigned*>(ctr),
-                     steps, B, H, hard, units, res_rows, chunk, group};
+                     steps, B, ldb, H, hard, units, res_rows, chunk, group};
   return gs ? run<T, true>(a, blocks, bsplit, smem, stream)
             : run<T, false>(a, blocks, bsplit, smem, stream);
 }
@@ -238,20 +242,21 @@ size_t lstm_recurrence_smem_bytes(int rows, int res_rows, int K, int stage_elems
 // contraction in chunks of `chunk` floats (0 in bf16) for groups of
 // `group` batch rows (64 in bf16), with `smem` bytes of shared memory (all
 // from the host's plan, checked here). h0, c0 are
-// only read; ctr: one zeroed uint32. gs: [T, B, 4H] for K3a, or null for
-// K1. Returns 0, a CUDA error, kNotCoResident (-1: the grid cannot all be
-// resident) or kBadPlan (-2).
+// only read; ctr: one zeroed uint32. gs: [T, ldb, 4H] for K3a, or null
+// for K1. gx, ys, cs and gs are [T, ldb, *] with ldb >= B: the launch takes
+// the first B rows of each step. Returns 0, a CUDA error, kNotCoResident
+// (-1: the grid cannot all be resident) or kBadPlan (-2).
 int lstm_recurrence_fwd(const void* gx, const void* w_hh, const void* h0, const void* c0,
-                        void* ys, void* cs, void* gs, void* ctr, int T, int B, int H,
-                        int hard, int dtype, int blocks, int bsplit, int units, int res_rows,
+                        void* ys, void* cs, void* gs, void* ctr, int T, int B, int ldb,
+                        int H, int hard, int dtype, int blocks, int bsplit, int units, int res_rows,
                         int chunk, int group, size_t smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(gx, w_hh, h0, c0, ys, cs, gs, ctr, T, B, H, hard, blocks, bsplit,
-                           units, res_rows, chunk, group, smem, s);
+    return dispatch<float>(gx, w_hh, h0, c0, ys, cs, gs, ctr, T, B, ldb, H, hard, blocks,
+                           bsplit, units, res_rows, chunk, group, smem, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(gx, w_hh, h0, c0, ys, cs, gs, ctr, T, B, H, hard, blocks,
-                                   bsplit, units, res_rows, chunk, group, smem, s);
+    return dispatch<__nv_bfloat16>(gx, w_hh, h0, c0, ys, cs, gs, ctr, T, B, ldb, H, hard,
+                                   blocks, bsplit, units, res_rows, chunk, group, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

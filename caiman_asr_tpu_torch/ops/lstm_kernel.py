@@ -55,7 +55,7 @@ Z = ctypes.c_size_t
 
 
 FWD_SIGNATURES = {
-    "lstm_recurrence_fwd": ([P] * 8 + [I] * 11 + [Z, P], I),
+    "lstm_recurrence_fwd": ([P] * 8 + [I] * 12 + [Z, P], I),
     "lstm_recurrence_smem_bytes": ([I] * 8, Z),
     "lstm_barrier_loop": ([P, I, I, I, Z, P], I),
 }
@@ -220,6 +220,29 @@ def _plan_split(B: int, H: int, esize: int, backward: bool, sms: int, bsplit: in
 
 
 @functools.cache
+def batch_slices(B: int, H: int, dtype, sms: int = H100_SMS) -> int:
+    """The fewest slices of a batch of B rows, each of ``ceil(B / n)`` rows
+    but the last, for which :func:`lstm_plan` finds a forward plan: K1 then
+    runs once per slice. A block's fp32 carry holds its slice's rows of its
+    units (``slice_rows * units * 4`` bytes of shared memory), which a split
+    of the grid's batch does not shrink, so past a few thousand rows at
+    H=1,024 (on 132 SMs, bf16 above 5,856 rows, fp32 above 6,172) the
+    launch must be cut. Raises when not even a slice of one row has a
+    plan."""
+    for n in range(1, B + 1):
+        rows = -(-B // n)
+        if n > 1 and (n - 1) * rows >= B:
+            continue
+        try:
+            lstm_plan(rows, H, dtype, False, sms)
+            return n
+        except ValueError:
+            if rows == 1:
+                raise
+    raise ValueError(f"B={B}: no batch to slice")
+
+
+@functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -352,26 +375,36 @@ def _check_fwd(gates_x, w_hh, h0, c0, what):
     return T, B, H
 
 
-def _launch_fwd(gates_x, w_hh, h0, c0, hard, store_gates):
-    """One cooperative launch for the layer (none when T is 0)."""
+def _launch_fwd(gates_x, w_hh, h0, c0, hard, store_gates, slices: int = 1):
+    """One cooperative launch for the layer (none when T is 0), or one per
+    batch slice of ``ceil(B / slices)`` rows, each reading and writing its
+    rows of the whole batch's tensors in place. Returns (ys, cs, gs,
+    launches)."""
     what = "lstm_recurrence_fwd_sg" if store_gates else "lstm_recurrence_fwd"
     T, B, H = _check_fwd(gates_x, w_hh, h0, c0, what)
     dtype = gates_x.dtype
     ys = torch.empty((T, B, H), dtype=dtype, device=gates_x.device)
     cs = torch.empty_like(ys)
     gs = torch.empty_like(gates_x) if store_gates else None
-    if T == 0:
-        return ys, cs, gs
-    plan = _plan_on(gates_x, B, H, backward=False)
-    ctr = torch.zeros(1, dtype=torch.int32, device=gates_x.device)
-    err = _fwd_lib().lstm_recurrence_fwd(
-        *(_aligned(t).data_ptr() for t in (gates_x, w_hh, h0, c0)), ys.data_ptr(),
-        cs.data_ptr(), gs.data_ptr() if store_gates else None, ctr.data_ptr(), T, B, H,
-        int(hard), DTYPE_CODE[dtype], plan["blocks"], plan["bsplit"], plan["units"],
-        plan["resident_rows"], plan["chunk"], plan["group"], plan["smem_bytes"],
-        stream_of(gates_x))
-    _check_launch(err, what, plan)
-    return ys, cs, gs
+    if T == 0 or B == 0:
+        return ys, cs, gs, 0
+    gx, w, h0, c0 = (_aligned(t) for t in (gates_x, w_hh, h0, c0))
+    es, rows = gates_x.element_size(), -(-B // slices)
+    starts = range(0, B, rows)
+    ctr = torch.zeros(len(starts), dtype=torch.int32, device=gates_x.device)
+    for i, s in enumerate(starts):
+        n = min(rows, B - s)
+        plan = _plan_on(gates_x, n, H, backward=False)
+        # row s of a step: 4H elements into gx and gs, H into the others
+        err = _fwd_lib().lstm_recurrence_fwd(
+            gx.data_ptr() + s * 4 * H * es, w.data_ptr(), h0.data_ptr() + s * H * es,
+            c0.data_ptr() + s * H * es, ys.data_ptr() + s * H * es, cs.data_ptr() + s * H * es,
+            gs.data_ptr() + s * 4 * H * es if store_gates else None, ctr[i].data_ptr(), T, n,
+            B, H, int(hard), DTYPE_CODE[dtype], plan["blocks"], plan["bsplit"],
+            plan["units"], plan["resident_rows"], plan["chunk"], plan["group"],
+            plan["smem_bytes"], stream_of(gates_x))
+        _check_launch(err, what, plan)
+    return ys, cs, gs, len(starts)
 
 
 @counted
@@ -380,15 +413,20 @@ def lstm_recurrence(gates_x, w_hh, h0, c0, hard: bool = False) -> Pair:
     :func:`lstm_recurrence_plain`.
 
     CPU tensors take the plain version. CUDA tensors launch the persistent
-    kernel, once per layer (T > 0), and add one to
-    ``lstm_recurrence.launches``; anything the kernel does not take raises.
+    kernel, once per layer (T > 0), or once per slice where the batch is
+    larger than a plan takes (:func:`batch_slices`; the slices read and
+    write their rows of the layer's tensors in place), and add one to
+    ``lstm_recurrence.launches`` a launch; anything the kernel does not take
+    raises.
     """
     if gates_x.device.type == "cpu":
         return lstm_recurrence_plain(gates_x, w_hh, h0, c0, hard)
     if gates_x.device.type != "cuda":
         raise ValueError(f"unsupported device {gates_x.device}")
-    ys, cs, _ = _launch_fwd(gates_x, w_hh, h0, c0, hard, False)
-    lstm_recurrence.launches += int(gates_x.shape[0] > 0)
+    T, B, H = _check_fwd(gates_x, w_hh, h0, c0, "lstm_recurrence_fwd")
+    n = batch_slices(B, H, gates_x.dtype, _sm_count(gates_x.device.index or 0)) if B else 1
+    ys, cs, _, launches = _launch_fwd(gates_x, w_hh, h0, c0, hard, False, n)
+    lstm_recurrence.launches += launches
     return ys, cs
 
 
@@ -401,9 +439,9 @@ def lstm_recurrence_sg(gates_x, w_hh, h0, c0, hard: bool = False):
         return lstm_recurrence_sg_plain(gates_x, w_hh, h0, c0, hard)
     if gates_x.device.type != "cuda":
         raise ValueError(f"unsupported device {gates_x.device}")
-    out = _launch_fwd(gates_x, w_hh, h0, c0, hard, True)
-    lstm_recurrence_sg.launches += int(gates_x.shape[0] > 0)
-    return out
+    ys, cs, gs, launches = _launch_fwd(gates_x, w_hh, h0, c0, hard, True)
+    lstm_recurrence_sg.launches += launches
+    return ys, cs, gs
 
 
 @counted

@@ -1,0 +1,317 @@
+"""WebSocket streaming ASR server over the port's ``StreamingEngine`` (the
+port of ``caiman_asr_tpu/serving/server.py``, greedy decoding).
+
+The reference deployment's client contract
+(docs/src/inference/websocket_api.md): path ``/asr/v0.1/stream``,
+query-encoded ``content_type=audio/x-raw;format=S16LE;channels=1;rate=16000``,
+binary frames of raw samples in, zero-length binary = EOS, JSON text frames
+out (``{start, end, is_provisional, alternatives: [{transcript,
+confidence}]}``), subprotocol ``stream.asr.api.myrtle.ai``.
+
+All connections share ONE engine: a single ticker task advances the whole
+lane batch every frame interval, so concurrency costs one device tick (one
+CUDA graph replay) per 60 ms whatever the number of streams.
+
+Run on the card (needs the ``websockets`` package, which ``serve()`` alone
+imports):
+
+    python -m caiman_asr_tpu_torch.serving.server --model_config CONFIG.yaml \
+        --serving_bundle bundle.npz --port 8765
+
+The model is built from the config's ``rnnt`` block with the bundle's
+weights; the tokenizer from the bundle's ``sentencepiece`` bytes (or
+``--tokenizer_model``). Not ported: ``--ckpt`` (checkpoints), the beam
+decoder and several chips (``--num_chips``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import urllib.parse
+from typing import Dict
+
+import numpy as np
+
+SUBPROTOCOL = "stream.asr.api.myrtle.ai"
+
+
+class ASRServer:
+    def __init__(self, engine, tick_interval: float = 0.02,
+                 max_buffer_secs: float = 30.0):
+        """max_buffer_secs: when a client has pushed more than this much
+        audio beyond what the engine has consumed, the server stops
+        reading its socket until the lane drains (TCP backpressure), so a
+        flooding client costs bounded host RAM while legitimate
+        faster-than-real-time file clients are merely flow-controlled,
+        not disconnected."""
+        self.engine = engine
+        self.tick_interval = tick_interval
+        self.max_buffer_secs = max_buffer_secs
+        self.queues: Dict[int, asyncio.Queue] = {}
+        self._ticker_task = None
+
+    # ------------------------------------------------------------ lifecycle
+    async def _ticker(self):
+        import traceback
+
+        from caiman_asr_tpu_torch.serving.engine import WireTick
+
+        loop = asyncio.get_event_loop()
+
+        def dispatch(out):
+            if isinstance(out, WireTick):
+                # wire mode: slice each lane's JSON payload straight
+                # out of the C serializer's arena (no dict/str
+                # materialisation on the tick path — the sender
+                # decodes at write time, off the hot loop)
+                for raw, idx in out.segments:
+                    mv = memoryview(raw)
+                    for lane, off, ln in idx.tolist():
+                        q = self.queues.get(lane)
+                        if q is not None:
+                            q.put_nowait(bytes(mv[off:off + ln]))
+                out = out.specials
+            for lane, resp in out.items():
+                q = self.queues.get(lane)
+                if q is not None:
+                    for r in resp if isinstance(resp, list) else [resp]:
+                        q.put_nowait(r)
+
+        poll = getattr(self.engine, "poll", None)
+        while True:
+            try:
+                if self.engine.streams:
+                    dispatch(await loop.run_in_executor(
+                        None, self.engine.tick))
+                    if poll is not None:
+                        # under pipelining (pipeline_depth > 0) a tick's
+                        # responses complete a fetch-time after dispatch;
+                        # polling each wake ships them then, instead of
+                        # holding them for the next full-chunk tick
+                        # (cuts response latency by up to one chunk)
+                        dispatch(await loop.run_in_executor(None, poll))
+            except Exception:
+                # A dead ticker would silently hang every stream: log & keep
+                # ticking (the engine lock makes tick itself safe).
+                traceback.print_exc()
+            await asyncio.sleep(self.tick_interval)
+
+    @staticmethod
+    def validate_params(path: str) -> str | None:
+        """Returns an error string, or None if the request is valid."""
+        parsed = urllib.parse.urlparse(path)
+        if not parsed.path.endswith("/stream"):
+            return f"unknown path {parsed.path}"
+        q = urllib.parse.parse_qs(parsed.query)
+        ct = q.get("content_type", [""])[0]
+        if not ct:
+            return "missing content_type"
+        parts = ct.split(";")
+        if parts[0] != "audio/x-raw":
+            return f"unsupported content type {parts[0]}"
+        opts = dict(p.split("=", 1) for p in parts[1:] if "=" in p)
+        if opts.get("format", "S16LE") != "S16LE":
+            return "only S16LE supported"
+        if opts.get("rate", "16000") != "16000":
+            return "only rate=16000 supported"
+        if opts.get("channels", "1") != "1":
+            return "only channels=1 supported"
+        return None
+
+    # ------------------------------------------------------------- handler
+    async def handle(self, websocket):
+        path = websocket.request.path
+        err = self.validate_params(path)
+        if err is not None:
+            await websocket.close(code=1008, reason=err)
+            return
+        lane = self.engine.open_stream()
+        if lane is None:
+            await websocket.close(code=1013, reason="server at capacity")
+            return
+        q: asyncio.Queue = asyncio.Queue()
+        self.queues[lane] = q
+
+        async def sender():
+            while True:
+                resp = await q.get()
+                # native-serializer responses are pre-serialized JSON strings
+                # (bytes in wire mode, decoded here so the client still sees
+                # text frames); only the engine's own dict responses can
+                # carry the eos flag
+                if isinstance(resp, dict) and resp.get("eos"):
+                    return
+                if isinstance(resp, bytes):
+                    resp = resp.decode("utf-8")
+                elif not isinstance(resp, str):
+                    resp = json.dumps(resp)
+                await websocket.send(resp)
+
+        send_task = asyncio.create_task(sender())
+        pushed = 0
+
+        def consumed_samples():
+            # engine wrappers (state-reset router) may not track per-lane
+            # frame counts; the flood guard degrades to off there
+            try:
+                return self.engine.lane_frames(lane) * self.engine.hop_samples
+            except Exception:
+                return None
+
+        frame_base = consumed_samples() or 0
+        max_ahead = int(self.max_buffer_secs * 16000)
+        check_quantum = 16000  # amortize the engine-lock touch to ~1/s of audio
+        next_check = check_quantum
+        clean_eos = False
+        try:
+            async for message in websocket:
+                if isinstance(message, str):
+                    continue  # text frames ignored on input
+                if len(message) == 0:
+                    self.engine.close_stream(lane)
+                    clean_eos = True
+                    break
+                if len(message) % 2:
+                    # S16LE frames must be even-sized; a truncated final
+                    # byte would otherwise kill the connection uncleanly
+                    await websocket.close(code=1003, reason="odd-length frame")
+                    break
+                # wire format is pcm16 and the engine stages int16: pass the
+                # bytes straight through (no per-message float conversion)
+                arr = np.frombuffer(message, dtype="<i2")
+                pushed += len(arr)
+                self.engine.push_audio(lane, arr)
+                if pushed >= next_check:
+                    next_check = pushed + check_quantum
+                    # backpressure: stop reading until the lane drains to
+                    # within the buffer cap (flooding costs bounded RAM;
+                    # fast file clients are flow-controlled, not dropped)
+                    while True:
+                        consumed = consumed_samples()
+                        if consumed is None or (
+                                pushed - (consumed - frame_base)) <= max_ahead:
+                            break
+                        await asyncio.sleep(self.tick_interval)
+            else:
+                self.engine.close_stream(lane)
+                clean_eos = True
+            if clean_eos:
+                # drain the EOS flush; error paths skip straight to cleanup
+                await send_task
+        finally:
+            send_task.cancel()
+            self.queues.pop(lane, None)
+            if lane in self.engine.streams:
+                self.engine.close_stream(lane)
+            await websocket.close()
+
+    async def serve(self, host: str, port: int):
+        import websockets.asyncio.server
+
+        self._ticker_task = asyncio.create_task(self._ticker())
+        async with websockets.asyncio.server.serve(
+            self.handle, host, port, subprotocols=[SUBPROTOCOL], max_size=2**24
+        ):
+            await asyncio.Future()
+
+
+def build_engine(args):
+    """The greedy engine the CLI asks for: the model from ``--model_config``
+    with the weights of ``--serving_bundle`` (loaded strictly), the
+    tokenizer from the bundle's SentencePiece bytes unless
+    ``--tokenizer_model`` names a file, the mel statistics from the bundle
+    unless ``--mel_stats_path`` names an ``.npz`` (melmeans, melvars). Runs
+    on ``--device`` (cuda unless "cpu" is asked for; no card raises)."""
+    import torch
+
+    from caiman_asr_tpu_torch.data.tokenizer import Tokenizer
+    from caiman_asr_tpu_torch.device import resolve_device
+    from caiman_asr_tpu_torch.export.from_jax import load_jax_params
+    from caiman_asr_tpu_torch.export.serving_bundle import bundle_mel_stats, load_serving_bundle
+    from caiman_asr_tpu_torch.models.config import load_config
+    from caiman_asr_tpu_torch.models.rnnt import RNNT
+    from caiman_asr_tpu_torch.serving.engine import StreamingEngine
+
+    if getattr(args, "num_chips", 1) != 1:
+        raise NotImplementedError("serving over several cards is not ported yet")
+    if getattr(args, "ckpt", None):
+        raise NotImplementedError("--ckpt: reading checkpoints is not ported yet; "
+                                  "pass --serving_bundle")
+    if not args.serving_bundle:
+        raise ValueError("--serving_bundle is required")
+    device = resolve_device(getattr(args, "device", "cuda"))
+    cfg = load_config(args.model_config)
+    weights, extras, _ = load_serving_bundle(args.serving_bundle)
+    if args.tokenizer_model:
+        tokenizer = Tokenizer([], args.tokenizer_model)
+    elif "sentencepiece" in extras:
+        tokenizer = Tokenizer([], np.asarray(extras["sentencepiece"], np.uint8).tobytes())
+    else:
+        raise ValueError("the bundle carries no sentencepiece model: pass --tokenizer_model")
+    model = load_jax_params(RNNT(cfg.rnnt, tokenizer.num_labels + 1, device="cpu"),
+                            weights).to(device)
+    if args.mel_stats_path:
+        with np.load(args.mel_stats_path) as z:
+            mel_stats = (np.asarray(z["melmeans"], np.float32),
+                         np.sqrt(np.asarray(z["melvars"], np.float32)))
+    else:
+        mel_stats = bundle_mel_stats(extras)
+    return StreamingEngine(
+        model, tokenizer.num_labels, tokenizer, mel_stats=mel_stats,
+        max_streams=args.max_streams, decoder=getattr(args, "decoder", "greedy"),
+        logmel=cfg.input_val.logmel,
+        frame_stacking=cfg.input_val.splicing.frame_stacking,
+        frame_subsampling=cfg.input_val.splicing.frame_subsampling,
+        pipeline_depth=getattr(args, "pipeline_depth", 1),
+        wire_responses=getattr(args, "wire_responses", False),
+        device=device, dtype=torch.float32,
+    )
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="streaming ASR WebSocket server (PyTorch/CUDA)")
+    p.add_argument("--model_config", required=True)
+    p.add_argument("--serving_bundle", required=True)
+    p.add_argument("--ckpt", default=None, help="not ported: pass --serving_bundle")
+    p.add_argument("--tokenizer_model", default=None)
+    p.add_argument("--mel_stats_path", default=None)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8765)
+    p.add_argument("--max_streams", type=int, default=64, help="lane capacity")
+    p.add_argument("--num_chips", type=int, default=1, help="not ported: 1 only")
+    p.add_argument("--device", default="cuda", help="cuda (one card) or cpu")
+    p.add_argument("--decoder", default="greedy", choices=["greedy", "beam"],
+                   help="beam is not ported and raises")
+    p.add_argument("--pipeline_depth", type=int, default=1,
+                   help="in-flight ticks before host consumption; each unit hides one "
+                        "tick of device->host latency and adds one chunk (60 ms) of "
+                        "response latency")
+    p.add_argument("--sr_segment", type=float, default=0.0,
+                   help="serving state resets: refresh model state every N seconds per "
+                        "stream via shadow-lane handover (0 = off)")
+    p.add_argument("--sr_overlap", type=float, default=3.0,
+                   help="warmup context seconds for each state reset")
+    p.add_argument("--wire_responses", action="store_true",
+                   help="keep native-serializer responses as one JSON bytes arena per "
+                        "tick instead of per-lane Python strings")
+    p.add_argument("--max_buffer_secs", type=float, default=30.0,
+                   help="stop reading a client's socket (TCP backpressure) while it is "
+                        "more than this many seconds of audio ahead of the engine")
+    args = p.parse_args(argv)
+    engine = build_engine(args)
+    engine.warmup()
+    where = f"{engine.B} lanes on {engine.device}"
+    if args.sr_segment > 0:
+        from caiman_asr_tpu_torch.serving.state_resets import StateResetRouter
+
+        engine = StateResetRouter(engine, segment_secs=args.sr_segment,
+                                  overlap_secs=args.sr_overlap)
+    server = ASRServer(engine, max_buffer_secs=args.max_buffer_secs)
+    print(f"serving on ws://{args.host}:{args.port}/asr/v0.1/stream ({where})", flush=True)
+    asyncio.run(server.serve(args.host, args.port))
+
+
+if __name__ == "__main__":
+    main()

@@ -58,7 +58,22 @@ Phases:
      (G=2, H=1536, B=96, T=200), one case with dropout 0.1; the launches
      counted (one a call); each against the plain path (the fp32 forward,
      the bf16 gradients); each shape's plans, kernel times and superstep
-     floors; the per-layer stack timed beside it.
+     floors; the per-layer stack timed beside it;
+  10. the streaming engine and server (base-85M, greedy, 4 symbols a tick):
+     K1 against its plain version at the tick's shapes (H=1,024, T=2 and
+     T=1, B = 4,096, 8,192 and 16,384: one, two and three or more batch
+     slices, fp32 and bf16); in fp32 the engine's streamed tokens for the smoke's utterances (cut to
+     whole 60 ms chunks), fed a chunk a tick, against offline.transcribe's,
+     both at one symbol a frame (past one the two count differently), with
+     K1's launches counted on every tick; the CUDA graph's ticks
+     against the eager ticks, bit for bit, over 20 ticks with lanes opening
+     and closing; K1 at B=8,192 through its batch split (8 layers x 2
+     slices a tick); ASRServer.handle and its ticker driven in process
+     through a minimal connection object, streams to EOS, an odd-length
+     frame and a client past capacity refused; the compute path (ms a graph
+     replay at B = 1,024, 4,096, 8,192), K1 alone at those batches at T=2
+     and T=1, and bench_serving's engine tiers on a short ladder (8,192,
+     4,096).
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -418,11 +433,11 @@ def build_model(name: str, device: str):
     return model.init_weights(torch.Generator(device=device).manual_seed(SEED))
 
 
-def calibrate_blank(model, feats, feat_lens) -> float:
+def calibrate_blank(model, feats, feat_lens, start_emit: float = MIN_START_EMIT) -> float:
     """Raise the blank bias so that blank is the argmax on all but EMIT_SHARE
     of the (frame, prediction state) pairs, the states being the start state
     and those after CALIB_TOKENS random tokens — but on no more than
-    1 - MIN_START_EMIT of the frames from the start state, so that decoding
+    1 - start_emit of the frames from the start state, so that decoding
     starts at all. Returns the raise."""
     import torch
 
@@ -437,7 +452,7 @@ def calibrate_blank(model, feats, feat_lens) -> float:
         valid = torch.arange(f.shape[1], device=f.device)[None, :] < f_lens[:, None]
         raise_by = torch.minimum(  # but let the start state emit somewhere
             torch.quantile(margin[valid].flatten(), 1.0 - EMIT_SHARE),
-            torch.quantile(margin[..., 0][valid], 1.0 - MIN_START_EMIT),
+            torch.quantile(margin[..., 0][valid], 1.0 - start_emit),
         )
         model.joint_net[2].bias[-1] += raise_by
     return float(raise_by)
@@ -1691,6 +1706,326 @@ def run_wavefront(T_post: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ serving path
+SERVE_MSYM = 4           # bench.py's max_symbols_per_step
+# streamed against offline tokens at one symbol a frame: past one the two
+# decoders count differently (the streaming step up to its cap a frame, the
+# offline loop, the reference's batched greedy, until a count kept across
+# frames reaches it), and a random model has states that emit without end
+SERVE_CHECK_MSYM = 1
+SERVE_COMPUTE_B = (1024, 4096, 8192)
+SERVE_LADDER = (8192, 4096)
+SERVE_GRAPH_B, SERVE_GRAPH_TICKS = 64, 20
+SERVE_COUNT_B = 8192     # K1 counted on real ticks through its batch split
+SERVE_K1_B = (4096, 8192, 16384)  # K1 vs plain at the tick's batches and slices
+SERVE_STREAMS = 4        # streams the in-process server drives to EOS
+# the blank raised less than in the slice, so that streams emit from the
+# start state on a fifth of the frames: the token comparison is not vacuous
+SERVE_START_EMIT = 0.2
+
+
+class _Recorder:
+    """An engine's serializer, recording each packed tick output it reads."""
+
+    def __init__(self, ser):
+        self.ser, self.packed = ser, []
+
+    def __getattr__(self, name):
+        return getattr(self.ser, name)
+
+    def greedy_tick(self, packed, adv):
+        import numpy as np
+
+        self.packed.append((np.array(packed), np.array(adv)))
+        return self.ser.greedy_tick(packed, adv)
+
+
+
+class _Connection:
+    """The little of a ``websockets`` connection that ``ASRServer.handle``
+    uses: the request path, the client's frames as an async iterator, send
+    and close."""
+
+    def __init__(self, path: str, frames: list, gap_s: float = 0.0):
+        from types import SimpleNamespace
+
+        self.request = SimpleNamespace(path=path)
+        self.frames, self.gap_s = frames, gap_s
+        self.sent, self.closed = [], None
+
+    async def _iter(self):
+        import asyncio
+
+        for f in self.frames:
+            await asyncio.sleep(self.gap_s)
+            yield f
+
+    def __aiter__(self):
+        return self._iter()
+
+    async def send(self, msg):
+        self.sent.append(msg)
+
+    async def close(self, code: int = 1000, reason: str = ""):
+        if self.closed is None:
+            self.closed = (code, reason)
+
+
+def _serving_model(name: str = "base-85M"):
+    """base-85M at full width with the smoke's audio cut to whole 60 ms
+    chunks, dataset mel statistics of that audio, and the blank raised as
+    in the slice. Returns (model, audio [B, S] int16-grid fp32, lens,
+    mel_stats, pipeline)."""
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch.data.featurize import FeaturePipeline
+    from caiman_asr_tpu_torch.models.config import PipelineConfig
+    from caiman_asr_tpu_torch.ops.logmel import LogMelConfig, LogMelFrontend
+
+    audio, lens = synthetic_audio(SEED)
+    lens = lens // 960 * 960
+    audio = np.rint(audio[:, :int(lens.max())] * 32768.0).clip(-32768, 32767) / 32768.0
+    audio = (audio * (np.arange(audio.shape[1])[None] < lens[:, None])).astype(np.float32)
+    pipe = PipelineConfig(logmel=LogMelConfig(dither=0.0))
+    with torch.inference_mode():
+        mel, mel_lens = LogMelFrontend(pipe.logmel, device="cuda")(
+            torch.from_numpy(audio).cuda(), torch.from_numpy(lens).cuda())
+        mel = mel.transpose(1, 2)  # [B, T, n_mels]
+        vals = mel[torch.arange(mel.shape[1], device="cuda")[None] < mel_lens[:, None]]
+        mel_stats = (vals.mean(0).cpu().numpy(), vals.std(0).cpu().numpy())
+    model = build_model(name, "cuda")
+    fp = FeaturePipeline(pipe, mel_stats, device="cuda")
+    feats, feat_lens = fp(torch.from_numpy(audio).cuda(), torch.from_numpy(lens).cuda(), None,
+                          1.0)
+    raised = calibrate_blank(model, feats, feat_lens, start_emit=SERVE_START_EMIT)
+    return model, audio, lens, mel_stats, pipe, raised
+
+
+def _stream_tokens(engine, audio, lens) -> list:
+    """Every utterance on its own lane, 60 ms a tick, to EOS. Returns each
+    utterance's tokens, read from the packed tick outputs."""
+    import numpy as np
+
+    rec = engine._native_ser = _Recorder(engine._native_ser)
+    lanes = [engine.open_stream() for _ in range(len(lens))]
+    ticks = int(lens.max()) // 960
+    for t in range(ticks):
+        for i, (lane, n) in enumerate(zip(lanes, lens)):
+            if t * 960 < n:
+                engine.push_audio(lane, np.rint(audio[i, t * 960:(t + 1) * 960] * 32768
+                                                ).astype(np.int16))
+            if (t + 1) * 960 >= n:
+                engine.close_stream(lane)
+        engine.tick()
+    while engine.streams:
+        engine.tick()
+    toks = [[int(x) for p, adv in rec.packed if adv[lane] for x in p[lane, :p[lane, -1]]]
+            for lane in lanes]
+    return toks
+
+
+def _graph_script(engine, ticks: int, seed: int) -> list:
+    """Lanes opening, advancing unevenly and closing over ``ticks`` ticks;
+    returns the packed outputs the serializer read."""
+    import numpy as np
+
+    rec = engine._native_ser = _Recorder(engine._native_ser)
+    rng = np.random.default_rng(seed)
+    lanes = [engine.open_stream() for _ in range(engine.B // 2)]
+    for t in range(ticks):
+        if t == ticks // 3:
+            for lane in lanes[::4]:
+                engine.close_stream(lane)
+        if t == ticks // 2:
+            lanes = lanes + [engine.open_stream() for _ in range(engine.B // 4)]
+        for i, lane in enumerate(lanes):
+            if lane in engine.streams and not engine.streams[lane].closed and (t + i) % 5:
+                engine.push_audio(lane, (rng.normal(size=960) * 2000).astype(np.int16))
+        engine.tick()
+    return rec.packed
+
+
+def _drive_server(engine, audio) -> dict:
+    """``ASRServer.handle`` and its ticker in process, on ``engine``: the
+    first 2 s of SERVE_STREAMS of the smoke's utterances (``audio``, on the
+    int16 grid) in 100 ms frames to EOS, one odd-length frame (refused,
+    1003) and, with every lane taken, one client past capacity (1013)."""
+    import asyncio
+
+    import numpy as np
+
+    from caiman_asr_tpu_torch.serving.server import ASRServer
+
+    path = "/asr/v0.1/stream?content_type=audio/x-raw;format=S16LE;channels=1;rate=16000"
+
+    def frames(x):
+        pcm = np.rint(x * 32768).astype("<i2").tobytes()
+        return [pcm[i:i + 3200] for i in range(0, len(pcm), 3200)] + [b""]
+
+    async def scenario():
+        server = ASRServer(engine, tick_interval=0.005)
+        ticker = asyncio.create_task(server._ticker())
+        conns = [_Connection(path, frames(audio[i, :2 * SR]), 0.002)
+                 for i in range(SERVE_STREAMS)]
+        odd = _Connection(path, [b"\x00\x00\x00"])
+        await asyncio.wait_for(asyncio.gather(*(server.handle(c) for c in conns + [odd])), 120)
+        held = [engine.open_stream() for _ in range(engine.B)]
+        full = _Connection(path, [b""])
+        await server.handle(full)
+        for lane in held:
+            engine.close_stream(lane)
+        while engine.streams:
+            await asyncio.sleep(0.01)
+        ticker.cancel()
+        return conns, odd, full
+
+    t0 = time.perf_counter()
+    conns, odd, full = asyncio.run(scenario())
+    msgs = [json.loads(m) for c in conns for m in c.sent]
+    res = {"streams": len(conns), "responses": len(msgs), "wall_s": time.perf_counter() - t0,
+           "closed": [c.closed for c in conns], "odd_frame": odd.closed, "past_capacity":
+           full.closed}
+    if not all(c.closed == (1000, "") for c in conns):
+        raise AssertionError(f"a stream did not end cleanly: {res}")
+    if odd.closed[0] != 1003 or full.closed[0] != 1013:
+        raise AssertionError(f"the server did not refuse as it should: {res}")
+    if not msgs or not all({"start", "end", "alternatives"} <= set(m) for m in msgs):
+        raise AssertionError(f"no well-formed responses from the server: {res}")
+    return res
+
+
+def run_serving() -> dict:
+    """Phase 10: the streaming engine (one CUDA graph a tick) and server."""
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import bench_serving, offline
+    from caiman_asr_tpu_torch.decoding.response import frame_responses_to_tokens
+    from caiman_asr_tpu_torch.ops import lstm_kernel
+    from caiman_asr_tpu_torch.serving.engine import StreamingEngine
+
+    # K1 against its plain version at the tick's shapes, through its batch
+    # split: the encoder's H at T=2 (pre-stack) and T=1 (post-stack)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"k1_checks": []}
+    for dtype in ("float32", "bfloat16"):
+        for Bs in SERVE_K1_B:
+            n = lstm_kernel.batch_slices(Bs, H, getattr(torch, dtype), sms)
+            log(f"  K1 at B={Bs} {dtype}: {n} batch slice(s) of {-(-Bs // n)} rows")
+            for T in (2, 1):
+                res = check_recurrence(T, dtype, False, Bs, H)
+                out["k1_checks"].append(dict(res, B=Bs, slices=n))
+                torch.cuda.empty_cache()
+
+    k1 = lstm_kernel.lstm_recurrence
+    model, audio, lens, mel_stats, pipe, raised = _serving_model()
+    n_classes = model.n_classes
+    out["blank_raised"] = raised
+
+    tokenizer = bench_serving.bench_tokenizer(n_classes)
+
+    def engine(B, dtype, msym=SERVE_MSYM, **kw):
+        return StreamingEngine(model, n_classes - 1, tokenizer, mel_stats, max_streams=B,
+                               max_symbols_per_step=msym, dtype=dtype, device="cuda", **kw)
+
+    # streamed tokens against offline transcription, fp32
+    resp = offline.transcribe(model, audio, lens, mel_stats, device="cuda",
+                              dtype=torch.float32, pipeline=pipe,
+                              max_symbols_per_step=SERVE_CHECK_MSYM)
+    want = [frame_responses_to_tokens(r) for r in resp]
+    eng = engine(N_UTTS, torch.float32, SERVE_CHECK_MSYM, pipeline_depth=2,
+                 logmel=pipe.logmel)
+    eng.warmup()
+    reset_counts()
+    got = _stream_tokens(eng, audio, lens)
+    counts = read_counts()
+    ticks = int(lens.max()) // 960
+    eng.close()
+    n_tok = sum(map(len, want))
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"  fp32 streamed vs offline tokens: {same}/{N_UTTS} utterances identical, "
+        f"{n_tok} tokens offline, {sum(map(len, got))} streamed ({ticks} ticks of 60 ms, "
+        f"{SERVE_CHECK_MSYM} symbol a frame)")
+    if got != want or n_tok == 0:
+        raise AssertionError("fp32 streamed tokens differ from offline transcription's")
+    if counts["lstm_recurrence"] != ticks * eng.k1_launches_per_tick or any(
+            v for name, v in counts.items() if name != "lstm_recurrence"):
+        raise AssertionError(f"the serving path's launches: {counts} for {ticks}+ ticks")
+    out["streaming_vs_offline"] = {"utterances": N_UTTS, "tokens": n_tok, "ticks": ticks,
+                                   "launches": counts["lstm_recurrence"]}
+
+    # the graph replay against the eager tick, bit for bit
+    packed = {}
+    for graph in (True, False):
+        eng = engine(SERVE_GRAPH_B, torch.bfloat16, cuda_graph=graph)
+        packed[graph] = _graph_script(eng, SERVE_GRAPH_TICKS, SEED)
+        state = [t.clone() for hc in eng.enc_state for t in hc] + list(eng.dec_state)
+        packed[graph, "state"] = state
+        eng.close()
+    equal = len(packed[True]) == len(packed[False]) >= SERVE_GRAPH_TICKS - 2 and all(
+        np.array_equal(a, b) and np.array_equal(aa, ba)
+        for (a, aa), (b, ba) in zip(packed[True], packed[False])) and all(
+        torch.equal(a, b) for a, b in zip(packed[True, "state"], packed[False, "state"]))
+    log(f"  graph replay vs eager tick, B={SERVE_GRAPH_B} bf16, {len(packed[True])} ticks with "
+        f"lanes opening and closing: packed outputs and state bit-equal: {equal}")
+    if not equal:
+        raise AssertionError("the CUDA graph's ticks differ from the eager ticks")
+
+    # K1 counted through the capture on real ticks at B=8192: 8 x slices
+    slices = lstm_kernel.batch_slices(SERVE_COUNT_B, H, torch.bfloat16,
+                                      torch.cuda.get_device_properties(0).multi_processor_count)
+    eng = engine(SERVE_COUNT_B, torch.bfloat16, wire_responses=True)
+    for _ in range(SERVE_COUNT_B):
+        eng.open_stream()
+    eng.warmup()
+    block = (np.random.default_rng(SEED).normal(size=(SERVE_COUNT_B, 960)) * 2000).astype(
+        np.int16)
+    reset_counts()
+    for _ in range(3):
+        eng.push_audio_block(block)
+        eng.tick()
+    counts = read_counts()
+    per_tick = eng.k1_launches_per_tick
+    eng.close()
+    layers = MODELS["base-85M"][0]["enc_pre_rnn_layers"] + MODELS["base-85M"][0][
+        "enc_post_rnn_layers"]
+    log(f"  B={SERVE_COUNT_B} bf16: K1 {per_tick} launches a tick ({layers} layers x {slices} "
+        f"batch slices); 3 ticks counted {counts['lstm_recurrence']}")
+    if per_tick != layers * slices or counts["lstm_recurrence"] != 3 * per_tick:
+        raise AssertionError(f"K1 launches at B={SERVE_COUNT_B}: {per_tick} a tick, "
+                             f"{counts['lstm_recurrence']} in 3 ticks")
+    out["k1"] = {"B": SERVE_COUNT_B, "slices": slices, "per_tick": per_tick,
+                 "launches_3_ticks": counts["lstm_recurrence"]}
+
+    # the server, in process, on the card
+    eng = engine(SERVE_STREAMS + 1, torch.float32, pipeline_depth=1, logmel=pipe.logmel)
+    eng.warmup()
+    out["server"] = _drive_server(eng, audio)
+    eng.close()
+    log(f"  server: {out['server']}")
+
+    # timing: the compute path, then the engine tiers
+    del model
+    torch.cuda.empty_cache()
+    bench_model = bench_serving.build_model("cuda", SEED)
+    out["compute"] = []
+    for Bc in SERVE_COMPUTE_B:
+        c = bench_serving.compute_ms(bench_model, Bc)
+        out["compute"].append(c)
+        log(f"  compute path B={Bc} bf16: {c['ms_per_tick']:.3f} ms a graph replay, "
+            f"K1 {c['k1_launches_per_tick']} launches a tick")
+    out["k1"] = bench_serving.k1_times(SERVE_COMPUTE_B)
+    log("  K1 alone at the tick's shapes, bf16: " + "; ".join(
+        f"T={r['T']} B={r['b']} {r['ms']:.3f} ms ({r['launches']} launches)" for r in out["k1"]))
+    out["ladder"] = bench_serving.run_ladder(bench_model, SERVE_LADDER, log=log)["rungs"]
+    out["headline"] = bench_serving.headline(out["ladder"])
+    log(f"  ladder headline: {out['headline']}")
+    del bench_model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1864,6 +2199,10 @@ def main() -> int:
     log("== wavefront: run_lstm_stack_wavefront at full width, bf16, forward and f+b")
     wavefront = run_wavefront(sl["T_post"])
 
+    # 10. the streaming engine and server
+    log("== serving: StreamingEngine (one CUDA graph a tick) and ASRServer, base-85M")
+    serving = run_serving()
+
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
     counts64 = cells[sorted(cells)[2]]["bfloat16"]["rows"][-1]["launches"]
@@ -1928,6 +2267,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": shape, "launches_per": per,
         })
+        if wrapper == "lstm_recurrence":  # the serving path's own count
+            sv = serving["streaming_vs_offline"]
+            kernels[-1].update({
+                "launches_serving": sv["launches"],
+                "launches_serving_per": f"fp32 streaming of {sv['utterances']} utterances, "
+                                        f"{sv['ticks']} ticks (phase 10)",
+                "max_abs_err_serving": {d: max(c["max_abs_err"] for c in serving["k1_checks"]
+                                               if c["dtype"] == d) for d in TOL}})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -1994,6 +2341,7 @@ def main() -> int:
     log("k8 summary: " + json.dumps(k8_summary))
     log("wavefront summary: " + json.dumps(
         {name: r for name, r in wavefront.items() if name != "launches"}))
+    log("serving summary: " + json.dumps(serving))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,7 +13,8 @@ on each of their staging paths (``csrc/joint_bwd.cuh``,
 derivation alone on each of theirs (``csrc/joint_prod_sm90.cuh``), and the
 wavefront multi-layer LSTM's
 forward, without and with stored gates (K8-fwd), and backward (K8-bwd)
-(``csrc/lstm_wavefront.cu``, ``csrc/lstm_wavefront_bwd.cu``).
+(``csrc/lstm_wavefront.cu``, ``csrc/lstm_wavefront_bwd.cu``); K1 also at the
+serving tick's batch of 8,192, where it runs once per batch slice.
 
 A CUDA kernel has no interpret mode, so these tests need a GPU and nvcc and
 skip elsewhere; run them on the card with
@@ -225,6 +226,38 @@ def test_fp32_at_1536_is_partly_resident(cuda, backward):
                                  lstm_kernel._sm_count(cuda.index or 0))
     assert plan["mode"] == "partial" and 0 < plan["resident_rows"] < plan["rows"]
     _check_layer(cuda, torch.float32, False, 6, 16, 1536, seed=7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 2])
+def test_batch_split_kernel_matches_plain(cuda, dtype, T):
+    # the serving tick's shapes past one launch's batch: B=8,192 at the
+    # encoder's H=1,024 runs K1 once per slice (2 x 4,096 in both dtypes)
+    B, H = 8192, 1024
+    n = lstm_kernel.batch_slices(B, H, dtype, lstm_kernel._sm_count(cuda.index or 0))
+    assert n == 2
+    args = _inputs(T, B, H, dtype, cuda, seed=13)
+    before = lstm_kernel.lstm_recurrence.launches
+    ys, cs = lstm_kernel.lstm_recurrence(*args)
+    torch.cuda.synchronize()
+    assert lstm_kernel.lstm_recurrence.launches == before + n
+    ys_ref, cs_ref = lstm_kernel.lstm_recurrence_plain(*args, False)
+    _close(ys, ys_ref, LSTM_TOL[dtype])
+    _close(cs, cs_ref, LSTM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_uneven_batch_split_kernel_matches_plain(cuda, dtype):
+    # slices of 5,001 and 5,000 rows, each launch reading and writing its
+    # rows of the layer's tensors in place through the kernel's row stride
+    B, H = 10001, 1024
+    assert lstm_kernel.batch_slices(B, H, dtype, lstm_kernel._sm_count(cuda.index or 0)) == 2
+    args = _inputs(2, B, H, dtype, cuda, seed=14)
+    ys, cs = lstm_kernel.lstm_recurrence(*args)
+    torch.cuda.synchronize()
+    ys_ref, cs_ref = lstm_kernel.lstm_recurrence_plain(*args, False)
+    _close(ys, ys_ref, LSTM_TOL[dtype])
+    _close(cs, cs_ref, LSTM_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -155,3 +155,27 @@ def test_partly_resident_plans_read_the_fewest_bytes(B, backward):
             if other["chunk"] >= 4 * other["ksplit"]:
                 others.append(other["l2_bytes_per_step"])
     assert plan["mode"] == "partial" and plan["l2_bytes_per_step"] == min(others)
+
+
+# (B, dtype) -> the fewest slices lstm_plan takes at the encoder's H=1,024
+# on the H100's 132 SMs (the serving tick's batches; bench_serving's ladder)
+SPLITS = {(4096, torch.bfloat16): 1, (6144, torch.bfloat16): 2, (8192, torch.bfloat16): 2,
+          (16384, torch.bfloat16): 3, (4096, torch.float32): 1, (6144, torch.float32): 1,
+          (8192, torch.float32): 2, (16384, torch.float32): 3}
+
+
+@pytest.mark.parametrize("B,dtype", sorted(SPLITS, key=str))
+def test_batch_slices_are_the_fewest_the_plan_takes(B, dtype):
+    n = lstm_kernel.batch_slices(B, 1024, dtype)
+    assert n == SPLITS[B, dtype]
+    rows = -(-B // n)
+    assert (n - 1) * rows < B  # no empty slice
+    lstm_plan(rows, 1024, dtype)  # a slice has a plan
+    if n > 1:  # and one slice fewer has none
+        with pytest.raises(ValueError, match="no plan fits"):
+            lstm_plan(-(-B // (n - 1)), 1024, dtype)
+
+
+def test_batch_slices_raise_where_no_slice_fits():
+    with pytest.raises(ValueError):
+        lstm_kernel.batch_slices(64, 1020, torch.bfloat16)  # H not a multiple of 8

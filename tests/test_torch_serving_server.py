@@ -1,0 +1,225 @@
+"""The port's serving bundle loader, WebSocket server and state-reset router
+against the JAX package's.
+
+One bundle is written in the JAX package's format (a checkpoint of JAX
+parameters, dataset mel statistics, a SentencePiece model): both packages'
+``build_engine`` read it, and the port's engine then computes the JAX
+engine's packed outputs; both servers, on localhost, send the same text
+frames for the same audio and refuse the same requests; and
+``StateResetRouter`` over either engine gives the same responses. Dither
+is 0 in the config: the JAX dither is a ``jax.random`` key, the port's a
+counter hash.
+"""
+
+import asyncio
+import json
+from argparse import Namespace
+
+import jax
+import numpy as np
+import pytest
+import yaml
+
+from caiman_asr_tpu.export.checkpointer import save_checkpoint
+from caiman_asr_tpu.export.serving_bundle import create_serving_bundle
+from caiman_asr_tpu.models.rnnt import RNNT as JaxRNNT
+from caiman_asr_tpu.models.rnnt import RNNTModelConfig as JaxConfig
+from caiman_asr_tpu.serving import server as jax_server
+from caiman_asr_tpu.serving.state_resets import StateResetRouter as JaxRouter
+from caiman_asr_tpu_torch.export.serving_bundle import load_serving_bundle
+from caiman_asr_tpu_torch.serving import server
+from caiman_asr_tpu_torch.serving.state_resets import StateResetRouter
+
+N_PIECES = 11  # the classes: the pieces and the blank
+CFG = dict(in_feats=240, enc_n_hid=16, enc_pre_rnn_layers=1, enc_post_rnn_layers=1,
+           enc_stack_time_factor=2, pred_n_hid=8, pred_rnn_layers=1, joint_n_hid=16,
+           enc_dropout=0.0, pred_dropout=0.0, joint_dropout=0.0)
+FB = dict(sample_rate=16000, window_size=0.025, window_stride=0.01, n_fft=512, n_filt=80,
+          dither=0.0)
+PATH = "/asr/v0.1/stream?content_type=audio/x-raw;format=S16LE;channels=1;rate=16000"
+
+
+@pytest.fixture(scope="module")
+def bundle(tmp_path_factory):
+    from caiman_asr_tpu.data.tokenizer import save_sentencepiece_model
+
+    d = tmp_path_factory.mktemp("bundle")
+    spm = d / "tok.model"
+    save_sentencepiece_model(spm, [("<unk>", 0.0, 2)] + [
+        ("▁" * (i % 2) + chr(97 + i), -float(i + 1), 1) for i in range(N_PIECES - 1)])
+    splice = {"frame_stacking": 3, "frame_subsampling": 3}
+    config = d / "model.yaml"
+    config.write_text(yaml.safe_dump({
+        "tokenizer": {"sentpiece_model": str(spm), "labels": ["a"], "sampling": 0.0},
+        "input_val": {"filterbank_features": FB, "frame_splicing": splice},
+        "input_train": {"filterbank_features": FB, "frame_splicing": splice},
+        "rnnt": CFG}))
+    params = jax.tree.map(np.asarray, JaxRNNT(JaxConfig(**CFG), N_PIECES + 1).init(
+        jax.random.PRNGKey(3)))
+    # blank (the last class) raised so that lanes emit 0 to 4 symbols a tick
+    params["joint_fc"]["b"] = params["joint_fc"]["b"] + np.float32(0.3) * (
+        np.arange(N_PIECES + 1) == N_PIECES).astype(np.float32)
+    ckpt = d / "ckpt.npz"
+    save_checkpoint(ckpt, params, meta={"logmel_norm_weight": 1.0})
+    rng = np.random.default_rng(0)
+    stats = d / "stats.npz"
+    np.savez(stats, melmeans=rng.normal(size=80).astype(np.float32) * 0.1 - 8.0,
+             melvars=(np.abs(rng.normal(size=80)) + 0.5).astype(np.float32) ** 2)
+    out = create_serving_bundle(ckpt, config, d / "bundle.npz", mel_stats_path=stats,
+                                sentencepiece_path=spm, skip_state_dict_check=True)
+    return {"config": str(config), "bundle": str(out), "params": params}
+
+
+def _args(bundle, **kw):
+    return Namespace(**{**dict(
+        model_config=bundle["config"], serving_bundle=bundle["bundle"], ckpt=None,
+        tokenizer_model=None, mel_stats_path=None, max_streams=4, pipeline_depth=0,
+        wire_responses=False, decoder="greedy", num_chips=1, device="cpu"), **kw})
+
+
+def _chunks(seed, n):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=960) * 3000 * np.exp(rng.normal() * 2.0)).clip(
+        -32768, 32767).astype(np.int16) for _ in range(n)]
+
+
+class Recorder:
+    def __init__(self, ser):
+        self.ser, self.packed = ser, []
+
+    def __getattr__(self, name):
+        return getattr(self.ser, name)
+
+    def greedy_tick(self, packed, adv):
+        self.packed.append((np.array(packed), np.array(adv)))
+        return self.ser.greedy_tick(packed, adv)
+
+
+def test_bundle_loads_and_the_engine_matches_jax(bundle):
+    weights, extras, meta = load_serving_bundle(bundle["bundle"])
+    assert {"melmeans", "melvars", "sentencepiece"} <= set(extras)
+    assert meta["rnnt_config"]["enc_n_hid"] == CFG["enc_n_hid"]
+    flat = jax.tree_util.tree_leaves_with_path(bundle["params"])
+    for path, leaf in flat:
+        node = weights
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node, leaf)
+    engines = (jax_server.build_engine(_args(bundle)), server.build_engine(_args(bundle)))
+    logs = []
+    for eng in engines:
+        rec = eng._native_ser = Recorder(eng._native_ser)
+        lanes = [eng.open_stream() for _ in range(3)]
+        for t, chunks in enumerate(zip(*(_chunks(s, 20) for s in range(3)))):
+            for i, (lane, x) in enumerate(zip(lanes, chunks)):
+                if (t + i) % 4 != 1:
+                    eng.push_audio(lane, x)
+            eng.tick()
+        logs.append(rec.packed)
+        eng.close()
+    assert len(logs[0]) == len(logs[1]) == 20
+    for (w, wa), (g, ga) in zip(*logs):
+        np.testing.assert_array_equal(ga, wa)
+        np.testing.assert_array_equal(g[:, -1], w[:, -1])
+        np.testing.assert_array_equal(g[ga], w[wa])
+    assert sum(int(p[:, -1].sum()) for p, _ in logs[1]) > 0
+
+
+def test_build_engine_refuses_what_is_not_ported(bundle):
+    with pytest.raises(NotImplementedError):
+        server.build_engine(_args(bundle, decoder="beam"))
+    with pytest.raises(NotImplementedError):
+        server.build_engine(_args(bundle, num_chips=2))
+    with pytest.raises(NotImplementedError):
+        server.build_engine(_args(bundle, ckpt="x.npz"))
+
+
+def test_servers_send_the_same_frames(bundle):
+    websockets = pytest.importorskip("websockets")
+    import websockets.asyncio.client
+    import websockets.asyncio.server
+
+    async def serve_and_stream(srv, port, audios):
+        ticker = asyncio.create_task(srv._ticker())
+        url = f"ws://127.0.0.1:{port}{PATH}"
+        kw = dict(subprotocols=[server.SUBPROTOCOL])
+
+        async def client(chunks):
+            frames = []
+            async with websockets.asyncio.client.connect(url, **kw) as ws:
+                for x in chunks:
+                    await ws.send(x.tobytes())
+                await ws.send(b"")
+                async for msg in ws:
+                    frames.append(msg)
+            return frames
+
+        async def refused(*messages):
+            async with websockets.asyncio.client.connect(url, **kw) as ws:
+                for m in messages:
+                    await ws.send(m)
+                await asyncio.wait_for(ws.wait_closed(), 30)
+                return ws.close_code
+
+        async with websockets.asyncio.server.serve(srv.handle, "127.0.0.1", port, **kw):
+            frames = await asyncio.wait_for(asyncio.gather(*map(client, audios)), 60)
+            odd = await refused(b"\x00\x00\x00")
+            # every lane held by a silent client, one more is refused
+            holders = [await websockets.asyncio.client.connect(url, **kw) for _ in range(4)]
+            await asyncio.sleep(0.1)
+            full = await refused()
+            for ws in holders:
+                await ws.close()
+        ticker.cancel()
+        return frames, odd, full
+
+    audios = [_chunks(10 + s, 8 + 3 * s) for s in range(3)]
+    results = []
+    for port, build, make in ((18791, jax_server.build_engine, jax_server.ASRServer),
+                              (18792, server.build_engine, server.ASRServer)):
+        eng = build(_args(bundle))
+        results.append(asyncio.run(serve_and_stream(make(eng, tick_interval=0.005), port,
+                                                    audios)))
+        eng.close()
+    (want, want_odd, want_full), (got, got_odd, got_full) = results
+    assert got == want
+    assert sum(map(len, got)) > 0
+    assert all(json.loads(m)["alternatives"] for frames in got for m in frames)
+    assert got_odd == want_odd == 1003
+    assert got_full == want_full == 1013
+
+
+def _route(router, uid, out, got):
+    for m in out.get(uid, []) if isinstance(out.get(uid), list) else (
+            [out[uid]] if uid in out else []):
+        got.append(m if isinstance(m, dict) else json.loads(m))
+
+
+def test_state_reset_router_matches_jax(bundle):
+    """Segments of 6 ticks with 2 of overlap, over both engines: the same
+    responses, one EOS, every lane freed."""
+    results = []
+    for build, Router in ((jax_server.build_engine, JaxRouter),
+                          (server.build_engine, StateResetRouter)):
+        eng = build(_args(bundle, max_streams=4))
+        router = Router(eng, segment_secs=6 * 0.06, overlap_secs=2 * 0.06)
+        uids = [router.open_stream(), router.open_stream()]
+        got = {uid: [] for uid in uids}
+        for t, chunks in enumerate(zip(_chunks(20, 14), _chunks(21, 14))):
+            for uid, x in zip(uids, chunks):
+                router.push_audio(uid, x)
+            out = router.tick()
+            for uid in uids:
+                _route(router, uid, out, got[uid])
+        for uid in uids:
+            router.close_stream(uid)
+        for _ in range(6):
+            out = router.tick()
+            for uid in uids:
+                _route(router, uid, out, got[uid])
+        assert not router.streams and not eng.streams
+        results.append(got)
+        eng.close()
+    assert results[1] == results[0]
+    assert all(sum(1 for m in msgs if m.get("eos")) == 1 for msgs in results[1].values())
+    assert sum(1 for msgs in results[1].values() for m in msgs if "alternatives" in m) > 0
