@@ -1,13 +1,16 @@
-"""The streaming engine's host-side C++: response serialisation and audio
-staging, built on first use and loaded with ctypes.
+"""The port's host-side C++, built on first use and loaded with ctypes.
 
-The port's own copies of the JAX package's ``native/src/serialize.cpp`` and
-``staging.cpp`` (``caiman_asr_tpu/native/__init__.py:170-393``):
+The port's own copies of the JAX package's ``native/src/serialize.cpp``,
+``staging.cpp`` and ``flac_decoder.cpp``
+(``caiman_asr_tpu/native/__init__.py:57-393``):
 
 - ``ResponseSerializer``: the greedy tick's responses as wire-ready JSON
   from the packed int32 tick output, with each lane's frame index;
 - ``AudioStaging``: per-lane int16 buffers and the fill of the staging
-  matrix the tick uploads.
+  matrix the tick uploads;
+- ``flac_decode`` / ``flac_decode_file``: FLAC to int32 samples (the audio
+  reader's FLAC path);
+- ``levenshtein``: the edit distance of two int sequences (WER).
 
 The first use compiles ``src/*.cpp`` with ``g++`` into
 ``build/native/libcaiman_serving.so`` at the root of the checkout (listed in
@@ -24,11 +27,12 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 
-SRCS = [Path(__file__).parent / "src" / "serialize.cpp",
-        Path(__file__).parent / "src" / "staging.cpp"]
+SRCS = [Path(__file__).parent / "src" / name
+        for name in ("serialize.cpp", "staging.cpp", "flac_decoder.cpp")]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 LIB = BUILD_DIR / "libcaiman_serving.so"
 
@@ -78,11 +82,51 @@ def _lib() -> ctypes.CDLL:
         "stg_push_rows_f32": ([vp, vp, lng, vp, i, lng], None),
         "stg_buffered": ([vp, i], lng),
         "stg_tick": ([vp, ctypes.POINTER(ctypes.c_int16), lng, u8p, u8p, i, u8p, u8p], None),
+        "flac_decode": ([ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(i32p),
+                         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i),
+                         ctypes.POINTER(i), ctypes.POINTER(i), ctypes.c_char_p], i),
+        "caiman_free": ([vp], None),
+        "levenshtein_i64": ([ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                             ctypes.POINTER(ctypes.c_int64), ctypes.c_int64], ctypes.c_int64),
     }
     for name, (argtypes, restype) in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+def flac_decode(data: bytes) -> Tuple[np.ndarray, int, int, bytes]:
+    """Decode a FLAC byte stream. Returns (samples [n, channels] int32,
+    sample rate, bits per sample, the STREAMINFO MD5). Raises ValueError on
+    malformed input."""
+    lib = _lib()
+    out = ctypes.POINTER(ctypes.c_int32)()
+    n, ch, sr, bps = ctypes.c_int64(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    md5 = ctypes.create_string_buffer(16)
+    rc = lib.flac_decode(data, len(data), ctypes.byref(out), ctypes.byref(n), ctypes.byref(ch),
+                         ctypes.byref(sr), ctypes.byref(bps), md5)
+    if rc != 0:
+        raise ValueError(f"FLAC decode failed (code {rc})")
+    try:
+        samples = np.ctypeslib.as_array(out, shape=(n.value * ch.value,)).reshape(
+            n.value, ch.value).copy()
+    finally:
+        lib.caiman_free(out)
+    return samples, sr.value, bps.value, bytes(md5.raw)
+
+
+def flac_decode_file(path) -> Tuple[np.ndarray, int, int, bytes]:
+    return flac_decode(Path(path).read_bytes())
+
+
+def levenshtein(a, b) -> int:
+    """Edit distance between two int sequences."""
+    lib = _lib()
+    aa = np.ascontiguousarray(a, dtype=np.int64)
+    bb = np.ascontiguousarray(b, dtype=np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    return int(lib.levenshtein_i64(aa.ctypes.data_as(i64p), len(aa),
+                                   bb.ctypes.data_as(i64p), len(bb)))
 
 
 class _Handle:

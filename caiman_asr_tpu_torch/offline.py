@@ -3,7 +3,9 @@
 The decode half of the JAX package's validation (``val.py`` /
 ``evaluate/core.py``) without manifests, tokenizer training or WER:
 featurise (eval pipeline) -> ``GreedyDecoder.decode`` (encoder, then the
-lock-step greedy loop) -> one ``{frame: FrameResponses}`` per utterance.
+lock-step greedy loop on the device: on the card, chunks of CUDA graph
+replays with one host read a chunk) -> one ``{frame: FrameResponses}`` per
+utterance.
 """
 
 from __future__ import annotations

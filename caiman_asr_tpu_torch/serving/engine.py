@@ -202,6 +202,9 @@ def _flat(enc: EncoderState, dec) -> List[torch.Tensor]:
     return [*enc.pre_rnn, *enc.post_rnn, *dec]
 
 
+# guards K1's launch count, which the replays of every engine add to
+_LAUNCHES_LOCK = threading.Lock()
+
 # the dither's seed (the JAX engine's key is PRNGKey(4242))
 DITHER_SEED = 4242
 
@@ -562,7 +565,8 @@ class StreamingEngine:
                 read.record(self._stream)
             if self._graph is not None:
                 self._graph.replay()
-                lstm_kernel.lstm_recurrence.launches += self.k1_launches_per_tick
+                with _LAUNCHES_LOCK:  # engines on several cards tick from threads
+                    lstm_kernel.lstm_recurrence.launches += self.k1_launches_per_tick
             else:
                 self._step()
             buf = self._out_pool.get()

@@ -20,8 +20,9 @@ imports):
 
 The model is built from the config's ``rnnt`` block with the bundle's
 weights; the tokenizer from the bundle's ``sentencepiece`` bytes (or
-``--tokenizer_model``). Not ported: ``--ckpt`` (checkpoints), the beam
-decoder and several chips (``--num_chips``).
+``--tokenizer_model``). ``--num_chips N`` serves over the first N cards,
+one engine each (``serving/multi_chip.py``). Not ported: ``--ckpt``
+(checkpoints) and the beam decoder.
 """
 
 from __future__ import annotations
@@ -223,7 +224,10 @@ def build_engine(args):
     tokenizer from the bundle's SentencePiece bytes unless
     ``--tokenizer_model`` names a file, the mel statistics from the bundle
     unless ``--mel_stats_path`` names an ``.npz`` (melmeans, melvars). Runs
-    on ``--device`` (cuda unless "cpu" is asked for; no card raises)."""
+    on ``--device`` (cuda unless "cpu" is asked for; no card raises). With
+    ``--num_chips`` N > 1, a ``MultiChipEngine`` over the first N cards
+    (``SystemExit`` when fewer are visible), or over N engines on the CPU
+    with ``--device cpu``; ``--max_streams`` lanes each."""
     import torch
 
     from caiman_asr_tpu_torch.data.tokenizer import Tokenizer
@@ -233,15 +237,20 @@ def build_engine(args):
     from caiman_asr_tpu_torch.models.config import load_config
     from caiman_asr_tpu_torch.models.rnnt import RNNT
     from caiman_asr_tpu_torch.serving.engine import StreamingEngine
+    from caiman_asr_tpu_torch.serving.multi_chip import MultiChipEngine
 
-    if getattr(args, "num_chips", 1) != 1:
-        raise NotImplementedError("serving over several cards is not ported yet")
+    num_chips = getattr(args, "num_chips", 1) or 1
+    device = getattr(args, "device", "cuda")
+    if num_chips > 1 and torch.device(device).type == "cuda":
+        visible = torch.cuda.device_count()
+        if visible < num_chips:
+            raise SystemExit(f"--num_chips {num_chips} but only {visible} cards visible")
     if getattr(args, "ckpt", None):
         raise NotImplementedError("--ckpt: reading checkpoints is not ported yet; "
                                   "pass --serving_bundle")
     if not args.serving_bundle:
         raise ValueError("--serving_bundle is required")
-    device = resolve_device(getattr(args, "device", "cuda"))
+    device = resolve_device(device)
     cfg = load_config(args.model_config)
     weights, extras, _ = load_serving_bundle(args.serving_bundle)
     if args.tokenizer_model:
@@ -258,16 +267,22 @@ def build_engine(args):
                          np.sqrt(np.asarray(z["melvars"], np.float32)))
     else:
         mel_stats = bundle_mel_stats(extras)
-    return StreamingEngine(
-        model, tokenizer.num_labels, tokenizer, mel_stats=mel_stats,
-        max_streams=args.max_streams, decoder=getattr(args, "decoder", "greedy"),
+    engine_kw = dict(
+        mel_stats=mel_stats, decoder=getattr(args, "decoder", "greedy"),
         logmel=cfg.input_val.logmel,
         frame_stacking=cfg.input_val.splicing.frame_stacking,
         frame_subsampling=cfg.input_val.splicing.frame_subsampling,
         pipeline_depth=getattr(args, "pipeline_depth", 1),
         wire_responses=getattr(args, "wire_responses", False),
-        device=device, dtype=torch.float32,
+        dtype=torch.float32,
     )
+    if num_chips > 1:
+        devices = (["cpu"] * num_chips if device.type == "cpu"
+                   else [f"cuda:{i}" for i in range(num_chips)])
+        return MultiChipEngine(model, tokenizer.num_labels, tokenizer, devices=devices,
+                               max_streams_per_chip=args.max_streams, **engine_kw)
+    return StreamingEngine(model, tokenizer.num_labels, tokenizer,
+                           max_streams=args.max_streams, device=device, **engine_kw)
 
 
 def main(argv=None):
@@ -279,9 +294,11 @@ def main(argv=None):
     p.add_argument("--mel_stats_path", default=None)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8765)
-    p.add_argument("--max_streams", type=int, default=64, help="lane capacity")
-    p.add_argument("--num_chips", type=int, default=1, help="not ported: 1 only")
-    p.add_argument("--device", default="cuda", help="cuda (one card) or cpu")
+    p.add_argument("--max_streams", type=int, default=64, help="lane capacity per card")
+    p.add_argument("--num_chips", type=int, default=1,
+                   help="serve over the first N cards: one engine per card, lanes routed "
+                        "to the least-loaded card (with --device cpu: N engines on the CPU)")
+    p.add_argument("--device", default="cuda", help="cuda (the cards) or cpu")
     p.add_argument("--decoder", default="greedy", choices=["greedy", "beam"],
                    help="beam is not ported and raises")
     p.add_argument("--pipeline_depth", type=int, default=1,
@@ -302,7 +319,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     engine = build_engine(args)
     engine.warmup()
-    where = f"{engine.B} lanes on {engine.device}"
+    devices = getattr(engine, "devices", None) or [engine.device]
+    where = f"{engine.B} lanes on {', '.join(map(str, devices))}"
     if args.sr_segment > 0:
         from caiman_asr_tpu_torch.serving.state_resets import StateResetRouter
 

@@ -17,7 +17,10 @@ Phases:
   3. the slice at full width: base-85M (random weights from a seeded
      generator) transcribes 16 synthetic utterances offline with greedy
      decoding, in fp32 and bf16; the launch counts must equal the expected
-     number and the fp32 result must equal the plain path's;
+     number and the fp32 result must equal the plain path's; the greedy
+     loop runs as CUDA graph replays, one host read a chunk (its
+     iterations, chunks and host reads printed), and its replays, first
+     and cached, equal its eager chunks on the card bit for bit;
   4. the train step at full width: base-85M with its dropouts takes LAMB
      steps on one batch of the same 16 utterances with random transcripts,
      in bf16 and in fp32 compute; every loss finite, none skipped, the loss
@@ -31,7 +34,8 @@ Phases:
      store policy's route at each batch size (bf16 slab, int8 slab, no
      slab) shown by the launch counts, bf16 steps and one fp32 step each,
      breakdowns, the routes against each other and each against its plain
-     path, the validation loss and offline transcription;
+     path, the validation loss and offline transcription (its loop checked
+     as in phase 3);
   7b. large-196M at full width forced, by the policy's knobs, onto each
      remaining route of the joint's backward: the fused stored-u backward
      (B=16), the two-kernel int8 backward (B=32), the rechunked backward and
@@ -73,7 +77,18 @@ Phases:
      frame and a client past capacity refused; the compute path (ms a graph
      replay at B = 1,024, 4,096, 8,192), K1 alone at those batches at T=2
      and T=1, and bench_serving's engine tiers on a short ladder (8,192,
-     4,096).
+     4,096);
+  11. the router and the clients (base-85M, greedy, fp32, one symbol a
+     tick): the smoke's utterances written as WAV, read back by read_audio;
+     MultiChipEngine over every visible card and over two engines on one
+     card (thread pool, serial captures, concurrent replays, global ids,
+     wire mode) against one StreamingEngine, transcript for transcript, K1
+     counted on every replay; build_engine with --num_chips past the card
+     count exits; the transcriber's loop (FileStreamer, realtime=False) and
+     measures.measure against ASRServer.handle over two engines, in
+     process: WER 0 against one engine's transcripts, the WER against the
+     offline fp32 transcripts of the same audio and the latency fields
+     printed.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -84,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import difflib
+import functools
 import json
 import math
 import subprocess
@@ -270,6 +286,32 @@ SLAB = {"bf16": (1 << 62, "bf16"), "i8": (1 << 62, "i8"), None: (0, "auto"),
         "recompute": (0, "auto")}
 JOINT_KERNELS = ("K2", "K5-store", "K7-store8", "K5-A", "K5-B", "K7-fused-u8", "K6-fused",
                  "K5-fused-u", "K7-A8", "K7-B8", "K6-derive-a", "K4-A", "K4-B")
+
+
+@functools.cache
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+@contextlib.contextmanager
+def loop_runs():
+    """Within: each GreedyDecoder.decode_encs call's loop statistics
+    (iterations, chunks, host reads, graph), in order."""
+    from caiman_asr_tpu_torch.decoding.greedy import GreedyDecoder
+
+    runs, real = [], GreedyDecoder.decode_encs
+
+    def decode_encs(self, *args, **kw):
+        out = real(self, *args, **kw)
+        runs.append(dict(self.last_run, chunk_iters=self.chunk_iters))
+        return out
+
+    with mock.patch.object(GreedyDecoder, "decode_encs", decode_encs):
+        yield runs
 
 
 def log(msg: str) -> None:
@@ -465,6 +507,7 @@ def tokens(responses):
 
 
 def run_slice(name: str = "base-85M") -> dict:
+    import numpy as np
     import torch
 
     from caiman_asr_tpu_torch import offline
@@ -502,19 +545,30 @@ def run_slice(name: str = "base-85M") -> dict:
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        responses = offline.transcribe(model, audio, lens, device="cuda", dtype=dtype,
-                                       pipeline=pipe)
+        with loop_runs() as runs:
+            responses = offline.transcribe(model, audio, lens, device="cuda", dtype=dtype,
+                                           pipeline=pipe)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = lstm_kernel.lstm_recurrence.launches
-        log(f"  transcribe {dname}: {wall * 1e3:.1f} ms, "
-            f"{audio_secs / wall:.1f} audio-s/s; lstm_recurrence_fwd launches "
-            f"{launches} (expected {expected})")
+        loop = runs[-1]
+        log(f"  transcribe {dname}: {wall * 1e3:.1f} ms (greedy loop on the device, its CUDA "
+            f"graph captured in this call; the host loop before it: 1981.1 ms at base-85M fp32, "
+            f"PERF.md §5), "
+            f"{audio_secs / wall:.1f} audio-s/s on {card()}; lstm_recurrence_fwd launches "
+            f"{launches} (expected {expected}); greedy loop: {loop['iters']} iterations in "
+            f"{loop['chunks']} chunks of {loop['chunk_iters']}, {loop['host_reads']} host reads")
         if launches != expected:
             raise AssertionError(f"{dname}: {launches} launches, expected {expected}")
-        out[dname] = {"responses": responses, "launches": launches, "wall_s": wall}
+        if len(runs) != 1 or not loop["graph"] or loop["host_reads"] != loop["chunks"]:
+            raise AssertionError(f"{dname}: the greedy loop did not replay one graph a chunk, "
+                                 f"one host read each: {runs}")
+        out[dname] = {"responses": responses, "launches": launches, "wall_s": wall,
+                      "loop": loop}
 
-        # layer times of this run's path, each ending in a synchronise
+        # layer times of this run's path, each ending in a synchronise; the
+        # loop as a first call (capture and replays), from the cache, and as
+        # eager chunks on the card
         with torch.inference_mode():
             decoder = GreedyDecoder(model, model.n_classes - 1)
             t0 = time.perf_counter()
@@ -524,12 +578,29 @@ def run_slice(name: str = "base-85M") -> dict:
             encs, enc_lens, _ = model.encode(f_in.to(dtype), fl)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            decoder.decode_encs(encs, enc_lens)
+            first = decoder.decode_encs(encs, enc_lens)
             t3 = time.perf_counter()
+            cached = decoder.decode_encs(encs, enc_lens)
+            t4 = time.perf_counter()
+            eager_decoder = GreedyDecoder(model, model.n_classes - 1, cuda_graph=False)
+            eager = eager_decoder.decode_encs(encs, enc_lens)
+            t5 = time.perf_counter()
+        same = all(np.array_equal(a, b) and np.array_equal(a, c)
+                   for a, b, c in zip(first, cached, eager))
+        if not (decoder.last_run["graph"] and not eager_decoder.last_run["graph"]):
+            raise AssertionError(f"{dname}: the loops did not take the routes asked for")
         out[dname].update(featurize_ms=1e3 * (t1 - t0), encode_ms=1e3 * (t2 - t1),
-                          decode_ms=1e3 * (t3 - t2), encs=encs, enc_lens=enc_lens)
+                          decode_first_ms=1e3 * (t3 - t2), decode_cached_ms=1e3 * (t4 - t3),
+                          decode_eager_ms=1e3 * (t5 - t4), encs=encs, enc_lens=enc_lens,
+                          graph_equals_eager=same)
         log(f"    featurize {1e3 * (t1 - t0):.2f} ms | encode {1e3 * (t2 - t1):.2f} ms"
-            f" | greedy decode {1e3 * (t3 - t2):.2f} ms")
+            f" | greedy decode: first call (capture + replays) {1e3 * (t3 - t2):.2f} ms, "
+            f"cached graph {1e3 * (t4 - t3):.2f} ms, eager chunks {1e3 * (t5 - t4):.2f} ms; "
+            f"graph replays vs eager chunks: tokens, frames, log-probs and counts bit-equal: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{dname}: the greedy loop's graph replays differ from its "
+                                 "eager chunks")
 
     # fp32: the kernel path against the plain path on the card
     fp32 = out["float32"]
@@ -2026,6 +2097,237 @@ def run_serving() -> dict:
     return out
 
 
+# ------------------------------------------------------ router and clients
+ROUTER_DEVICES = ("cuda:0", "cuda:0")  # two engines on one card: the pool, gids, wire
+
+
+class _End:
+    """One end of an in-process duplex connection: the little of a
+    ``websockets`` connection that ``ASRServer.handle`` (server end: the
+    request path) and ``transcriber.stream_file`` (client end) use; closing
+    either end ends the other end's iteration."""
+
+    CLOSE = object()
+
+    def __init__(self, inbox, outbox, path=None):
+        from types import SimpleNamespace
+
+        self.request = SimpleNamespace(path=path)
+        self.inbox, self.outbox, self.closed = inbox, outbox, None
+
+    @classmethod
+    def pair(cls, path: str):
+        import asyncio
+
+        a, b = asyncio.Queue(), asyncio.Queue()
+        return cls(a, b), cls(b, a, path)  # (client, server)
+
+    async def send(self, msg):
+        await self.outbox.put(msg)
+
+    async def close(self, code: int = 1000, reason: str = ""):
+        if self.closed is None:
+            self.closed = (code, reason)
+            await self.outbox.put(self.CLOSE)
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self):
+        msg = await self.inbox.get()
+        if msg is self.CLOSE:
+            raise StopAsyncIteration
+        return msg
+
+
+def _stream_texts(engine, pcm: list) -> tuple:
+    """Every utterance (int16 PCM, whole 60 ms chunks) on its own stream,
+    a chunk a tick, to EOS, through the engine's public interface (global
+    ids on a router). Returns (the stream ids, each stream's transcript)."""
+    from caiman_asr_tpu_torch.serving.engine import WireTick
+
+    gids = [engine.open_stream() for _ in pcm]
+    parts = {g: [] for g in gids}
+
+    def collect(out):
+        if isinstance(out, WireTick):
+            out = out.to_dict()
+        for g, msgs in out.items():
+            for m in msgs if isinstance(msgs, list) else [msgs]:
+                m = json.loads(m) if isinstance(m, (str, bytes)) else m
+                if m.get("alternatives"):
+                    parts[g].append(m["alternatives"][0]["transcript"])
+
+    for t in range(max(map(len, pcm)) // 960):
+        for g, x in zip(gids, pcm):
+            if t * 960 < len(x):
+                engine.push_audio(g, x[t * 960:(t + 1) * 960])
+                if (t + 1) * 960 >= len(x):
+                    engine.close_stream(g)
+        collect(engine.tick())
+    while engine.streams:
+        collect(engine.tick())
+    return gids, ["".join(parts[g]).strip() for g in gids]
+
+
+def _k1_expected(engines) -> int:
+    """K1's launches over the ticks the engines dispatched."""
+    return sum(e._tick_count * e.k1_launches_per_tick for e in engines)
+
+
+def run_router_clients() -> dict:
+    """Phase 11: MultiChipEngine over every visible card and over two
+    engines on one card, build_engine past the card count, and the
+    transcriber and measures against ASRServer.handle in process."""
+    import asyncio
+    import tempfile
+    import wave
+    from argparse import Namespace
+
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import bench_serving, offline
+    from caiman_asr_tpu_torch.data.audio import read_audio
+    from caiman_asr_tpu_torch.decoding.response import frame_responses_to_tokens
+    from caiman_asr_tpu_torch.inference import measures, transcriber
+    from caiman_asr_tpu_torch.inference.file_streamer import FileStreamer
+    from caiman_asr_tpu_torch.serving import server
+    from caiman_asr_tpu_torch.serving.engine import StreamingEngine
+    from caiman_asr_tpu_torch.serving.multi_chip import MultiChipEngine
+
+    model, audio, lens, mel_stats, pipe, _ = _serving_model()
+    n_classes = model.n_classes
+    tokenizer = bench_serving.bench_tokenizer(n_classes)
+    kw = dict(mel_stats=mel_stats, max_symbols_per_step=SERVE_CHECK_MSYM, dtype=torch.float32,
+              logmel=pipe.logmel)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the smoke's utterances as WAV, read back, and the PCM the file
+        # streamer sends of each (it scales by 32767 / 32768, truncating)
+        paths, pcm = [], []
+        for i, n in enumerate(lens):
+            path = f"{tmp}/u{i:02d}.wav"
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(SR)
+                w.writeframes(np.rint(audio[i, :n] * 32768).astype("<i2").tobytes())
+            if not np.array_equal(read_audio(path), audio[i, :n]):
+                raise AssertionError(f"read_audio did not give back {path}'s samples")
+            paths.append(path)
+            pcm.append(np.frombuffer(b"".join(FileStreamer(path, realtime=False)), "<i2"))
+        sent = np.zeros(audio.shape, np.float32)
+        for i, x in enumerate(pcm):
+            sent[i, :len(x)] = x / 32768.0
+
+        # offline fp32 transcripts of that audio at one symbol a frame, and
+        # one engine's streamed transcripts of it (phase 10 holds the two
+        # equal on the smoke's own audio; on this audio they may part where
+        # a decision is a near-tie, as their fp32 arithmetic differs)
+        resp = offline.transcribe(model, sent, lens, mel_stats, device="cuda",
+                                  dtype=torch.float32, pipeline=pipe,
+                                  max_symbols_per_step=SERVE_CHECK_MSYM)
+        refs = ["".join(tokenizer.id_to_piece(t) for t in frame_responses_to_tokens(r)
+                        ).replace("\u2581", " ").strip() for r in resp]
+        one = StreamingEngine(model, n_classes - 1, tokenizer, max_streams=N_UTTS,
+                              device="cuda", **kw)
+        one.warmup()
+        _, want = _stream_texts(one, pcm)
+        one.close()
+        if not any(want):
+            raise AssertionError("the streamed transcripts are empty: the checks are vacuous")
+        same = sum(a == b for a, b in zip(want, refs))
+        out["offline_vs_one_engine"] = {"identical_streams": same, "streams": len(refs)}
+        log(f"  one engine's streamed transcripts vs offline fp32 at one symbol a frame, on "
+            f"the audio the file streamer sends: {same}/{len(refs)} streams identical")
+
+        routers = {}
+        for label, devices, extra in (
+                ("every card", None, {}),
+                ("two engines on cuda:0", ROUTER_DEVICES,
+                 dict(wire_responses=True, pipeline_depth=1))):
+            n_eng = torch.cuda.device_count() if devices is None else len(devices)
+            per_chip = -(-N_UTTS // n_eng)
+            mc = MultiChipEngine(model, n_classes - 1, tokenizer, devices=devices,
+                                 max_streams_per_chip=per_chip, **kw, **extra)
+            mc.warmup()
+            reset_counts()
+            gids, got = _stream_texts(mc, pcm)
+            counts = read_counts()
+            k1_want = _k1_expected(mc.engines)
+            mc.close()
+            engines_used = sorted({g // per_chip for g in gids})
+            res = {"devices": [str(d) for d in mc.devices], "gids": gids,
+                   "engines_used": engines_used, "k1_launches": counts["lstm_recurrence"],
+                   "k1_expected": k1_want, "same_as_one_engine": got == want}
+            routers[label] = res
+            log(f"  MultiChipEngine over {label} ({res['devices']}): gids {gids}; "
+                f"transcripts equal one engine's: {got == want}; K1 launches "
+                f"{counts['lstm_recurrence']} (expected {k1_want})")
+            if got != want:
+                raise AssertionError(f"{label}: the router's transcripts differ from one "
+                                     "engine's")
+            if counts["lstm_recurrence"] != k1_want or k1_want == 0 or any(
+                    v for name, v in counts.items() if name != "lstm_recurrence"):
+                raise AssertionError(f"{label}: the router's launches {counts}, K1 expected "
+                                     f"{k1_want}")
+            if engines_used != list(range(len(mc.engines))):
+                raise AssertionError(f"{label}: streams were not spread over the engines")
+        out["routers"] = routers
+
+        past = torch.cuda.device_count() + 1
+        try:
+            server.build_engine(Namespace(num_chips=past, device="cuda", ckpt=None,
+                                          serving_bundle=None, model_config=None))
+        except SystemExit as e:
+            out["num_chips_past_the_cards"] = str(e)
+            log(f"  build_engine --num_chips {past}: SystemExit({e})")
+        else:
+            raise AssertionError(f"build_engine --num_chips {past} did not exit")
+
+        # the transcriber's loop and measures against ASRServer.handle in
+        # process, over two engines on one card
+        mc = MultiChipEngine(model, n_classes - 1, tokenizer, devices=ROUTER_DEVICES,
+                             max_streams_per_chip=N_UTTS // 2, pipeline_depth=1, **kw)
+        mc.warmup()
+        path_q = ("/asr/v0.1/stream?" + transcriber.QUERY)
+
+        async def scenario():
+            srv = server.ASRServer(mc, tick_interval=0.005)
+            ticker = asyncio.create_task(srv._ticker())
+            pairs = [_End.pair(path_q) for _ in paths]
+            results = [transcriber.TranscriptionResult(fname=p, duration=len(x) / SR)
+                       for p, x in zip(paths, pcm)]
+            await asyncio.wait_for(asyncio.gather(
+                *(srv.handle(s_end) for _, s_end in pairs),
+                *(transcriber.stream_file(c_end, FileStreamer(p, realtime=False), r)
+                  for (c_end, _), p, r in zip(pairs, paths, results))), 300)
+            ticker.cancel()
+            return results
+
+        reset_counts()
+        t0 = time.perf_counter()
+        results = asyncio.run(scenario())
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        mc.close()
+        stats = measures.measure(results, want)
+        vs_offline = measures.measure(results, refs)
+        out["clients"] = {"wall_s": wall, "measures": stats, "vs_offline": vs_offline,
+                          "k1_launches": counts["lstm_recurrence"]}
+        log(f"  transcriber + measures against ASRServer.handle over two engines on cuda:0, "
+            f"{len(paths)} WAV files, realtime=False: {wall:.2f} s; against one engine's "
+            f"streamed transcripts {json.dumps(stats)}; WER against offline fp32 "
+            f"{vs_offline['wer']} over {vs_offline['n_words']} words; K1 launches "
+            f"{counts['lstm_recurrence']}")
+        if stats["wer"] != 0.0 or stats["n_words"] == 0 or [r.transcript for r in results] != want:
+            raise AssertionError(f"the clients' transcripts differ from one engine's: {stats}")
+        if counts["lstm_recurrence"] == 0:
+            raise AssertionError("the server's ticks launched no K1")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2046,12 +2348,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     # 1. set-up
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
     log(f"== setup: torch {torch.__version__} (CUDA {torch.version.cuda}), "
-        f"{torch.cuda.device_count()} device(s): {torch.cuda.get_device_name(0)}; {card}")
+        f"{torch.cuda.device_count()} device(s): {torch.cuda.get_device_name(0)}; {card()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -2203,6 +2501,11 @@ def main() -> int:
     log("== serving: StreamingEngine (one CUDA graph a tick) and ASRServer, base-85M")
     serving = run_serving()
 
+    # 11. the router over several engines and the clients
+    log("== router and clients: MultiChipEngine, build_engine --num_chips, transcriber, "
+        "measures, base-85M")
+    router = run_router_clients()
+
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
     counts64 = cells[sorted(cells)[2]]["bfloat16"]["rows"][-1]["launches"]
@@ -2275,6 +2578,11 @@ def main() -> int:
                                         f"{sv['ticks']} ticks (phase 10)",
                 "max_abs_err_serving": {d: max(c["max_abs_err"] for c in serving["k1_checks"]
                                                if c["dtype"] == d) for d in TOL}})
+            rt = router["routers"][f"two engines on {ROUTER_DEVICES[0]}"]
+            kernels[-1].update({
+                "launches_router": rt["k1_launches"],
+                "launches_router_per": "fp32 streaming of the smoke's utterances over two "
+                                       "engines on one card (phase 11)"})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -2342,8 +2650,13 @@ def main() -> int:
     log("wavefront summary: " + json.dumps(
         {name: r for name, r in wavefront.items() if name != "launches"}))
     log("serving summary: " + json.dumps(serving))
+    log("router and clients summary: " + json.dumps(router))
+    log("transcription summary: " + json.dumps({
+        "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
+        "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},
+        "card": card()}))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
-    print(card, flush=True)
+    print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

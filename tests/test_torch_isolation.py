@@ -19,6 +19,7 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any "import jax" now raises
 sys.modules["websockets"] = None  # the machine with the card may lack it
+sys.modules["pyaudio"] = None  # the live client imports it only for the microphone
 import caiman_asr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(caiman_asr_tpu_torch.__path__,
                                                "caiman_asr_tpu_torch.")]
