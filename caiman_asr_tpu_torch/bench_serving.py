@@ -31,6 +31,14 @@ Tiers, per rung of the ladder of batch sizes B (largest first):
   device's busy share of a tick and its largest kernels, and over the
   tick run eagerly, device time by the operator that launched it.
 
+``--decoder beam`` runs the same tiers over the beam engine (width
+``--beam_width``, ``--beam_win`` token slots a hypothesis to the host a
+tick, ``--score_thresh`` / ``--topk_thresh`` / ``--fe_frames`` as
+``scripts/bench_beam_serving.py`` takes them, off unless given), without the
+profile:
+
+    python -m caiman_asr_tpu_torch.bench_serving --decoder beam --ladder 4096 2048 1024
+
 Weights are random, drawn from ``--seed``. Run on the card:
 
     python -m caiman_asr_tpu_torch.bench_serving [--ladder 16384 8192 4096]
@@ -115,13 +123,26 @@ def build_model(device="cuda", seed: int = 0, config: Optional[dict] = None,
 
 
 def build_engine(model, batch_size: int, *, pipeline_depth: int = 8, tokenizer=None,
-                 wire: bool = True, dtype=torch.bfloat16, cuda_graph: bool = True):
+                 wire: bool = True, dtype=torch.bfloat16, cuda_graph: bool = True,
+                 engine_kw: Optional[dict] = None):
+    """``engine_kw``: more of ``StreamingEngine``'s options (the beam's, as
+    ``beam_options`` gives them)."""
     from caiman_asr_tpu_torch.serving.engine import StreamingEngine
 
     return StreamingEngine(
         model, model.n_classes - 1, tokenizer, max_streams=batch_size,
         max_symbols_per_step=MAX_SYMBOLS, dtype=dtype, pipeline_depth=pipeline_depth,
-        wire_responses=wire, device=next(model.parameters()).device, cuda_graph=cuda_graph)
+        wire_responses=wire, device=next(model.parameters()).device, cuda_graph=cuda_graph,
+        **(engine_kw or {}))
+
+
+def beam_options(width: int = 4, win: int = 64, score_thresh: Optional[float] = None,
+                 topk_thresh: Optional[float] = None, fe_frames: Optional[int] = None) -> dict:
+    """The beam engine's options (``scripts/bench_beam_serving.py``'s knobs:
+    the window a hypothesis ships a tick, the pruning thresholds, the
+    final-emission budget in ticks; None disables each)."""
+    return dict(decoder="beam", beam_width=width, beam_win=win, beam_score_thresh=score_thresh,
+                beam_topk_thresh=topk_thresh, beam_final_emission_frames=fe_frames)
 
 
 def _p99(xs) -> float:
@@ -129,14 +150,16 @@ def _p99(xs) -> float:
     return xs[min(int(np.ceil(0.99 * len(xs))) - 1, len(xs) - 1)]
 
 
-def measure_engine(model, batch_size: int, paced: bool = False, tokenizer=None) -> dict:
+def measure_engine(model, batch_size: int, paced: bool = False, tokenizer=None,
+                   engine_kw: Optional[dict] = None) -> dict:
     """The whole ``tick()`` loop over ``batch_size`` open lanes: each tick
     pushes one 60 ms int16 block for every lane and drains the responses.
     Unpaced: TICKS back-to-back ticks, the mean and p99 wall (ms). Paced:
     PACED_TICKS ticks on the 60 ms grid, p99 and max of (``tick()`` return -
     grid slot), and of each chunk's response latency (the ``tick()`` return
     that hands out its tick's responses - its grid slot) (ms)."""
-    eng = build_engine(model, batch_size, tokenizer=tokenizer or bench_tokenizer())
+    eng = build_engine(model, batch_size, tokenizer=tokenizer or bench_tokenizer(),
+                       engine_kw=engine_kw)
     try:
         for _ in range(batch_size):
             eng.open_stream()
@@ -188,11 +211,13 @@ def measure_engine(model, batch_size: int, paced: bool = False, tokenizer=None) 
         eng.close()
 
 
-def compute_ms(model, batch_size: int, reps: int = 20, dtype=torch.bfloat16) -> dict:
+def compute_ms(model, batch_size: int, reps: int = 20, dtype=torch.bfloat16,
+               engine_kw: Optional[dict] = None) -> dict:
     """The tick alone, every lane advancing: ms per CUDA graph replay,
     ``reps`` replays chained on the engine's stream between two events (on
     the CPU, ms per eager tick). Also the K1 launches a tick."""
-    eng = build_engine(model, batch_size, pipeline_depth=0, wire=False, dtype=dtype)
+    eng = build_engine(model, batch_size, pipeline_depth=0, wire=False, dtype=dtype,
+                       engine_kw=engine_kw)
     try:
         eng.warmup()
         rng = np.random.default_rng(0)
@@ -300,13 +325,14 @@ def busy_share(model, batch_size: int, ticks: int = 20) -> dict:
         eng.close()
 
 
-def eager_ops(model, batch_size: int, ticks: int = 5) -> dict:
+def eager_ops(model, batch_size: int, ticks: int = 5, engine_kw: Optional[dict] = None) -> dict:
     """The tick run eagerly (``cuda_graph=False``) under ``torch.profiler``,
     every lane advancing: device ms a tick by the PyTorch operator that
     launched it (a graph replay hides which operator launched a kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng = build_engine(model, batch_size, pipeline_depth=0, wire=False, cuda_graph=False)
+    eng = build_engine(model, batch_size, pipeline_depth=0, wire=False, cuda_graph=False,
+                       engine_kw=engine_kw)
     try:
         eng.warmup()
         eng._in_meta[:batch_size] = 1
@@ -327,7 +353,7 @@ def eager_ops(model, batch_size: int, ticks: int = 5) -> dict:
         eng.close()
 
 
-def run_ladder(model, ladder, log=print) -> dict:
+def run_ladder(model, ladder, log=print, engine_kw: Optional[dict] = None) -> dict:
     """Largest B first: the back-to-back tier, then, where its mean holds
     60 ms, the paced tier; stops at the first B that passes the paced tier."""
     tok = bench_tokenizer(model.n_classes)
@@ -337,14 +363,14 @@ def run_ladder(model, ladder, log=print) -> dict:
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
         try:
-            rung = measure_engine(model, B, tokenizer=tok)
+            rung = measure_engine(model, B, tokenizer=tok, engine_kw=engine_kw)
         except torch.cuda.OutOfMemoryError as e:
             rungs.append({"b": B, "error": f"out of memory: {e}"[:200]})
             log(f"  B={B}: out of device memory")
             continue
         if rung["mean_ms"] <= 1e3 * CHUNK_SECONDS:
-            rung.update({k: v for k, v in measure_engine(model, B, paced=True,
-                                                         tokenizer=tok).items()
+            rung.update({k: v for k, v in measure_engine(model, B, paced=True, tokenizer=tok,
+                                                         engine_kw=engine_kw).items()
                          if k.startswith(("cl99", "paced", "response"))})
         rungs.append(rung)
         log(f"  rung {json.dumps(rung)}")
@@ -391,27 +417,44 @@ def main(argv=None) -> int:
     p.add_argument("--ladder", type=int, nargs="+", default=list(LADDER))
     p.add_argument("--device", default="cuda", help="cuda, or cpu (no timing of the card)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--decoder", choices=["greedy", "beam"], default="greedy")
+    p.add_argument("--beam_width", type=int, default=4)
+    p.add_argument("--beam_win", type=int, default=64,
+                   help="beam: token slots a hypothesis ships to the host a tick")
+    p.add_argument("--score_thresh", type=float, default=None,
+                   help="beam: length-normalised score pruning (the server's 0.4); off")
+    p.add_argument("--topk_thresh", type=float, default=None,
+                   help="beam: acoustic candidate threshold (the server's 1.5); off")
+    p.add_argument("--fe_frames", type=int, default=None,
+                   help="beam: final-emission budget in ticks; off")
     args = p.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     model = build_model(args.device, args.seed)
     cuda = torch.device(args.device).type == "cuda"
-    compute = [compute_ms(model, B) for B in COMPUTE_B]
+    kw = None
+    if args.decoder == "beam":
+        kw = beam_options(args.beam_width, args.beam_win, args.score_thresh, args.topk_thresh,
+                          args.fe_frames)
+    compute = [compute_ms(model, B, engine_kw=kw) for B in COMPUTE_B]
     for c in compute:
         print(f"  compute {json.dumps(c)}", flush=True)
     k1 = k1_times(COMPUTE_B) if cuda else []
     for r in k1:
         print(f"  K1 {json.dumps(r)}", flush=True)
-    rungs = run_ladder(model, args.ladder)["rungs"]
+    rungs = run_ladder(model, args.ladder, engine_kw=kw)["rungs"]
     value, what = headline(rungs)
-    line = {"metric": "streaming_rts_base85m_greedy", "value": value,
+    search = ("greedy" if kw is None else
+              f"beam width {args.beam_width}, window {args.beam_win}, thresholds "
+              f"{args.score_thresh}/{args.topk_thresh}/{args.fe_frames}")
+    line = {"metric": f"streaming_rts_base85m_{args.decoder}", "value": value,
             "unit": (f"{what}; raw 60 ms int16 audio -> native staging -> pinned upload "
-                     "(PCIe, timed) -> one CUDA graph (log-mel, encoder with K1, greedy, "
+                     f"(PCIe, timed) -> one CUDA graph (log-mel, encoder with K1, {search}, "
                      "max_symbols_per_step=4, bf16) -> wire-mode JSON over an 8,704-piece "
                      "vocabulary for every lane every tick"),
              "vs_baseline": round(value / BASELINE_RTS, 3),
              "device": device_info(args.device), "rungs": rungs, "compute": compute,
              "k1": k1}
-    if cuda:
+    if cuda and kw is None:
         line["profile"] = dict(busy_share(model, PROFILE_B), eager=eager_ops(model, PROFILE_B))
     print(json.dumps(line), flush=True)
     return 0

@@ -253,3 +253,20 @@ class Tokenizer:
 
     def id_to_piece(self, i: int) -> str:
         return self.model.pieces[i][0]
+
+
+def piece_table(tokenizer, n_classes: int) -> List[str]:
+    """Token id -> piece over every class: "" past the tokenizer's table
+    (the blank, the last class, has no piece) and for every id when there
+    is no tokenizer. What the serializer detokenises with and the n-gram
+    and keyword tables are built over."""
+    if tokenizer is None:
+        return [""] * n_classes
+
+    def piece(i):
+        try:
+            return tokenizer.id_to_piece(i)
+        except (IndexError, KeyError):
+            return ""
+
+    return [piece(i) for i in range(n_classes)]

@@ -1,8 +1,8 @@
 """Model and feature configuration, mirroring the ``rnnt:``,
-``filterbank_features`` and ``frame_splicing`` parts of the JAX package's
-YAML configs (``caiman_asr_tpu/models/config.py``). Other sections of a
-config file are read by parts of the system not ported yet and are ignored
-here."""
+``filterbank_features``, ``frame_splicing`` and ``ngram:`` parts of the JAX
+package's YAML configs (``caiman_asr_tpu/models/config.py``). Other sections
+of a config file are read by parts of the system not ported yet and are
+ignored here."""
 
 from __future__ import annotations
 
@@ -63,11 +63,20 @@ class PipelineConfig:
 
 
 @dataclass(frozen=True)
+class NgramConfig:
+    """The ``ngram:`` block: the beam's n-gram and its fusion scale."""
+
+    ngram_path: Optional[str] = None
+    scale_factor: float = 0.05
+
+
+@dataclass(frozen=True)
 class Config:
     rnnt: RNNTModelConfig = RNNTModelConfig()
     input_train: PipelineConfig = PipelineConfig()
     input_val: PipelineConfig = PipelineConfig()
     stats_path: Optional[str] = None
+    ngram: NgramConfig = NgramConfig()
 
 
 def _fill(cls, d: Optional[dict], where: str):
@@ -125,4 +134,5 @@ def load_config(path: str | Path) -> Config:
         input_train=train,
         input_val=val,
         stats_path=stats_train or stats_val,
+        ngram=_fill(NgramConfig, raw.get("ngram"), "ngram"),
     )

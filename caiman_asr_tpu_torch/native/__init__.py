@@ -4,8 +4,10 @@ The port's own copies of the JAX package's ``native/src/serialize.cpp``,
 ``staging.cpp`` and ``flac_decoder.cpp``
 (``caiman_asr_tpu/native/__init__.py:57-393``):
 
-- ``ResponseSerializer``: the greedy tick's responses as wire-ready JSON
-  from the packed int32 tick output, with each lane's frame index;
+- ``ResponseSerializer``: the greedy and beam ticks' responses as
+  wire-ready JSON from the packed int32 tick output, with each lane's frame
+  index and, for the beam, its commit state (committed horizon and the
+  best hypothesis' token history);
 - ``AudioStaging``: per-lane int16 buffers and the fill of the staging
   matrix the tick uploads;
 - ``flac_decode`` / ``flac_decode_file``: FLAC to int32 samples (the audio
@@ -71,7 +73,10 @@ def _lib() -> ctypes.CDLL:
         "ser_reset_lane": ([vp, i], None),
         "ser_greedy_tick": ([vp, i32p, lng, i, u8p, i, ctypes.c_char_p, lng, i32p, lng,
                              ctypes.POINTER(lng)], lng),
+        "ser_beam_tick": ([vp, i32p, lng, u8p, i, ctypes.c_char_p, lng,
+                           ctypes.POINTER(ctypes.c_int64), i32p, lng, ctypes.POINTER(lng)], lng),
         "ser_set_frame_idx": ([vp, i, ctypes.c_int64], None),
+        "ser_lane_committed": ([vp, i], ctypes.c_int64),
         "ser_lane_frame_idx": ([vp, i], ctypes.c_int64),
         "stg_init": ([i, i, i], vp),
         "stg_free": ([vp], None),
@@ -153,28 +158,40 @@ class _Handle:
 
 
 class ResponseSerializer(_Handle):
-    """Greedy responses from the packed tick output (``src/serialize.cpp``):
-    per lane, the JSON of ``{start, end, is_provisional, alternatives}`` for
-    the tokens it emitted this tick, and its frame index (ticks consumed)."""
+    """Responses from the packed tick output (``src/serialize.cpp``): per
+    lane, the JSON of ``{start, end, is_provisional, alternatives}``, and its
+    frame index (ticks consumed). Greedy: the tokens a lane emitted this
+    tick. Beam (``beam_width`` W, a window of ``beam_win`` tokens a
+    hypothesis): the finals where the live hypotheses' common prefix grew
+    (or the history of the best one slid out of the window) and the best
+    hypothesis' uncommitted tail as a partial; ``beam_width`` is at most
+    64."""
 
-    def __init__(self, max_lanes: int, frame_seconds: float, pieces):
+    def __init__(self, max_lanes: int, frame_seconds: float, pieces, beam_width: int = 1,
+                 beam_win: int = 1):
         self._lib = _lib()
-        super().__init__(self._lib.ser_init(max_lanes, 1, 1, float(frame_seconds),
-                                            len(pieces)), self._lib.ser_free)
+        super().__init__(self._lib.ser_init(max_lanes, beam_width, beam_win,
+                                            float(frame_seconds), len(pieces)),
+                         self._lib.ser_free)
         for n, p in enumerate(pieces):
             b = p.encode("utf-8") if isinstance(p, str) else bytes(p)
             self._lib.ser_set_piece(self._h, n, b, len(b))
         self._buf = ctypes.create_string_buffer(4 << 20)
-        # (lane, payload offset, payload length) a record; greedy emits at
-        # most one record a lane a tick
+        # (lane, payload offset, payload length) a record; a lane emits at
+        # most 3 a tick (beam: a slide-out final, a final, a partial)
         self._idx = np.zeros((3 * max_lanes + 8, 3), np.int32)
         self._nrec = ctypes.c_long(0)
+        self._dev_len = np.zeros(max_lanes, np.int64)
 
     def reset_lane(self, lane: int):
         self._lib.ser_reset_lane(self._live(), lane)
 
     def frame_idx(self, lane: int) -> int:
         return int(self._lib.ser_lane_frame_idx(self._live(), lane))
+
+    def committed(self, lane: int) -> int:
+        """Beam tokens the lane has shipped as finals (buffer positions)."""
+        return int(self._lib.ser_lane_committed(self._live(), lane))
 
     def set_frame_idx(self, lane: int, v: int):
         self._lib.ser_set_frame_idx(self._live(), lane, int(v))
@@ -199,11 +216,42 @@ class ResponseSerializer(_Handle):
 
     def greedy_tick(self, packed: np.ndarray, adv: np.ndarray):
         """The same as ``{lane: [json_str]}``."""
-        raw, idx = self.greedy_tick_raw(packed, adv)
-        out = {}
-        for lane, off, ln in idx.tolist():
-            out.setdefault(lane, []).append(raw[off:off + ln].decode("utf-8"))
-        return out
+        return _to_dict(*self.greedy_tick_raw(packed, adv))
+
+    def beam_tick_raw(self, packed: np.ndarray, adv: np.ndarray):
+        """packed: int32 [B, W*win + W + 2 + W], the layout ``[tokens (W x
+        win) | lens (W) | base | rebase echo | scores (W, fp32 bits)]``;
+        adv: bool [B]. Returns (raw bytes, idx int32 [n, 3], dev_len int64
+        [B]): dev_len is each advanced lane's longest hypothesis (its other
+        entries keep their last value). idx and dev_len view buffers the
+        next call overwrites."""
+        h = self._live()
+        packed = np.ascontiguousarray(packed, np.int32)
+        advu = np.ascontiguousarray(adv, np.uint8)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        while True:
+            n = self._lib.ser_beam_tick(
+                h, packed.ctypes.data_as(i32p), packed.shape[1],
+                advu.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), packed.shape[0],
+                self._buf, len(self._buf),
+                self._dev_len.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                self._idx.ctypes.data_as(i32p), self._idx.shape[0], ctypes.byref(self._nrec))
+            if n >= 0:
+                return (ctypes.string_at(self._buf, n), self._idx[: self._nrec.value],
+                        self._dev_len)
+            self._buf = ctypes.create_string_buffer(len(self._buf) * 2)
+
+    def beam_tick(self, packed: np.ndarray, adv: np.ndarray):
+        """The same as ``({lane: [json_str]}, dev_len)``."""
+        raw, idx, dev_len = self.beam_tick_raw(packed, adv)
+        return _to_dict(raw, idx), dev_len
+
+
+def _to_dict(raw: bytes, idx: np.ndarray):
+    out = {}
+    for lane, off, ln in idx.tolist():
+        out.setdefault(lane, []).append(raw[off:off + ln].decode("utf-8"))
+    return out
 
 
 class AudioStaging(_Handle):

@@ -11,8 +11,8 @@
 // Record framing in the output buffer: [i32 lane][i32 nbytes][payload]...
 // Returns total bytes, or -1 when the buffer is too small (caller doubles).
 //
-// Beam packed row layout (the JAX package's engine.py _tick_impl; the port
-// serves greedy only and never calls ser_beam_tick):
+// Beam packed row layout (serving/engine.py's beam tick, after _consume has
+// widened the int16 token pairs back to int32):
 //   [W*win toks][W lens][base][echo][W scores (f32 bits)]   (all int32)
 // Greedy packed row layout: [cap toks][count].
 

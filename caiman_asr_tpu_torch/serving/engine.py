@@ -1,5 +1,5 @@
 """Batched streaming inference engine, the serving hot path (the port of
-``caiman_asr_tpu/serving/engine.py``, greedy decoding).
+``caiman_asr_tpu/serving/engine.py``, greedy and beam decoding).
 
 One tick advances every lane by one 60 ms chunk, all of it on the device:
 
@@ -10,9 +10,25 @@ One tick advances every lane by one 60 ms chunk, all of it on the device:
        K1, one launch a layer, once per batch slice where the batch is
        larger than one launch takes)
     -> greedy decode step (joint + argmax + prediction-net advance, unrolled
-       max_symbols_per_step times)
-  -> one packed int32 [B, max_symbols + 1] output: each lane's tokens and
-     their count.
+       max_symbols_per_step times), or the beam step
+       (``decoding/fast_beam.StreamingBeamStep``: W hypotheses a lane, E =
+       min(max_symbols_per_step, 8) gated expansion trips, n-gram and
+       keyword fusion, the pruning thresholds)
+  -> one packed int32 output: greedy [B, max_symbols + 1], each lane's
+     tokens and their count; beam [B, W*win/2 + W + 2 + W], the newest
+     ``win`` token slots of every hypothesis as int16 pairs, the W lengths,
+     the window's base, the rebase echo and the W scores (fp32 bits).
+
+Beam lanes keep ``beam_cap`` token slots a hypothesis. Long streams are
+rebased: when a lane's longest hypothesis comes within
+``(pipeline_depth + 2) * E`` slots of the cap, the host asks the next tick
+to drop the tokens it has already shipped as finals (the meta vector's
+rebase entries); the tick rolls them out of the buffers before the step (a
+roll by 0 is the identity, so the tick always rolls) and echoes the shift
+in its output, so the host shifts its own coordinates at the tick that
+applied it. The commit state (shipped horizon, the best hypothesis' token
+history) lives in the native serializer, which derives the finals and the
+partials from the packed window.
 
 All lanes advance in lock-step; a lane that did not advance keeps its state,
 so one program serves any mix of streams. The host manages lanes, buffers
@@ -42,8 +58,6 @@ which a fetcher thread waits on. ``tick()`` consumes whatever has finished,
 oldest first, and at most N ticks stay in flight. ``pipeline_depth=0`` runs
 each tick to its end in ``tick()``.
 
-Not ported: ``decoder="beam"``, ``ngram_lm`` and ``keywords`` raise
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,6 +72,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from caiman_asr_tpu_torch.data.tokenizer import piece_table
+from caiman_asr_tpu_torch.decoding.fast_beam import StreamingBeamStep, lane_axis
 from caiman_asr_tpu_torch.decoding.greedy import init_decode_state, make_streaming_step
 from caiman_asr_tpu_torch.device import resolve_device
 from caiman_asr_tpu_torch.models.state import EncoderState
@@ -73,6 +89,7 @@ class StreamState:
     live in the native staging and serializer."""
 
     closed: bool = False  # EOS received; flush then free
+    rebase_pending: bool = False  # a rebase is in flight (beam)
 
 
 @dataclass
@@ -186,20 +203,42 @@ def _fetch_loop(q):
         entry[2].set()
 
 
-def _gate(new: torch.Tensor, old: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """new on the lanes of ``mask``, old elsewhere: [B], [B, *], or an LSTM
-    stack's [L, B, H] (the greedy engine keeps no other rank-3 state)."""
-    if new.dim() == 3:
-        m = mask[None, :, None]
-    elif new.dim() == 2:
-        m = mask[:, None]
-    else:
-        m = mask
-    return torch.where(m, new, old)
+def _gate(new: torch.Tensor, old: torch.Tensor, mask: torch.Tensor, axis: int) -> torch.Tensor:
+    """new on the lanes of ``mask`` [B], old elsewhere; ``axis`` is the
+    leaf's lane axis, known by name, never guessed from its rank."""
+    shape = [1] * new.dim()
+    shape[axis] = mask.shape[0]
+    return torch.where(mask.reshape(shape), new, old)
+
+
+def _gate_enc(new: EncoderState, old: EncoderState, mask) -> EncoderState:
+    """Each layer stack [L, B, H]: lane axis 1."""
+    return EncoderState(*(tuple(_gate(a, b, mask, 1) for a, b in zip(hn, ho))
+                          for hn, ho in zip(new, old)))
+
+
+def _gate_dec(new, old, mask):
+    """The greedy (g [B, Hj], h, c [L, B, Hp]) or the beam state's dict
+    (``fast_beam.lane_axis`` names each leaf's lane axis)."""
+    if isinstance(new, dict):
+        return {k: _gate(v, old[k], mask, lane_axis(k)) for k, v in new.items()}
+    return tuple(_gate(a, b, mask, ax) for a, b, ax in zip(new, old, (0, 1, 1)))
+
+
+def _leaves(dec) -> List[torch.Tensor]:
+    return list(dec.values()) if isinstance(dec, dict) else list(dec)
 
 
 def _flat(enc: EncoderState, dec) -> List[torch.Tensor]:
-    return [*enc.pre_rnn, *enc.post_rnn, *dec]
+    return [*enc.pre_rnn, *enc.post_rnn, *_leaves(dec)]
+
+
+def _roll_left(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Per-lane left roll of x [B, W, n] by r[b] along the last axis (the
+    tail wraps; callers read only below the shifted length)."""
+    n = x.shape[2]
+    idx = (torch.arange(n, device=x.device) + r.to(torch.int64)[:, None, None]) % n
+    return torch.gather(x, 2, idx.expand(x.shape))
 
 
 # guards K1's launch count, which the replays of every engine add to
@@ -251,6 +290,14 @@ class StreamingEngine:
         device="cuda",
         wire_responses: bool = False,
         cuda_graph: bool = True,
+        beam_width: int = 4,
+        beam_cap: int = 256,
+        beam_win: int = 64,
+        ngram_alpha: float = 0.0,
+        beam_merge: bool = True,
+        beam_score_thresh: Optional[float] = None,
+        beam_topk_thresh: Optional[float] = None,
+        beam_final_emission_frames: Optional[int] = None,
     ):
         """``model``: an ``RNNT`` whose weights live on ``device``; the engine
         keeps its own copies in ``dtype``. ``device``: "cuda" (one engine per
@@ -260,12 +307,19 @@ class StreamingEngine:
         serializer's piece table), or None for empty transcripts. The C++
         staging and serializer are built on first use; a build that fails
         raises ``native.NativeBuildError``. ``pipeline_depth``: ticks in
-        flight (see the module docstring)."""
-        if decoder != "greedy":
-            raise NotImplementedError(f"decoder={decoder!r}: the beam engine is not ported yet")
-        if ngram_lm is not None or keywords is not None:
-            raise NotImplementedError("n-gram fusion and keyword boosting need the beam "
-                                      "engine, which is not ported yet")
+        flight (see the module docstring).
+
+        ``decoder="beam"``: ``beam_width`` hypotheses a lane of at most
+        ``beam_cap`` tokens, the newest ``beam_win`` (rounded down to even,
+        at most the cap) sent to the host a tick; ``ngram_lm`` (a
+        ``lm.device_table.DeviceNgram``, fused at ``ngram_alpha``) and
+        ``keywords`` (a ``keywords.device_table.DeviceKeywords``);
+        ``beam_merge`` merges duplicate hypotheses; the pruning thresholds
+        (None disables each; the final-emission one in ticks)."""
+        if decoder not in ("greedy", "beam"):
+            raise ValueError(f"decoder={decoder!r}: greedy or beam")
+        if decoder == "greedy" and (ngram_lm is not None or keywords is not None):
+            raise ValueError("n-gram fusion and keyword boosting need decoder='beam'")
         self.device = resolve_device(device)
         param_dev = next(model.parameters()).device
         if param_dev.type != self.device.type:
@@ -300,9 +354,23 @@ class StreamingEngine:
         else:
             self._mean = dev(np.zeros(logmel.n_mels))
             self._std = dev(np.ones(logmel.n_mels))
-        self._decode_step = make_streaming_step(model, blank_idx,
-                                                max_symbols_per_step=max_symbols_per_step)
+        self.decoder = decoder
         self.max_symbols = max_symbols_per_step
+        if decoder == "beam":
+            self.beam_width = beam_width
+            self._beam_cap = beam_cap
+            self._beam_win = max(2, min(beam_win, beam_cap) // 2 * 2)
+            self._beam_expansions = min(max_symbols_per_step, 8)
+            self._beam = StreamingBeamStep(
+                model, blank_idx, beam_width=beam_width, expansions=self._beam_expansions,
+                cap=beam_cap, ngram_lm=ngram_lm, ngram_alpha=ngram_alpha, keywords=keywords,
+                merge=beam_merge, score_thresh=beam_score_thresh, topk_thresh=beam_topk_thresh,
+                final_emission_frames=beam_final_emission_frames)
+            out_cols = beam_width * self._beam_win // 2 + 2 * beam_width + 2
+        else:
+            self._decode_step = make_streaming_step(model, blank_idx,
+                                                    max_symbols_per_step=max_symbols_per_step)
+            out_cols = max_symbols_per_step + 1
 
         self._init_native()
         self._wire = bool(wire_responses)
@@ -315,15 +383,18 @@ class StreamingEngine:
                      z(c.enc_pre_rnn_layers, self.B, c.enc_n_hid)),
             post_rnn=(z(c.enc_post_rnn_layers, self.B, c.enc_n_hid),
                       z(c.enc_post_rnn_layers, self.B, c.enc_n_hid)))
-        self._init_dec = init_decode_state(model, self.B, params=self.params, dtype=dtype)
-        self.dec_state = tuple(t.clone() for t in self._init_dec)
+        if decoder == "beam":
+            self._init_dec = self._beam.init_state(self.params, self.B, dtype)
+            self.dec_state = {k: t.clone() for k, t in self._init_dec.items()}
+        else:
+            self._init_dec = init_decode_state(model, self.B, params=self.params, dtype=dtype)
+            self.dec_state = tuple(t.clone() for t in self._init_dec)
         self._carry = torch.zeros((self.B, self.carry_samples), dtype=torch.int16,
                                   device=self.device)
         self._in_samples = torch.zeros((self.B, self.hop_samples), dtype=torch.int16,
                                        device=self.device)
         self._in_meta = torch.zeros(3 * self.B + 1, dtype=torch.int32, device=self.device)
-        self._out = torch.zeros((self.B, self.max_symbols + 1), dtype=torch.int32,
-                                device=self.device)
+        self._out = torch.zeros((self.B, out_cols), dtype=torch.int32, device=self.device)
         self._use_graph = cuda and cuda_graph
         self._graph = None
         self._warm = False
@@ -379,21 +450,15 @@ class StreamingEngine:
         from caiman_asr_tpu_torch import native
 
         tok = self.tokenizer
-        if tok is None:
-            pieces = [""] * self.model.n_classes
-        elif hasattr(tok, "id_to_piece"):
-            # real tokenizers carry n_classes - 1 pieces (the blank never
-            # serialises); a synthetic one may carry all n_classes
-            def piece(i):
-                try:
-                    return tok.id_to_piece(i)
-                except (IndexError, KeyError):
-                    return ""
-
-            pieces = [piece(i) for i in range(self.model.n_classes)]
-        else:
+        if tok is not None and not hasattr(tok, "id_to_piece"):
             raise ValueError("the engine's tokenizer needs id_to_piece")
-        self._native_ser = native.ResponseSerializer(self.B, self.frame_seconds, pieces)
+        # real tokenizers carry n_classes - 1 pieces (the blank never
+        # serialises); a synthetic one may carry all n_classes
+        pieces = self._pieces = piece_table(tok, self.model.n_classes)
+        beam = self.decoder == "beam"
+        self._native_ser = native.ResponseSerializer(
+            self.B, self.frame_seconds, pieces, beam_width=self.beam_width if beam else 1,
+            beam_win=self._beam_win if beam else 1)
         # carry_len 0: the carry is device state
         self._native_stg = native.AudioStaging(self.B, 0, self.hop_samples)
         self._active = np.zeros(self.B, np.uint8)
@@ -429,19 +494,20 @@ class StreamingEngine:
         """samples_new: [B, hop] int16, only the fresh 60 ms; ``carry`` [B,
         241] int16 is the window and pre-emphasis overlap, device state
         prepended here and taken again from the tail. meta: [3B + 1] int32,
-        ``[adv(B), rebase(B), reset(B), tick_count]`` (rebase is the beam's
-        and unused here). Lanes in ``reset`` are zeroed (the decoder state
-        set to ``init_dec``) before the tick computes; lanes not in ``adv``
-        keep their state. Returns (packed [B, max_symbols + 1] int32: tokens
-        and count, carry, encoder state, decoder state)."""
+        ``[adv(B), rebase(B), reset(B), tick_count]``. Lanes in ``reset`` are
+        zeroed (the decoder state set to ``init_dec``) before the tick
+        computes; lanes not in ``adv`` keep their state; ``rebase`` (beam)
+        drops that many committed token slots from the front of a lane's
+        buffers before the step. Returns (packed int32 output, carry,
+        encoder state, decoder state)."""
         cfg = self.cfg
         B = samples_new.shape[0]
         adv = meta[:B] != 0
         keep = meta[2 * B:3 * B] == 0
         carry = torch.where(keep[:, None], carry, 0)
-        enc_state = EncoderState(*(tuple(_gate(t, torch.zeros_like(t), keep) for t in hc)
-                                   for hc in enc_state))
-        dec_state = tuple(_gate(t, t0, keep) for t, t0 in zip(dec_state, init_dec))
+        enc_state = _gate_enc(enc_state, EncoderState(*(tuple(map(torch.zeros_like, hc))
+                                                        for hc in enc_state)), keep)
+        dec_state = _gate_dec(dec_state, init_dec, keep)
         samples = torch.cat([carry, samples_new], dim=1)
         new_carry = samples[:, -self.carry_samples:]
         x = (samples.float() * (1.0 / 32768.0)).to(self.dtype)
@@ -464,13 +530,37 @@ class StreamingEngine:
         f, _, new_enc = self.model.encode(
             x, torch.full((B,), x.shape[0], dtype=torch.int32, device=x.device), enc_state,
             params=self.params)
-        toks, n, new_dec = self._decode_step(self.params, f[:, 0], dec_state)
+        if self.decoder == "beam":
+            rebase = meta[B:2 * B].to(torch.int64)
+            dec_state = dict(dec_state, toks=_roll_left(dec_state["toks"], rebase),
+                             ts=_roll_left(dec_state["ts"], rebase),
+                             lens=torch.clamp(dec_state["lens"] - rebase[:, None], min=0))
+            if "committed" in dec_state:  # the final-emission watermark shifts too
+                dec_state["committed"] = torch.clamp(dec_state["committed"] - rebase, min=0)
+            new_dec = self._beam.step(self.params, f[:, 0], dec_state)
+            out = self._beam_pack(new_dec, adv, rebase)
+        else:
+            toks, n, new_dec = self._decode_step(self.params, f[:, 0], dec_state)
+            out = torch.cat([toks, torch.where(adv, n, 0)[:, None]], dim=1).to(torch.int32)
         new_carry = torch.where(adv[:, None], new_carry, carry)
-        new_enc = EncoderState(*(tuple(_gate(a, b, adv) for a, b in zip(hc_new, hc))
-                                 for hc_new, hc in zip(new_enc, enc_state)))
-        new_dec = tuple(_gate(a, b, adv) for a, b in zip(new_dec, dec_state))
-        out = torch.cat([toks, torch.where(adv, n, 0)[:, None]], dim=1).to(torch.int32)
+        new_enc = _gate_enc(new_enc, enc_state, adv)
+        new_dec = _gate_dec(new_dec, dec_state, adv)
         return out, new_carry, new_enc, new_dec
+
+    def _beam_pack(self, st, adv, rebase) -> torch.Tensor:
+        """The beam tick's host-bound output in one int32 [B, W*win/2 + 2W +
+        2]: the newest ``win`` slots of every hypothesis as int16 pairs (the
+        window starts at ``base``, ``win`` below the longest), the lengths (0
+        on a lane that did not advance), base, the rebase echo, the scores'
+        bits."""
+        B, W, win = adv.shape[0], self.beam_width, self._beam_win
+        lens = st["lens"]
+        base = torch.clamp(lens.amax(dim=1) - win, min=0)
+        toks = _roll_left(st["toks"], base)[:, :, :win]
+        pairs = toks.to(torch.int16).reshape(B, W * win).contiguous().view(torch.int32)
+        return torch.cat([pairs, torch.where(adv[:, None], lens, 0).to(torch.int32),
+                          base.to(torch.int32)[:, None], rebase.to(torch.int32)[:, None],
+                          st["scores"].float().contiguous().view(torch.int32)], dim=1)
 
     @torch.no_grad()
     def _step(self) -> None:
@@ -675,6 +765,8 @@ class StreamingEngine:
             meta = slot.meta
             meta[:self.B] = adv
             meta[self.B:] = 0
+            if self.decoder == "beam":
+                self._schedule_rebase(adv, meta[self.B:2 * self.B])
             for lane in self._pending_resets:
                 meta[2 * self.B + lane] = 1
             self._pending_resets.clear()
@@ -699,10 +791,50 @@ class StreamingEngine:
             while self._pending:
                 self._consume(self._pending.popleft(), out, wire)
         for lane in finishing:
-            out.setdefault(lane, []).append({"eos": True})
+            msgs = out.setdefault(lane, [])
+            if self.decoder == "beam":
+                tail = self._beam_tail(lane)
+                if tail:
+                    msgs.append(self._response(self._native_ser.frame_idx(lane), tail))
+            msgs.append({"eos": True})
             self._reset_lane(lane)
             self._release(lane)
         return self._shape(out, wire)
+
+    def _schedule_rebase(self, adv: np.ndarray, rebase: np.ndarray) -> None:
+        """Ask the next tick to drop a lane's shipped tokens once its longest
+        hypothesis (as the last consumed tick saw it) is within the margin of
+        the cap: the ticks in flight may each add E."""
+        margin = (self.pipeline_depth + 2) * self._beam_expansions
+        near = np.flatnonzero(adv & (self._native_ser._dev_len + margin >= self._beam_cap))
+        for lane in near.tolist():
+            st = self.streams.get(lane)
+            if st is None or st.rebase_pending:
+                continue
+            committed = self._native_ser.committed(lane)
+            if committed > 0:
+                rebase[lane] = committed
+                st.rebase_pending = True
+
+    def _beam_tail(self, lane: int) -> List[int]:
+        """A closing lane's best hypothesis past what it has shipped (every
+        tick of the lane consumed), read from the device state."""
+        committed = self._native_ser.committed(lane)
+        with self._state_lock:
+            if self._stream is not None:
+                self._stream.synchronize()
+            toks, lens, scores = (self.dec_state[k][lane].cpu().numpy()
+                                  for k in ("toks", "lens", "scores"))
+        best = int(np.argmax(scores / np.maximum(lens + 1, 1)))
+        return [int(t) for t in toks[best, committed:lens[best]]]
+
+    def _response(self, frame_idx: int, tokens: List[int]) -> dict:
+        """A final as the WebSocket schema has it (the close flush's)."""
+        text = "".join(self._pieces[t] for t in tokens).replace("▁", " ")
+        t = frame_idx * self.frame_seconds
+        return {"start": round(t, 3), "end": round(t + self.frame_seconds, 3),
+                "is_provisional": False,
+                "alternatives": [{"transcript": text, "confidence": 1.0}]}
 
     def _consume(self, entry, out: Dict[int, List], wire=None):
         """One in-flight tick's packed output -> responses appended to
@@ -716,11 +848,31 @@ class StreamingEngine:
         else:
             packed = packed.result()
         self.ticks_consumed += 1
+        ser = self._native_ser
+        if self.decoder == "beam":
+            # the int16 token pairs widened back to int32, the layout the
+            # serializer parses
+            W, win = self.beam_width, self._beam_win
+            half = W * win // 2
+            t16 = np.ascontiguousarray(packed[:, :half]).view(np.int16)
+            packed = np.concatenate([t16.astype(np.int32), packed[:, half:]], axis=1)
+            if wire is not None:
+                raw, idx, _ = ser.beam_tick_raw(packed, adv)
+            else:
+                recs, _ = ser.beam_tick(packed, adv)
+            echo = packed[:, W * win + W + 1]
+            for lane in np.flatnonzero((echo > 0) & adv).tolist():
+                st = self.streams.get(lane)
+                if st is not None:
+                    st.rebase_pending = False
+        elif wire is not None:
+            raw, idx = ser.greedy_tick_raw(packed, adv)
+        else:
+            recs = ser.greedy_tick(packed, adv)
         if wire is not None:
-            raw, idx = self._native_ser.greedy_tick_raw(packed, adv)
             if len(idx):
                 wire.append((raw, idx.copy()))  # idx views a reused buffer
         else:
-            for lane, msgs in self._native_ser.greedy_tick(packed, adv).items():
+            for lane, msgs in recs.items():
                 if lane in self.streams:
                     out.setdefault(lane, []).extend(msgs)

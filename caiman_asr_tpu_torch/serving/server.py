@@ -1,5 +1,5 @@
 """WebSocket streaming ASR server over the port's ``StreamingEngine`` (the
-port of ``caiman_asr_tpu/serving/server.py``, greedy decoding).
+port of ``caiman_asr_tpu/serving/server.py``, greedy and beam decoding).
 
 The reference deployment's client contract
 (docs/src/inference/websocket_api.md): path ``/asr/v0.1/stream``,
@@ -21,8 +21,17 @@ imports):
 The model is built from the config's ``rnnt`` block with the bundle's
 weights; the tokenizer from the bundle's ``sentencepiece`` bytes (or
 ``--tokenizer_model``). ``--num_chips N`` serves over the first N cards,
-one engine each (``serving/multi_chip.py``). Not ported: ``--ckpt``
-(checkpoints) and the beam decoder.
+one engine each (``serving/multi_chip.py``). The beam, with n-gram fusion
+and keyword boosting:
+
+    python -m caiman_asr_tpu_torch.serving.server --model_config CONFIG.yaml \
+        --serving_bundle bundle.npz --decoder beam --beam_width 4 \
+        --ngram_path ngram.arpa --keyword_boost_path keywords.json
+
+(``--ngram_path`` defaults to the bundle's ``ngram`` extra, its scale to
+``--ngram_scale_factor``, else the bundle's ``ngram_scale``, else the
+config's ``ngram.scale_factor``). Not ported: ``--ckpt`` (checkpoints) and
+kenlm's binary n-gram format.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
+import tempfile
 import urllib.parse
 from typing import Dict
 
@@ -218,8 +229,64 @@ class ASRServer:
             await asyncio.Future()
 
 
+def beam_options(args, cfg, tokenizer, n_classes: int, extras, frame_secs: float) -> dict:
+    """The beam engine's keyword arguments from the CLI (as
+    ``caiman_asr_tpu/serving/server.py:244-345``): the n-gram from
+    ``--ngram_path`` or the bundle's ``ngram`` extra, compiled into device
+    tables over the tokenizer's pieces (fusion off at a scale <= 0); the
+    keyword list of ``--keyword_boost_path`` compiled likewise; the pruning
+    thresholds (< 0 disables one; the final-emission one, in seconds, turned
+    into ticks of ``frame_secs``)."""
+    from caiman_asr_tpu_torch.data.tokenizer import piece_table
+    from caiman_asr_tpu_torch.keywords.device_table import build_keyword_tables
+    from caiman_asr_tpu_torch.keywords.process import load_keywords
+    from caiman_asr_tpu_torch.lm.device_table import build_device_tables
+    from caiman_asr_tpu_torch.lm.ngram import NGramLM
+
+    blank = n_classes - 1
+    pieces = piece_table(tokenizer, n_classes)
+    ngram_path = getattr(args, "ngram_path", None)
+    scale = getattr(args, "ngram_scale_factor", None)
+    tables, alpha = None, 0.0
+    tmp = None
+    if ngram_path is None and "ngram" in extras:
+        fd, tmp = tempfile.mkstemp(suffix=".arpa")
+        with os.fdopen(fd, "wb") as fh:
+            fh.write(np.asarray(extras["ngram"], np.uint8).tobytes())
+        ngram_path = tmp
+        if scale is None and "ngram_scale" in extras:
+            scale = float(extras["ngram_scale"])
+    try:
+        if ngram_path:
+            alpha = float(scale if scale is not None else cfg.ngram.scale_factor)
+            if alpha > 0.0:
+                tables = build_device_tables(NGramLM.load(ngram_path),
+                                             pieces, skip_ids=[blank])
+                print(f"n-gram fusion on: {tables.n_states} states, alpha={alpha}", flush=True)
+    finally:
+        if tmp is not None:
+            os.unlink(tmp)
+    kw_tables = None
+    if getattr(args, "keyword_boost_path", None):
+        kw_tables = build_keyword_tables(load_keywords(args.keyword_boost_path),
+                                         pieces, skip_ids=[blank])
+        print(f"keyword boosting on: {kw_tables.n_states} states", flush=True)
+
+    def thresh(name):
+        v = getattr(args, name, None)
+        return None if v is None or v < 0 else v
+
+    fe = float(getattr(args, "beam_final_emission_thresh", float("inf")))
+    return dict(
+        beam_width=getattr(args, "beam_width", 4),
+        beam_score_thresh=thresh("beam_prune_score_thresh"),
+        beam_topk_thresh=thresh("beam_prune_topk_thresh"),
+        beam_final_emission_frames=max(1, round(fe / frame_secs)) if np.isfinite(fe) else None,
+        ngram_lm=tables, ngram_alpha=alpha if tables is not None else 0.0, keywords=kw_tables)
+
+
 def build_engine(args):
-    """The greedy engine the CLI asks for: the model from ``--model_config``
+    """The engine the CLI asks for: the model from ``--model_config``
     with the weights of ``--serving_bundle`` (loaded strictly), the
     tokenizer from the bundle's SentencePiece bytes unless
     ``--tokenizer_model`` names a file, the mel statistics from the bundle
@@ -227,7 +294,8 @@ def build_engine(args):
     on ``--device`` (cuda unless "cpu" is asked for; no card raises). With
     ``--num_chips`` N > 1, a ``MultiChipEngine`` over the first N cards
     (``SystemExit`` when fewer are visible), or over N engines on the CPU
-    with ``--device cpu``; ``--max_streams`` lanes each."""
+    with ``--device cpu``; ``--max_streams`` lanes each. ``--decoder
+    beam`` adds what ``beam_options`` reads."""
     import torch
 
     from caiman_asr_tpu_torch.data.tokenizer import Tokenizer
@@ -267,8 +335,16 @@ def build_engine(args):
                          np.sqrt(np.asarray(z["melvars"], np.float32)))
     else:
         mel_stats = bundle_mel_stats(extras)
+    decoder = getattr(args, "decoder", "greedy")
+    beam_kw = {}
+    if decoder == "beam":
+        # a tick: window stride x frame stacking x stack time (60 ms)
+        frame_secs = (cfg.input_val.logmel.window_stride
+                      * cfg.input_val.splicing.frame_stacking * cfg.rnnt.enc_stack_time_factor)
+        beam_kw = beam_options(args, cfg, tokenizer, tokenizer.num_labels + 1, extras,
+                               frame_secs)
     engine_kw = dict(
-        mel_stats=mel_stats, decoder=getattr(args, "decoder", "greedy"),
+        mel_stats=mel_stats, decoder=decoder, **beam_kw,
         logmel=cfg.input_val.logmel,
         frame_stacking=cfg.input_val.splicing.frame_stacking,
         frame_subsampling=cfg.input_val.splicing.frame_subsampling,
@@ -299,8 +375,23 @@ def main(argv=None):
                    help="serve over the first N cards: one engine per card, lanes routed "
                         "to the least-loaded card (with --device cpu: N engines on the CPU)")
     p.add_argument("--device", default="cuda", help="cuda (the cards) or cpu")
-    p.add_argument("--decoder", default="greedy", choices=["greedy", "beam"],
-                   help="beam is not ported and raises")
+    p.add_argument("--decoder", default="greedy", choices=["greedy", "beam"])
+    p.add_argument("--beam_width", type=int, default=4)
+    p.add_argument("--beam_prune_score_thresh", type=float, default=0.4,
+                   help="kill hypotheses whose normalised score trails the beam best by "
+                        "more; <0 = off")
+    p.add_argument("--beam_prune_topk_thresh", type=float, default=1.5,
+                   help="mask expansion candidates more than this below the frame's best "
+                        "acoustic log-prob; <0 = off")
+    p.add_argument("--beam_final_emission_thresh", type=float, default=float("inf"),
+                   help="seconds a final may lag before the beam prunes the blocking "
+                        "divergence")
+    p.add_argument("--ngram_path", default=None,
+                   help="ARPA n-gram (or an npz from NGramLM.save_binary) for shallow "
+                        "fusion in beam mode (default: the serving bundle's)")
+    p.add_argument("--ngram_scale_factor", type=float, default=None)
+    p.add_argument("--keyword_boost_path", default=None,
+                   help="keyword JSON for boosting in beam mode")
     p.add_argument("--pipeline_depth", type=int, default=1,
                    help="in-flight ticks before host consumption; each unit hides one "
                         "tick of device->host latency and adds one chunk (60 ms) of "

@@ -88,7 +88,20 @@ Phases:
      measures.measure against ASRServer.handle over two engines, in
      process: WER 0 against one engine's transcripts, the WER against the
      offline fp32 transcripts of the same audio and the latency fields
-     printed.
+     printed;
+  12. the beam serving path (base-85M, W=4, E=4): the offline fixed-expansion
+     beam (FastBeamDecoder through offline.transcribe) in fp32 and bf16, K1
+     counted, the fp32 hypotheses against the plain path's, its chunks as
+     CUDA graph replays (frames, chunks, host reads printed) equal to eager
+     chunks bit for bit; the host beam (RNNTBeamDecoder) beside it, the share
+     of equal best paths printed; StreamingEngine(decoder="beam") with the
+     server's thresholds fed a chunk a tick, its live hypotheses against the
+     offline beam's, K1 counted on every tick; its graph ticks against eager
+     ticks bit for bit over 20 ticks with lanes opening and closing and
+     rebases firing; a synthetic n-gram (its device tables: S states x 8,704)
+     and keyword list fused offline and streamed, the two equal, fusion
+     changing some best path; ASRServer.handle over a beam engine; the beam
+     tick's compute path and bench_serving --decoder beam on a short ladder.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -1896,12 +1909,12 @@ def _stream_tokens(engine, audio, lens) -> list:
     return toks
 
 
-def _graph_script(engine, ticks: int, seed: int) -> list:
+def _graph_script(engine, ticks: int, seed: int, recorder=None) -> list:
     """Lanes opening, advancing unevenly and closing over ``ticks`` ticks;
     returns the packed outputs the serializer read."""
     import numpy as np
 
-    rec = engine._native_ser = _Recorder(engine._native_ser)
+    rec = engine._native_ser = (recorder or _Recorder)(engine._native_ser)
     rng = np.random.default_rng(seed)
     lanes = [engine.open_stream() for _ in range(engine.B // 2)]
     for t in range(ticks):
@@ -1954,15 +1967,20 @@ def _drive_server(engine, audio) -> dict:
     t0 = time.perf_counter()
     conns, odd, full = asyncio.run(scenario())
     msgs = [json.loads(m) for c in conns for m in c.sent]
+    # each stream's finals in the order of their frames: none rewrites another
+    starts = [[json.loads(m)["start"] for m in c.sent if not json.loads(m)["is_provisional"]]
+              for c in conns]
     res = {"streams": len(conns), "responses": len(msgs), "wall_s": time.perf_counter() - t0,
            "closed": [c.closed for c in conns], "odd_frame": odd.closed, "past_capacity":
-           full.closed}
+           full.closed, "finals_in_order": all(s == sorted(s) for s in starts)}
     if not all(c.closed == (1000, "") for c in conns):
         raise AssertionError(f"a stream did not end cleanly: {res}")
     if odd.closed[0] != 1003 or full.closed[0] != 1013:
         raise AssertionError(f"the server did not refuse as it should: {res}")
     if not msgs or not all({"start", "end", "alternatives"} <= set(m) for m in msgs):
         raise AssertionError(f"no well-formed responses from the server: {res}")
+    if not res["finals_in_order"]:
+        raise AssertionError(f"a stream's finals are out of order: {res}")
     return res
 
 
@@ -2328,6 +2346,426 @@ def run_router_clients() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ the beam
+BEAM_W = 4               # the server's default width
+BEAM_MSYM = 4            # bench.py's max_symbols_per_step: E = 4 expansion trips
+BEAM_THRESH = dict(score_thresh=0.4, topk_thresh=1.5)  # the server's defaults
+BEAM_SCORE_TOL = 1e-4    # streamed against offline beams: the encoders' fp32 sums differ
+# graph replay against eager ticks: a cap and window small enough, and the
+# blank lowered enough, that rebases fire within the ticks
+BEAM_GRAPH_B, BEAM_GRAPH_TICKS, BEAM_GRAPH_CAP, BEAM_GRAPH_WIN = 32, 20, 16, 8
+BEAM_GRAPH_BLANK_DROP = 4.0
+# the synthetic n-gram: a bigram over BEAM_LM_WORDS of the pieces (its states
+# are the root and those words), BEAM_LM_NEXT continuations a word
+BEAM_LM_WORDS, BEAM_LM_NEXT, BEAM_ALPHA = 3000, 5, 0.5
+BEAM_KEYWORDS, BEAM_KEYWORD_WEIGHT = 4, 3.0
+# bench_serving --decoder beam: a short ladder, its windows cut to the phase's time
+BEAM_LADDER = (4096, 2048, 1024)
+BEAM_PROFILE_B = 2048  # the eager beam tick by operator
+BEAM_TICKS, BEAM_PACED_TICKS = 40, 100
+
+
+class _BeamRecorder(_Recorder):
+    def beam_tick(self, packed, adv):
+        import numpy as np
+
+        self.packed.append((np.array(packed), np.array(adv)))
+        return self.ser.beam_tick(packed, adv)
+
+
+@contextlib.contextmanager
+def beam_runs():
+    """Within: each FastBeamDecoder.decode_encs call's loop statistics."""
+    from caiman_asr_tpu_torch.decoding.fast_beam import FastBeamDecoder
+
+    runs, real = [], FastBeamDecoder.decode_encs
+
+    def decode_encs(self, *args, **kw):
+        out = real(self, *args, **kw)
+        runs.append(dict(self.last_run))
+        return out
+
+    with mock.patch.object(FastBeamDecoder, "decode_encs", decode_encs):
+        yield runs
+
+
+def _live_beams(toks, lens, scores) -> list:
+    """[(tokens, score)] of one utterance's live hypotheses, by normalised
+    score."""
+    import numpy as np
+
+    order = np.argsort(-(scores / np.maximum(lens + 1, 1)), kind="stable")
+    return [(toks[w, :lens[w]].tolist(), float(scores[w])) for w in order if scores[w] > -1e29]
+
+
+def _beams_agree(got: list, want: list) -> bool:
+    """The same live hypotheses (token sequences), each one's score within
+    BEAM_SCORE_TOL (relative and absolute); the order of two hypotheses
+    whose normalised scores tie to the last bits may differ."""
+    import numpy as np
+
+    def key(beam):
+        return sorted(beam, key=lambda h: h[0])
+
+    return len(got) == len(want) and all(
+        [a[0] for a in key(g)] == [b[0] for b in key(w)]
+        and np.allclose([a[1] for a in key(g)], [b[1] for b in key(w)], rtol=BEAM_SCORE_TOL,
+                        atol=BEAM_SCORE_TOL) for g, w in zip(got, want))
+
+
+def _beam_diff(got: list, want: list) -> str:
+    """The first utterance whose beams differ, for the log."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not _beams_agree([g], [w]):
+            short = lambda b: [(h[0][-8:], len(h[0]), round(h[1], 4)) for h in b]  # noqa: E731
+            return f"utterance {i}: {short(g)} against {short(w)}"
+    return "none"
+
+
+def _stream_beams(engine, audio, lens, frames=None) -> list:
+    """Every utterance on its own lane, a chunk a tick, to EOS; each lane's
+    live beams as its last tick left them (read at its close). With
+    ``frames`` (a dict; the engine's tick eager), each lane's encoder frames
+    as the beam step took them go there."""
+    import numpy as np
+
+    final, real = {}, engine._beam_tail
+    if frames is not None:
+        step = engine._beam.step
+
+        def recording_step(params, f_t, state):
+            for lane in np.flatnonzero(engine._in_meta[:engine.B].cpu().numpy()).tolist():
+                frames.setdefault(lane, []).append(f_t[lane].clone())
+            return step(params, f_t, state)
+
+        engine._beam.step = recording_step
+
+    def tail(lane):
+        out = real(lane)
+        final[lane] = _live_beams(*(engine.dec_state[k][lane].cpu().numpy()
+                                    for k in ("toks", "lens", "scores")))
+        return out
+
+    engine._beam_tail = tail
+    lanes = [engine.open_stream() for _ in range(len(lens))]
+    for t in range(int(lens.max()) // 960):
+        for i, (lane, n) in enumerate(zip(lanes, lens)):
+            if t * 960 < n:
+                engine.push_audio(lane, np.rint(audio[i, t * 960:(t + 1) * 960] * 32768
+                                                ).astype(np.int16))
+            if (t + 1) * 960 >= n:
+                engine.close_stream(lane)
+        engine.tick()
+    while engine.streams:
+        engine.tick()
+    return [final[lane] for lane in lanes]
+
+
+def _synthetic_fusion(pieces, blank: int):
+    """A bigram over random pieces (natural-log probabilities and back-offs
+    from the seed) and BEAM_KEYWORDS keywords of two pieces each; their
+    device tables over the vocabulary."""
+    import numpy as np
+
+    from caiman_asr_tpu_torch.keywords.device_table import build_keyword_tables
+    from caiman_asr_tpu_torch.keywords.trie import Keywords
+    from caiman_asr_tpu_torch.lm.device_table import build_device_tables
+    from caiman_asr_tpu_torch.lm.ngram import LN10, NGramLM
+
+    rng = np.random.default_rng(SEED + 12)
+    words = [pieces[i] for i in rng.choice(blank, size=BEAM_LM_WORDS, replace=False)]
+    probs = {("<unk>",): -5.0 * LN10, ("<s>",): -99.0}
+    backoffs = {("<s>",): -0.3 * LN10}
+    for w in words:
+        probs[(w,)] = float(-rng.uniform(1.0, 4.0) * LN10)
+        backoffs[(w,)] = float(-rng.uniform(0.05, 0.5) * LN10)
+    for a in words + ["<s>"]:
+        for b in rng.choice(words, size=BEAM_LM_NEXT, replace=False):
+            probs[(a, str(b))] = float(-rng.uniform(0.05, 1.0) * LN10)
+    t0 = time.perf_counter()
+    lm = build_device_tables(NGramLM(probs, backoffs, 2), pieces, skip_ids=[blank])
+    initial = [p for p in pieces[:blank] if p.startswith("▁")]
+    vocab = [(str(rng.choice(initial)) + str(rng.choice(pieces[:blank])), BEAM_KEYWORD_WEIGHT)
+             for _ in range(BEAM_KEYWORDS)]
+    kw = build_keyword_tables(Keywords(vocab), pieces, skip_ids=[blank])
+    return lm, kw, vocab, time.perf_counter() - t0
+
+
+def run_beam() -> dict:
+    """Phase 12: the beam serving path at base-85M's full width, W=4."""
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import bench_serving, offline
+    from caiman_asr_tpu_torch.data.featurize import FeaturePipeline
+    from caiman_asr_tpu_torch.decoding.fast_beam import (
+        FastBeamDecoder,
+        lane_axis,
+        make_streaming_beam_step,
+        select,
+    )
+    from caiman_asr_tpu_torch.ops import lstm_kernel
+    from caiman_asr_tpu_torch.serving.engine import StreamingEngine
+
+    t_phase = time.perf_counter()
+    model, audio, lens, mel_stats, pipe, raised = _serving_model()
+    n_classes = model.n_classes
+    blank = n_classes - 1
+    tok = bench_serving.bench_tokenizer(n_classes)
+    k1 = lstm_kernel.lstm_recurrence
+    layers = model.cfg.enc_pre_rnn_layers + model.cfg.enc_post_rnn_layers
+    out = {"blank_raised": raised, "width": BEAM_W, "expansions": BEAM_MSYM}
+
+    def fast(dtype, **kw):
+        return offline.transcribe(model, audio, lens, mel_stats, device="cuda", dtype=dtype,
+                                  pipeline=pipe, tokenizer=tok, decoder="fast_beam",
+                                  beam_width=BEAM_W, max_symbols_per_step=BEAM_MSYM, **kw)
+
+    def alternatives(responses):
+        return [[a.y_seq for fr in r.values() for a in fr.final.alternatives] for r in responses]
+
+    # offline FastBeamDecoder, fp32 and bf16, K1 counted
+    best = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with beam_runs() as runs:
+            resp = fast(dtype)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        run = runs[-1]
+        best[dname] = tokens(resp)
+        log(f"  fast beam {dname}: {wall * 1e3:.1f} ms (graph captured in this call), "
+            f"{run['frames']} frames in {run['chunks']} chunks of {run['chunk_frames']}, "
+            f"{run['host_reads']} host reads; K1 {counts['lstm_recurrence']} launches "
+            f"(expected {layers}); {sum(map(len, best[dname]))} best-path tokens")
+        if counts["lstm_recurrence"] != layers or any(
+                v for name, v in counts.items() if name != "lstm_recurrence"):
+            raise AssertionError(f"the offline beam's launches: {counts}")
+        if len(runs) != 1 or not run["graph"] or run["host_reads"] != run["chunks"]:
+            raise AssertionError(f"the beam did not replay one graph a chunk: {runs}")
+        out[f"offline_{dname}"] = dict(run, ms=1e3 * wall, k1=counts["lstm_recurrence"],
+                                       tokens=sum(map(len, best[dname])))
+        if dname == "float32":
+            resp32 = resp
+    with plain_path():
+        plain = fast(torch.float32)
+    same = alternatives(resp32) == alternatives(plain)
+    log(f"  fp32 fast beam vs the plain path: every hypothesis' tokens identical: {same}")
+    if not same or not any(best["float32"]):
+        raise AssertionError("the fp32 fast beam differs from its plain path, or is empty")
+    sim = difflib.SequenceMatcher(a=[t for u in best["float32"] for t in u + [-1]],
+                                  b=[t for u in best["bfloat16"] for t in u + [-1]],
+                                  autojunk=False).ratio()
+    out["bf16_vs_fp32_best_similarity"] = sim
+    log(f"  bf16 vs fp32 best paths: sequence similarity {sim:.4f}")
+
+    # the replays against eager chunks, bit for bit
+    fp = FeaturePipeline(pipe, mel_stats, device="cuda")
+    feats, feat_lens = fp(torch.from_numpy(audio).cuda(), torch.from_numpy(lens).cuda())
+    with torch.inference_mode():
+        encs, enc_lens, _ = model.encode(feats, feat_lens)
+    dec_kw = dict(beam_width=BEAM_W, max_symbols_per_step=BEAM_MSYM, **BEAM_THRESH)
+    graph_dec = FastBeamDecoder(model, blank, **dec_kw)
+    t0 = time.perf_counter()
+    first = graph_dec.decode_encs(encs, enc_lens)
+    t1 = time.perf_counter()
+    cached = graph_dec.decode_encs(encs, enc_lens)
+    t2 = time.perf_counter()
+    eager_dec = FastBeamDecoder(model, blank, cuda_graph=False, **dec_kw)
+    eager = eager_dec.decode_encs(encs, enc_lens)
+    t3 = time.perf_counter()
+    same = all(np.array_equal(a, b) and np.array_equal(a, c)
+               for a, b, c in zip(first, cached, eager))
+    out["offline_replays"] = {"first_ms": 1e3 * (t1 - t0), "cached_ms": 1e3 * (t2 - t1),
+                              "eager_ms": 1e3 * (t3 - t2), "equal": same,
+                              "run": graph_dec.last_run}
+    log(f"  fast beam decode fp32: first call (capture + replays) {1e3 * (t1 - t0):.1f} ms, "
+        f"cached graph {1e3 * (t2 - t1):.1f} ms, eager chunks {1e3 * (t3 - t2):.1f} ms; "
+        f"replays vs eager: tokens, frames, lengths and scores bit-equal: {same}")
+    if not same or eager_dec.last_run["graph"] or not graph_dec.last_run["graph"]:
+        raise AssertionError("the beam's graph replays differ from its eager chunks")
+    offline_beams = [_live_beams(*(a[b] for a in (first[0], first[2], first[3])))
+                     for b in range(N_UTTS)]
+
+    # the host beam at the same width: agreement with the fixed-expansion beam
+    t0 = time.perf_counter()
+    host = offline.transcribe(model, audio, lens, mel_stats, device="cuda", pipeline=pipe,
+                              tokenizer=tok, decoder="beam", beam_width=BEAM_W,
+                              max_symbols_per_step=BEAM_MSYM)
+    wall = time.perf_counter() - t0
+    host_best = tokens(host)
+    agree = sum(a == b for a, b in zip(host_best, best["float32"]))
+    out["host_beam"] = {"ms": 1e3 * wall, "agree_share": agree / N_UTTS,
+                        "tokens": sum(map(len, host_best))}
+    log(f"  RNNTBeamDecoder fp32: {wall * 1e3:.1f} ms; best paths equal to the fast beam's on "
+        f"{agree}/{N_UTTS} utterances (two algorithms: not a gate)")
+
+    def engine(B, dtype, **kw):
+        return StreamingEngine(model, blank, tok, mel_stats, max_streams=B,
+                               max_symbols_per_step=BEAM_MSYM, dtype=dtype, device="cuda",
+                               decoder="beam", beam_width=BEAM_W, logmel=pipe.logmel, **kw)
+
+    thresh = dict(beam_score_thresh=BEAM_THRESH["score_thresh"],
+                  beam_topk_thresh=BEAM_THRESH["topk_thresh"])
+    # streamed beams, fp32, K1 on every tick. They are held (1) bit for bit
+    # against the streaming step run alone over the engine's own encoder
+    # frames (recorded from an eager run, which must equal the graph run:
+    # the streaming featurizer, a matmul DFT over 60 ms chunks, and the
+    # offline FFT differ in their last bits, and beam scores sum over every
+    # frame), and (2) against the offline FastBeamDecoder over those frames:
+    # each best hypothesis equal, the live sets counted. The offline decoder
+    # forms log-probs by log_softmax and the step by z - lse, as the JAX
+    # package's two do, so a merge or a top-W boundary that ties to the
+    # last bits can part them on a hypothesis past the best
+    eng = engine(N_UTTS, torch.float32, pipeline_depth=1, **thresh)
+    eng.warmup()
+    reset_counts()
+    streamed = _stream_beams(eng, audio, lens)
+    counts = read_counts()
+    ticks, per_tick = eng._tick_count, eng.k1_launches_per_tick
+    eng.close()
+    frames = {}
+    eng = engine(N_UTTS, torch.float32, pipeline_depth=1, cuda_graph=False, **thresh)
+    eager_streamed = _stream_beams(eng, audio, lens, frames)
+    eng.close()
+    s_lens = torch.tensor([len(frames.get(i, [])) for i in range(N_UTTS)])
+    s_encs = torch.zeros((N_UTTS, int(s_lens.max()), encs.shape[2]), device="cuda")
+    for i, fs in frames.items():
+        s_encs[i, :len(fs)] = torch.stack(fs)
+
+    def step_alone(**fusion):
+        init, step = make_streaming_beam_step(model, blank, beam_width=BEAM_W,
+                                              expansions=BEAM_MSYM, **BEAM_THRESH, **fusion)
+        params = model.param_tree()
+        st = init(params, N_UTTS)
+        valid_to = s_lens.to(s_encs.device)
+        with torch.inference_mode():
+            for t in range(s_encs.shape[1]):
+                new = step(params, s_encs[:, t], st)
+                st = {k: select(t < valid_to, new[k], st[k], lane_axis(k)) for k in st}
+        return [_live_beams(*(st[k][b].cpu().numpy() for k in ("toks", "lens", "scores")))
+                for b in range(N_UTTS)]
+
+    def offline_on_frames(**fusion):
+        o = FastBeamDecoder(model, blank, **dec_kw, **fusion).decode_encs(s_encs, s_lens)
+        return [_live_beams(*(a[b] for a in (o[0], o[2], o[3]))) for b in range(N_UTTS)]
+
+    def compare(got, what, **fusion):
+        alone, off = step_alone(**fusion), offline_on_frames(**fusion)
+        best = sum(_beams_agree([g[:1]], [w[:1]]) for g, w in zip(got, off))
+        live = sum(_beams_agree([g], [w]) for g, w in zip(got, off))
+        log(f"  {what}: live hypotheses equal to the streaming step's alone over the engine's "
+            f"frames, bit for bit: {got == alone}; against the offline beam on those frames, "
+            f"best hypotheses equal (tokens exact, scores to {BEAM_SCORE_TOL}) on "
+            f"{best}/{N_UTTS} utterances, every live hypothesis on {live}/{N_UTTS}")
+        if got != alone or best != N_UTTS:
+            raise AssertionError(f"{what} differ: alone {_beam_diff(got, alone)}; offline "
+                                 f"{_beam_diff([g[:1] for g in got], [w[:1] for w in off])}")
+        return off, {"equal_alone": True, "best_equal_offline": best,
+                     "live_equal_offline": live}
+
+    stream_ref, cmp = compare(streamed, "fp32 streamed beams")
+    from_audio = sum(g[0][0] == w[0][0] for g, w in zip(streamed, offline_beams))
+    log(f"  graph ticks equal to eager ticks: {streamed == eager_streamed}; best paths equal "
+        f"to the offline beam's from the audio on {from_audio}/{N_UTTS}; {ticks} ticks, K1 "
+        f"{counts['lstm_recurrence']} launches ({per_tick} a tick)")
+    if streamed != eager_streamed:
+        raise AssertionError("the fp32 beam's graph ticks differ from its eager ticks")
+    if counts["lstm_recurrence"] != ticks * per_tick or per_tick != layers:
+        raise AssertionError(f"the beam tick's launches: {counts} for {ticks} ticks")
+    out["streaming_vs_offline"] = dict(cmp, utterances=N_UTTS, ticks=ticks,
+                                       launches=counts["lstm_recurrence"],
+                                       best_equal_from_audio=from_audio)
+
+    # the graph replay against the eager tick, bit for bit, with rebases
+    packed = {}
+    with torch.no_grad():
+        model.joint_net[2].bias[-1] -= BEAM_GRAPH_BLANK_DROP
+    try:
+        for graph in (True, False):
+            eng = engine(BEAM_GRAPH_B, torch.bfloat16, cuda_graph=graph,
+                         beam_cap=BEAM_GRAPH_CAP, beam_win=BEAM_GRAPH_WIN, **thresh)
+            packed[graph] = _graph_script(eng, BEAM_GRAPH_TICKS, SEED, _BeamRecorder)
+            packed[graph, "state"] = ([t.clone() for hc in eng.enc_state for t in hc]
+                                      + list(eng.dec_state.values()))
+            eng.close()
+    finally:
+        with torch.no_grad():
+            model.joint_net[2].bias[-1] += BEAM_GRAPH_BLANK_DROP
+    echo_col = BEAM_W * BEAM_GRAPH_WIN + BEAM_W + 1
+    rebases = int(sum(((p[:, echo_col] > 0) & a).sum() for p, a in packed[True]))
+    equal = len(packed[True]) == len(packed[False]) >= BEAM_GRAPH_TICKS - 2 and all(
+        np.array_equal(a, b) and np.array_equal(aa, ba)
+        for (a, aa), (b, ba) in zip(packed[True], packed[False])) and all(
+        torch.equal(a, b) for a, b in zip(packed[True, "state"], packed[False, "state"]))
+    log(f"  beam graph replay vs eager tick, B={BEAM_GRAPH_B} bf16, cap {BEAM_GRAPH_CAP}, "
+        f"{len(packed[True])} ticks with lanes opening and closing, {rebases} lane rebases: "
+        f"packed outputs and state bit-equal: {equal}")
+    if not equal or rebases == 0:
+        raise AssertionError(f"the beam's graph ticks differ from its eager ticks, or no "
+                             f"rebase fired ({rebases})")
+    out["graph_vs_eager"] = {"ticks": len(packed[True]), "rebases": rebases}
+
+    # fusion at full width: offline and streamed, fp32
+    lm, kw, vocab, build_s = _synthetic_fusion([tok.id_to_piece(i) for i in range(n_classes)],
+                                               blank)
+    log(f"  fusion tables built in {build_s:.1f} s: n-gram S={lm.n_states} states x "
+        f"{n_classes} ({lm.nbytes()} bytes), keywords {vocab} S={kw.n_states} "
+        f"({kw.nbytes()} bytes)")
+    fused = dict(ngram_lm=lm, ngram_alpha=BEAM_ALPHA, keywords=kw)
+    eng = engine(N_UTTS, torch.float32, pipeline_depth=1, **thresh, **fused)
+    eng.warmup()
+    fused_streamed = _stream_beams(eng, audio, lens)
+    eng.close()
+    fused_offline, fcmp = compare(fused_streamed, f"fused (alpha {BEAM_ALPHA}, {len(vocab)} "
+                                  "keywords) fp32 streamed beams", **fused)
+    changed = sum(f[0][0] != o[0][0] for f, o in zip(fused_offline, stream_ref))
+    log(f"  fusion changed {changed}/{N_UTTS} best transcripts")
+    if changed == 0:
+        raise AssertionError("fusion changed no transcript")
+    out["fusion"] = dict(fcmp, lm_states=lm.n_states, lm_bytes=lm.nbytes(),
+                         kw_states=kw.n_states, build_s=build_s, changed=changed)
+
+    # the server, in process, --decoder beam
+    eng = engine(SERVE_STREAMS + 1, torch.float32, pipeline_depth=1, **thresh)
+    eng.warmup()
+    out["server"] = _drive_server(eng, audio)
+    eng.close()
+    log(f"  server (beam): {out['server']}")
+    log(f"  phase 12 checks took {time.perf_counter() - t_phase:.1f} s")
+
+    # timing: the beam tick alone, then bench_serving --decoder beam's tiers
+    del model
+    torch.cuda.empty_cache()
+    bench_model = bench_serving.build_model("cuda", SEED)
+    beam_kw = bench_serving.beam_options(BEAM_W, 64, **BEAM_THRESH)
+    out["compute"] = []
+    for Bc in BEAM_LADDER:
+        c = bench_serving.compute_ms(bench_model, Bc, engine_kw=beam_kw)
+        out["compute"].append(c)
+        log(f"  beam compute path B={Bc} bf16: {c['ms_per_tick']:.3f} ms a graph replay")
+        torch.cuda.empty_cache()
+    out["eager_ops"] = bench_serving.eager_ops(bench_model, BEAM_PROFILE_B, engine_kw=beam_kw)
+    log(f"  eager beam tick at B={BEAM_PROFILE_B}, device ms by operator: "
+        f"{out['eager_ops']['device_ms_per_tick']:.2f} in all; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["eager_ops"]["ops_ms_per_tick"].items()))
+    torch.cuda.empty_cache()
+    with mock.patch.object(bench_serving, "TICKS", BEAM_TICKS), \
+            mock.patch.object(bench_serving, "PACED_TICKS", BEAM_PACED_TICKS):
+        out["ladder"] = bench_serving.run_ladder(bench_model, BEAM_LADDER, log=log,
+                                                 engine_kw=beam_kw)["rungs"]
+    out["headline"] = bench_serving.headline(out["ladder"])
+    log(f"  beam ladder headline: {out['headline']}")
+    del bench_model
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2506,6 +2944,11 @@ def main() -> int:
         "measures, base-85M")
     router = run_router_clients()
 
+    # 12. the beam serving path
+    log("== beam: FastBeamDecoder, RNNTBeamDecoder, StreamingEngine(decoder='beam') with "
+        "fusion, ASRServer --decoder beam, bench_serving --decoder beam, base-85M, W=4")
+    beam = run_beam()
+
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
     counts64 = cells[sorted(cells)[2]]["bfloat16"]["rows"][-1]["launches"]
@@ -2582,7 +3025,12 @@ def main() -> int:
             kernels[-1].update({
                 "launches_router": rt["k1_launches"],
                 "launches_router_per": "fp32 streaming of the smoke's utterances over two "
-                                       "engines on one card (phase 11)"})
+                                       "engines on one card (phase 11)",
+                "launches_beam_offline": beam["offline_float32"]["k1"],
+                "launches_beam_serving": beam["streaming_vs_offline"]["launches"],
+                "launches_beam_per": "phase 12: the fp32 offline fast beam's encoder, and fp32 "
+                                     f"beam streaming of the smoke's utterances "
+                                     f"({beam['streaming_vs_offline']['ticks']} ticks)"})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -2651,6 +3099,7 @@ def main() -> int:
         {name: r for name, r in wavefront.items() if name != "launches"}))
     log("serving summary: " + json.dumps(serving))
     log("router and clients summary: " + json.dumps(router))
+    log("beam summary: " + json.dumps(beam))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},

@@ -283,8 +283,10 @@ def test_lane_lifecycle_and_capacity(models):
 
 
 def test_unported_options_raise(models):
-    for kw in (dict(decoder="beam"), dict(ngram_lm=object()), dict(keywords=object())):
-        with pytest.raises(NotImplementedError):
+    """The beam is ported (tests/test_torch_beam_engine.py); n-gram fusion
+    and keyword boosting need it, and an unknown decoder is refused."""
+    for kw in (dict(decoder="nbest"), dict(ngram_lm=object()), dict(keywords=object())):
+        with pytest.raises(ValueError):
             port_engine(models, **kw)
 
 

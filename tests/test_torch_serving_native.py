@@ -48,6 +48,53 @@ def test_serializer_fuzz_is_byte_identical():
     ref.close()
 
 
+@pytest.mark.parametrize("W,win", [(1, 2), (3, 8), (4, 16)])
+def test_beam_serializer_fuzz_is_byte_identical(W, win):
+    """ser_beam_tick on random windows: hypotheses agreeing on a random
+    prefix, dead ones (scores below -1e29), bases that slide past the
+    committed horizon, rebase echoes, lane resets. The same JSON, records,
+    dev_len and commit state as the JAX package's build."""
+    B = 5
+    rng = np.random.default_rng(W)
+    pieces = PIECES + [f"▁p{i}" for i in range(20)]
+    ours = native.ResponseSerializer(B, 0.06, pieces, beam_width=W, beam_win=win)
+    ref = JaxSerializer(B, W, win, 0.06, pieces)
+    lens = np.zeros((B, W), np.int64)
+    for t in range(TICKS):
+        lens = np.minimum(lens + rng.integers(0, 3, size=(B, W)), 10_000)
+        toks = rng.integers(0, len(pieces), size=(B, W, win)).astype(np.int32)
+        common = rng.integers(0, win + 1, size=B)
+        for b in range(B):
+            toks[b, :, :common[b]] = toks[b, 0, :common[b]]
+        base = np.maximum(lens.max(axis=1) - win, 0)
+        echo = np.where(rng.random(B) < 0.05, rng.integers(1, 4, size=B), 0)
+        scores = rng.normal(size=(B, W)).astype(np.float32) * 3 - 5
+        scores[rng.random((B, W)) < 0.2] = -1e30
+        packed = np.concatenate([toks.reshape(B, -1), lens.astype(np.int32), base[:, None],
+                                 echo[:, None], scores.view(np.int32)], axis=1).astype(np.int32)
+        adv = rng.random(B) < 0.8
+        for lane in np.flatnonzero(rng.random(B) < 0.03):
+            ours.reset_lane(int(lane))
+            ref.reset_lane(int(lane))
+            lens[lane] = 0
+        raw, idx, dev_len = ours.beam_tick_raw(packed, adv)
+        want_raw, want_idx, want_dev = ref.beam_tick_raw(packed, adv)
+        assert raw == want_raw
+        np.testing.assert_array_equal(idx, want_idx)
+        np.testing.assert_array_equal(dev_len, want_dev)
+        assert [ours.committed(i) for i in range(B)] == [ref.committed(i) for i in range(B)]
+        assert [ours.frame_idx(i) for i in range(B)] == [ref.frame_idx(i) for i in range(B)]
+    assert ours.beam_tick(packed, adv)[0] == ref.beam_tick(packed, adv)[0]
+    assert sum(ours.committed(i) for i in range(B)) > 0
+    ours.close()
+    ref.close()
+
+
+def test_beam_serializer_refuses_a_beam_past_64():
+    with pytest.raises(ValueError, match="refused"):
+        native.ResponseSerializer(2, 0.06, ["a"], beam_width=65, beam_win=4)
+
+
 def test_serializer_grows_its_buffer():
     B = 1024
     pieces = ["x" * 600] * 8

@@ -127,9 +127,7 @@ def test_bundle_loads_and_the_engine_matches_jax(bundle):
 
 
 def test_build_engine_refuses_what_is_not_ported(bundle):
-    with pytest.raises(NotImplementedError):
-        server.build_engine(_args(bundle, decoder="beam"))
-    # several cards are served (tests/test_torch_multi_chip.py); asking for
+    # the beam is served (test_build_engine_beam_matches_jax below); several cards are served (tests/test_torch_multi_chip.py); asking for
     # more than are visible exits
     with pytest.raises(SystemExit):
         server.build_engine(_args(bundle, num_chips=max(2, torch.cuda.device_count() + 1),
@@ -138,17 +136,41 @@ def test_build_engine_refuses_what_is_not_ported(bundle):
         server.build_engine(_args(bundle, ckpt="x.npz"))
 
 
+def _dispatch(srv, out):
+    """A tick's responses into the server's per-connection queues, as its
+    ticker does."""
+    for lane, resp in out.items():
+        q = srv.queues.get(lane)
+        if q is not None:
+            for r in resp if isinstance(resp, list) else [resp]:
+                q.put_nowait(r)
+
+
+async def _lockstep_ticks(srv, n_streams: int):
+    """Tick only once every client's audio and EOS are in the engine, then
+    until every stream has ended: each tick takes one chunk of every lane,
+    so how tokens group into messages does not depend on scheduling."""
+    eng = srv.engine
+    while not (len(eng.streams) == n_streams
+               and all(st.closed for st in eng.streams.values())):
+        await asyncio.sleep(0.002)
+    while eng.streams:
+        _dispatch(srv, eng.tick())
+        await asyncio.sleep(0)
+
+
 def test_servers_send_the_same_frames(bundle):
+    """Both servers, on localhost, send the same text frames one for one and
+    refuse the same requests. The test drives the ticks in lockstep with
+    the clients (no timed ticker while the streams run) and binds port 0."""
     websockets = pytest.importorskip("websockets")
     import websockets.asyncio.client
     import websockets.asyncio.server
 
-    async def serve_and_stream(srv, port, audios):
-        ticker = asyncio.create_task(srv._ticker())
-        url = f"ws://127.0.0.1:{port}{PATH}"
+    async def serve_and_stream(srv, audios):
         kw = dict(subprotocols=[server.SUBPROTOCOL])
 
-        async def client(chunks):
+        async def client(url, chunks):
             frames = []
             async with websockets.asyncio.client.connect(url, **kw) as ws:
                 for x in chunks:
@@ -158,32 +180,40 @@ def test_servers_send_the_same_frames(bundle):
                     frames.append(msg)
             return frames
 
-        async def refused(*messages):
+        async def refused(url, *messages):
             async with websockets.asyncio.client.connect(url, **kw) as ws:
                 for m in messages:
                     await ws.send(m)
                 await asyncio.wait_for(ws.wait_closed(), 30)
                 return ws.close_code
 
-        async with websockets.asyncio.server.serve(srv.handle, "127.0.0.1", port, **kw):
-            frames = await asyncio.wait_for(asyncio.gather(*map(client, audios)), 60)
-            odd = await refused(b"\x00\x00\x00")
+        async with websockets.asyncio.server.serve(srv.handle, "127.0.0.1", 0, **kw) as ws_srv:
+            port = ws_srv.sockets[0].getsockname()[1]
+            url = f"ws://127.0.0.1:{port}{PATH}"
+            frames = await asyncio.wait_for(asyncio.gather(
+                _lockstep_ticks(srv, len(audios)),
+                *(client(url, a) for a in audios)), 60)
+            # the refusals need no lockstep: a timed ticker frees the lanes
+            ticker = asyncio.create_task(srv._ticker())
+            odd = await refused(url, b"\x00\x00\x00")
+            while srv.engine.streams:  # the refused stream's lane freed
+                await asyncio.sleep(0.01)
             # every lane held by a silent client, one more is refused
             holders = [await websockets.asyncio.client.connect(url, **kw) for _ in range(4)]
-            await asyncio.sleep(0.1)
-            full = await refused()
+            while len(srv.engine.streams) < 4:
+                await asyncio.sleep(0.01)
+            full = await refused(url)
             for ws in holders:
                 await ws.close()
-        ticker.cancel()
-        return frames, odd, full
+        ticker.cancel()  # after the server has drained its handlers
+        return frames[1:], odd, full
 
     audios = [_chunks(10 + s, 8 + 3 * s) for s in range(3)]
     results = []
-    for port, build, make in ((18791, jax_server.build_engine, jax_server.ASRServer),
-                              (18792, server.build_engine, server.ASRServer)):
+    for build, make in ((jax_server.build_engine, jax_server.ASRServer),
+                        (server.build_engine, server.ASRServer)):
         eng = build(_args(bundle))
-        results.append(asyncio.run(serve_and_stream(make(eng, tick_interval=0.005), port,
-                                                    audios)))
+        results.append(asyncio.run(serve_and_stream(make(eng, tick_interval=0.005), audios)))
         eng.close()
     (want, want_odd, want_full), (got, got_odd, got_full) = results
     assert got == want
@@ -227,3 +257,97 @@ def test_state_reset_router_matches_jax(bundle):
     assert results[1] == results[0]
     assert all(sum(1 for m in msgs if m.get("eos")) == 1 for msgs in results[1].values())
     assert sum(1 for msgs in results[1].values() for m in msgs if "alternatives" in m) > 0
+
+
+def _beam_args(bundle, tmp_path, **kw):
+    """--decoder beam with an ARPA over the bundle's pieces, a keyword list
+    and the pruning thresholds (final emission 0.18 s: 3 ticks)."""
+    pieces = ["▁" * (i % 2) + chr(97 + i) for i in range(N_PIECES - 1)]
+    arpa = tmp_path / "lm.arpa"
+    arpa.write_text("\n".join(["\\data\\", f"ngram 1={len(pieces) + 1}", "", "\\1-grams:",
+                               "-2.0\t<unk>", *(f"-{0.4 + 0.1 * i:.2f}\t{p}"
+                                                for i, p in enumerate(pieces)),
+                               "", "\\end\\", ""]))
+    kwp = tmp_path / "kw.json"
+    kwp.write_text(json.dumps({"keywords": {"bc": 2.0}}))
+    return _args(bundle, **{**dict(
+        decoder="beam", beam_width=3, beam_prune_score_thresh=0.4, beam_prune_topk_thresh=1.5,
+        beam_final_emission_thresh=0.18, ngram_path=str(arpa), ngram_scale_factor=0.5,
+        keyword_boost_path=str(kwp)), **kw})
+
+
+class BeamRecorder(Recorder):
+    def beam_tick(self, packed, adv):
+        self.packed.append((np.array(packed), np.array(adv)))
+        return self.ser.beam_tick(packed, adv)
+
+
+def _beam_packed(eng, ticks=12):
+    rec = eng._native_ser = BeamRecorder(eng._native_ser)
+    lanes = [eng.open_stream() for _ in range(2)]
+    for chunks in zip(*(_chunks(30 + s, ticks) for s in range(2))):
+        for lane, x in zip(lanes, chunks):
+            eng.push_audio(lane, x)
+        eng.tick()
+    return rec.packed
+
+
+def _assert_beam_packed_equal(engines):
+    logs = [_beam_packed(e) for e in engines]
+    for e in engines:
+        e.close()
+    assert len(logs[0]) == len(logs[1]) == 12
+    for (w, wa), (g, ga) in zip(*logs):
+        np.testing.assert_array_equal(ga, wa)
+        np.testing.assert_array_equal(g[:, :-3], w[:, :-3])
+        np.testing.assert_allclose(g[:, -3:].view(np.float32), w[:, -3:].view(np.float32),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_build_engine_beam_matches_jax(bundle, tmp_path):
+    """build_engine --decoder beam with an n-gram path, keywords and the
+    thresholds: the fusion settings the JAX build takes, and the same packed
+    beam outputs (integers exact, scores within 1e-5)."""
+    args = _beam_args(bundle, tmp_path)
+    engines = jax_server.build_engine(args), server.build_engine(args)
+    beam = engines[1]._beam
+    assert engines[1].decoder == "beam" and engines[1].beam_width == 3
+    assert (beam.alpha, beam.score_thresh, beam.topk_thresh, beam.fe_limit) == (0.5, 0.4, 1.5, 3)
+    assert beam._lm.tables is not None and beam._kw.tables is not None
+    _assert_beam_packed_equal(engines)
+
+
+def test_build_engine_beam_from_the_bundle_ngram_and_over_engines(bundle, tmp_path):
+    """The n-gram and its scale from a bundle's ``ngram`` / ``ngram_scale``
+    extras (the JAX build's packed outputs again); --num_chips 2 (two CPU
+    engines) serves the beam, streams to EOS."""
+    arpa = _beam_args(bundle, tmp_path).ngram_path
+    with np.load(bundle["bundle"]) as z:
+        arrays = {k: z[k] for k in z.files}
+    arrays.update(ngram=np.frombuffer(open(arpa, "rb").read(), np.uint8),
+                  ngram_scale=np.float32(0.25))
+    path = tmp_path / "bundle_lm.npz"
+    np.savez(path, **arrays)
+    b2 = dict(bundle, bundle=str(path))
+    args = _beam_args(b2, tmp_path, ngram_path=None, ngram_scale_factor=None)
+    engines = jax_server.build_engine(args), server.build_engine(args)
+    assert engines[1]._beam.alpha == 0.25 and engines[1]._beam._lm.tables is not None
+    _assert_beam_packed_equal(engines)
+
+    mc = server.build_engine(_beam_args(b2, tmp_path, num_chips=2, ngram_path=None))
+    assert mc.n_chips == 2 and all(e.decoder == "beam" and e._beam.alpha == 0.5
+                                   for e in mc.engines)
+    lanes = [mc.open_stream() for _ in range(3)]
+    for x in _chunks(40, 4):
+        for lane in lanes:
+            mc.push_audio(lane, x)
+        mc.tick()
+    for lane in lanes:
+        mc.close_stream(lane)
+    eos = set()
+    while mc.streams:
+        for lane, msgs in mc.tick().items():
+            eos |= {lane for m in (msgs if isinstance(msgs, list) else [msgs])
+                    if isinstance(m, dict) and m.get("eos")}
+    mc.close()
+    assert eos == set(lanes)
