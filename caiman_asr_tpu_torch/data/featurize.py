@@ -1,6 +1,6 @@
-"""Evaluation featurisation: log-mel -> normalise -> splice -> time-major
-(the eval branch of ``FeaturePipeline`` in ``caiman_asr_tpu/data/loader.py``).
-SpecAugment is training-only and is not ported yet."""
+"""Featurisation on the device: log-mel -> normalise -> splice (->
+SpecAugment in training) -> time-major (``FeaturePipeline`` in
+``caiman_asr_tpu/data/loader.py``)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import torch
 
 from caiman_asr_tpu_torch.device import resolve_device
 from caiman_asr_tpu_torch.models.config import PipelineConfig
-from caiman_asr_tpu_torch.ops.features import stack_subsample_frames
+from caiman_asr_tpu_torch.ops.features import spec_augment, stack_subsample_frames
 from caiman_asr_tpu_torch.ops.logmel import LogMelFrontend, normalize_batch
 
 
@@ -20,11 +20,16 @@ class FeaturePipeline:
 
     ``mel_stats`` is ``(means, stds)`` over the dataset, each [n_mels];
     without them the blend ratio is forced to 0 (per-utterance stats).
+    ``dataset_to_utt_ratio`` is the blend (``training/schedules.MelNormRamp``
+    in training). With ``train``, SpecAugment (the pipeline's
+    ``specaugment``, when it has one) masks the spliced features, its bands
+    drawn from the call's generator.
     """
 
     def __init__(self, pipeline: PipelineConfig = PipelineConfig(), mel_stats=None,
-                 *, device="cuda"):
+                 *, train: bool = False, device="cuda"):
         self.pipe = pipeline
+        self.train = train
         self.device = resolve_device(device)
         self.frontend = LogMelFrontend(pipeline.logmel, device=self.device)
         self.mel_means = self.mel_stds = None
@@ -48,4 +53,6 @@ class FeaturePipeline:
         feats, frame_lens = stack_subsample_frames(
             feats, frame_lens, sp.frame_stacking, sp.frame_subsampling
         )
+        if self.train and self.pipe.specaugment is not None:
+            feats = spec_augment(feats, frame_lens, self.pipe.specaugment, generator)
         return feats.permute(2, 0, 1), frame_lens

@@ -110,3 +110,16 @@ def train_state_from_jax(model: torch.nn.Module, params: Mapping, ema_params: Ma
     return TrainState(tree, like(ema_params), LambState(like(mu), like(nu), int(count),
                                                         int(sched_count)),
                       int(count if step is None else step))
+
+
+def rnnt_state_from_jax(state, *, device="cpu"):
+    """A JAX ``RNNTState`` whose leaves are numpy arrays (as a resumed run's
+    ``rsp/`` checkpoint leaves or a test give it) -> the port's
+    ``RNNTState`` on ``device``, dtypes kept."""
+    from caiman_asr_tpu_torch.models.state import EncoderState, PredNetState, RNNTState
+
+    t = lambda a: _t(a).to(device)
+    hc = lambda pair: (t(pair[0]), t(pair[1]))
+    enc, pn = state.enc_state, state.pred_net_state
+    return RNNTState(EncoderState(hc(enc.pre_rnn), hc(enc.post_rnn)),
+                     PredNetState(hc(pn.next_to_last_pred_state), t(pn.last_token)))

@@ -1,5 +1,6 @@
-"""Model and feature configuration, mirroring the ``rnnt:``,
-``filterbank_features``, ``frame_splicing`` and ``ngram:`` parts of the JAX
+"""Model, feature and training configuration, mirroring the ``rnnt:``,
+``filterbank_features``, ``frame_splicing``, ``spec_augment``,
+``grad_noise_scheduler``, ``user_tokens`` and ``ngram:`` parts of the JAX
 package's YAML configs (``caiman_asr_tpu/models/config.py``). Other sections
 of a config file are read by parts of the system not ported yet and are
 ignored here."""
@@ -8,10 +9,11 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
+from caiman_asr_tpu_torch.ops.features import SpecAugmentConfig
 from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
 
 
@@ -56,10 +58,22 @@ class FrameSplicingConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """The feature half of ``input_train`` / ``input_val``."""
+    """The feature half of ``input_train`` / ``input_val``; ``specaugment``
+    is None where the block has no ``spec_augment``."""
 
     logmel: LogMelConfig = LogMelConfig()
     splicing: FrameSplicingConfig = FrameSplicingConfig()
+    specaugment: Optional[SpecAugmentConfig] = None
+
+
+@dataclass(frozen=True)
+class GradNoiseConfig:
+    """The ``grad_noise_scheduler`` block; noise is on when
+    ``noise_level`` > 0 (``training/schedules.GradNoiseSchedule``)."""
+
+    noise_level: float = 0.0
+    decay_const: float = 0.55
+    start_step: int = 2000
 
 
 @dataclass(frozen=True)
@@ -77,6 +91,8 @@ class Config:
     input_val: PipelineConfig = PipelineConfig()
     stats_path: Optional[str] = None
     ngram: NgramConfig = NgramConfig()
+    grad_noise: GradNoiseConfig = GradNoiseConfig()
+    user_tokens: Dict[str, str] = field(default_factory=dict)
 
 
 def _fill(cls, d: Optional[dict], where: str):
@@ -116,7 +132,9 @@ def _pipeline(d: Optional[dict]) -> tuple[PipelineConfig, Optional[str]]:
             raise ValueError(f"Unknown filterbank_features key: {k}")
         logmel[_LOGMEL_KEYMAP[k]] = v
     splicing = _fill(FrameSplicingConfig, d.get("frame_splicing"), "frame_splicing")
-    return PipelineConfig(LogMelConfig(**logmel), splicing), fb.get("stats_path")
+    spec = d.get("spec_augment")
+    specaugment = _fill(SpecAugmentConfig, spec, "spec_augment") if spec else None
+    return PipelineConfig(LogMelConfig(**logmel), splicing, specaugment), fb.get("stats_path")
 
 
 def load_config(path: str | Path) -> Config:
@@ -135,4 +153,7 @@ def load_config(path: str | Path) -> Config:
         input_val=val,
         stats_path=stats_train or stats_val,
         ngram=_fill(NgramConfig, raw.get("ngram"), "ngram"),
+        grad_noise=_fill(GradNoiseConfig, raw.get("grad_noise_scheduler"),
+                         "grad_noise_scheduler"),
+        user_tokens=dict(raw.get("user_tokens") or {}),
     )

@@ -31,7 +31,7 @@ from torch import nn
 
 from caiman_asr_tpu_torch.device import resolve_device
 from caiman_asr_tpu_torch.models.config import RNNTModelConfig
-from caiman_asr_tpu_torch.models.state import EncoderState
+from caiman_asr_tpu_torch.models.state import EncoderState, PredNetState, RNNTState
 from caiman_asr_tpu_torch.ops.features import stack_time
 from caiman_asr_tpu_torch.ops.lstm import Params, dot_f32, lstm_step, run_lstm
 
@@ -62,7 +62,7 @@ class LSTMWeights(nn.Module):
 
 
 class LSTMStack(nn.Module):
-    """A stack of LSTM layers, with eval batch-norm after each layer when
+    """A stack of LSTM layers, with batch-norm after each layer when
     ``batch_norm`` (then one 1-layer LSTM per layer, as the reference)."""
 
     def __init__(self, input_size, hidden_size, num_layers, batch_norm, device):
@@ -204,12 +204,48 @@ class RNNT(nn.Module):
     def has_batch_norm(self) -> bool:
         return self.cfg.enc_batch_norm or self.cfg.pred_batch_norm
 
+    @staticmethod
+    def _bn_layers(params: Params):
+        """(path, layer) of every batch-norm layer of ``params`` in the JAX
+        traversal order: encoder.pre_rnn, encoder.post_rnn, prediction.dec_rnn,
+        each by layer index."""
+        for top, name in (("encoder", "pre_rnn"), ("encoder", "post_rnn"),
+                          ("prediction", "dec_rnn")):
+            stack = params[top][name]
+            for i in range(len(stack)):
+                layer = stack[f"layer_{i}"]
+                if "bn" in layer:
+                    yield (top, name, f"layer_{i}", "bn"), layer["bn"]
+
+    def bn_stats(self, params: Params) -> tuple:
+        """The running (mean, var) of every batch-norm layer, in the order
+        ``enc_pred``'s ``bn_updates`` fills and :meth:`apply_bn_updates`
+        takes."""
+        return tuple((bn["mean"], bn["var"]) for _, bn in self._bn_layers(params))
+
+    def bn_stat_paths(self, params: Params) -> list:
+        """The tree paths of :meth:`bn_stats`' leaves, as (mean, var) pairs."""
+        return [(path + ("mean",), path + ("var",)) for path, _ in self._bn_layers(params)]
+
+    def apply_bn_updates(self, params: Params, updates) -> Params:
+        """A tree like ``params`` (containers copied, leaves shared) whose
+        running stats are ``updates``, (mean, var) pairs in :meth:`bn_stats`'
+        order."""
+        params = _copy_containers(params)
+        layers = list(self._bn_layers(params))
+        if len(layers) != len(updates):
+            raise ValueError(f"{len(updates)} batch-norm updates for {len(layers)} layers")
+        for (path, bn), (mean, var) in zip(layers, updates):
+            params[path[0]][path[1]][path[2]]["bn"] = dict(bn, mean=mean, var=var)
+        return params
+
     # ----------------------------------------------------------- encode
-    def _encode(self, p: Params, x, x_lens, enc_state=None, *, train=False, generator=None):
+    def _encode(self, p: Params, x, x_lens, enc_state=None, *, train=False, generator=None,
+                bn_updates=None):
         cfg = self.cfg
         kw = dict(hard=cfg.hard_activations, quantize=cfg.quantize, train=train,
                   dropout=cfg.enc_dropout, rw_dropout=cfg.enc_rw_dropout,
-                  generator=generator)
+                  generator=generator, bn_updates=bn_updates)
         out, _, (all_h0, all_c0) = run_lstm(
             p["encoder"]["pre_rnn"], x,
             enc_state.pre_rnn if enc_state is not None else None, **kw,
@@ -245,7 +281,7 @@ class RNNT(nn.Module):
 
     # ---------------------------------------------------------- predict
     def _predict(self, p: Params, y, pred_state=None, *, add_sos=True, special_sos=None,
-                 sos_gate=None, batch_size=1, train=False, generator=None):
+                 sos_gate=None, batch_size=1, train=False, generator=None, bn_updates=None):
         cfg = self.cfg
         embed = p["prediction"]["embed"]
         if y is not None:
@@ -266,6 +302,7 @@ class RNNT(nn.Module):
             p["prediction"]["dec_rnn"], emb.transpose(0, 1), pred_state,
             hard=cfg.hard_activations, quantize=cfg.quantize, train=train,
             dropout=cfg.pred_dropout, rw_dropout=cfg.pred_rw_dropout, generator=generator,
+            bn_updates=bn_updates,
         )
         return _linear(p["joint_pred"], out.transpose(0, 1)), hid, all_hid
 
@@ -295,25 +332,49 @@ class RNNT(nn.Module):
         x_lens: torch.Tensor,
         y: torch.Tensor,
         y_lens: torch.Tensor,
+        rnnt_state: Optional[RNNTState] = None,
         *,
+        state_gate: Optional[torch.Tensor] = None,
         params: Optional[Params] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        bn_updates: Optional[list] = None,
     ):
         """Encoder and prediction nets over a whole batch
-        (``caiman_asr_tpu/models/rnnt.py:316-372`` without the carried
-        streaming state of random state passing, not ported yet).
+        (``caiman_asr_tpu/models/rnnt.py:316-372``).
 
         x: [T, B, in_feats]; y: [B, U] labels. ``params`` is a tree as
         :meth:`param_tree` gives (default: this module's own), e.g. the
         train step's compute-dtype copies. With ``train`` the configured
-        dropouts are drawn from ``generator``. Differentiable. Returns
-        ((f [B, T', Hj], f_lens), (g [B, U+1, Hj], g_lens = y_lens + 1)).
+        dropouts are drawn from ``generator`` and batch-norm layers use the
+        batch's statistics, appended to ``bn_updates`` when given.
+        Differentiable.
+
+        ``rnnt_state`` is the streaming state carried from the previous
+        segment (random state passing; detached where it enters the LSTMs),
+        ``state_gate`` [B] 0/1 per sample: 0 zeroes that sample's h and c
+        and its re-embedded last token, as if it had no state. Returns
+        ((f [B, T', Hj], f_lens), (g [B, U+1, Hj], g_lens = y_lens + 1),
+        new_state): the encoder's (h, c) at each utterance's last frame and
+        the predictor's state before its last label, with that label.
         """
         p = self.param_tree() if params is None else params
-        f, f_lens, _ = self._encode(p, x, x_lens, train=train, generator=generator)
-        g, _, _ = self._predict(p, y, train=train, generator=generator)
-        return (f, f_lens), (g, y_lens + 1)
+        enc_state = rnnt_state.enc_state if rnnt_state is not None else None
+        pn_state = rnnt_state.pred_net_state if rnnt_state is not None else None
+        if state_gate is not None and rnnt_state is not None:
+            gate = state_gate.float()
+            zero_hc = lambda hc: tuple(h * gate[None, :, None].to(h.dtype) for h in hc)
+            enc_state = EncoderState(zero_hc(enc_state.pre_rnn), zero_hc(enc_state.post_rnn))
+            pn_state = PredNetState(zero_hc(pn_state.next_to_last_pred_state),
+                                    pn_state.last_token)
+        f, f_lens, new_enc_state = self._encode(p, x, x_lens, enc_state, train=train,
+                                                generator=generator, bn_updates=bn_updates)
+        g, _, all_pred_hid = self._predict(
+            p, y, pn_state.next_to_last_pred_state if pn_state is not None else None,
+            special_sos=pn_state.last_token if pn_state is not None else None,
+            sos_gate=state_gate, train=train, generator=generator, bn_updates=bn_updates)
+        new_state = RNNTState(new_enc_state, _get_pred_net_state(y, all_pred_hid, y_lens))
+        return (f, f_lens), (g, y_lens + 1), new_state
 
     @torch.no_grad()
     def pred_step(
@@ -352,6 +413,20 @@ class RNNT(nn.Module):
         for :meth:`encode`."""
         p = _node(self.joint_net[2]) if params is None else params["joint_fc"]
         return _linear(p, torch.relu(f + g))
+
+
+def _copy_containers(tree: Params) -> Params:
+    return {k: _copy_containers(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+
+def _get_pred_net_state(y, all_pred_hid, y_lens) -> PredNetState:
+    """The predictor's state to carry into the next segment: (h, c) before
+    the last label (position y_len - 1 of the SOS-prefixed sequence), and
+    that label [B, 1], re-embedded there as the start of the sequence."""
+    all_h, all_c = all_pred_hid  # [L, U+1, B, H]
+    idx = torch.clamp(y_lens.long() - 1, min=0)
+    bix = torch.arange(all_h.shape[2], device=all_h.device)
+    return PredNetState((all_h[:, idx, bix], all_c[:, idx, bix]), y.gather(1, idx[:, None]))
 
 
 def _last_nonpadded_state(all_h, all_c, lens):

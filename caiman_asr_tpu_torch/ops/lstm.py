@@ -2,27 +2,29 @@
 
 A layer's parameters are a dict ``{"w_ih" [4H, I], "w_hh" [4H, H],
 "b_ih" [4H], "b_hh" [4H]}`` with gate order i, f, g, o, plus an optional
-``"bn"`` dict (``scale``, ``bias``, ``mean``, ``var``) for eval batch-norm;
-a stack is ``{"layer_0": {...}, ...}`` — the JAX package's parameter tree
-with tensors for leaves.
+``"bn"`` dict (``scale``, ``bias``, ``mean``, ``var``) for batch-norm on
+the layer's output; a stack is ``{"layer_0": {...}, ...}`` — the JAX
+package's parameter tree with tensors for leaves.
 
 ``run_lstm_layer`` computes the input projection for all time steps as one
 matmul, rounds it to the compute dtype, and hands the sequential part to
 ``ops/lstm_kernel.recurrence``: the Hopper kernels for CUDA tensors (K1, or
 under a gradient K3a forward and K3b backward), their plain versions for CPU
 tensors. h and c are carried in fp32. ``run_lstm`` with ``train=True`` adds
-the training-time dropouts.
+the training-time dropouts and normalises with batch statistics.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 Params = Dict[str, Any]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def hard_sigmoid(z: torch.Tensor) -> torch.Tensor:
@@ -111,11 +113,27 @@ def run_lstm_layer(
     )
 
 
-def batch_norm_apply(bn: Params, y: torch.Tensor) -> torch.Tensor:
-    """Eval batch-norm over the feature axis of y [..., H] with the running
-    stats: a per-feature affine, computed in fp32."""
+def batch_norm_apply(bn: Params, y: torch.Tensor, train: bool = False,
+                     updates: Optional[List] = None) -> torch.Tensor:
+    """Batch-norm over the feature axis of y [..., H], computed in fp32
+    (``caiman_asr_tpu/ops/lstm.py:281-306``).
+
+    Eval: the running stats, a per-feature affine. ``train``: the batch's
+    statistics over every (time, batch) position, padded frames included,
+    the biased variance normalising; with ``updates``, the pair
+    (batch mean, unbiased batch variance), detached, is appended for the
+    train step to fold into the running stats (``BN_MOMENTUM``)."""
     yf = y.float()
-    out = (yf - bn["mean"]) * torch.rsqrt(bn["var"] + BN_EPS) * bn["scale"] + bn["bias"]
+    if train:
+        axes = tuple(range(y.ndim - 1))
+        mu = yf.mean(axes)
+        var = torch.square(yf - mu).mean(axes)
+        if updates is not None:
+            n = math.prod(y.shape[:-1])
+            updates.append((mu.detach(), (var * (n / max(n - 1, 1))).detach()))
+    else:
+        mu, var = bn["mean"], bn["var"]
+    out = (yf - mu) * torch.rsqrt(var + BN_EPS) * bn["scale"] + bn["bias"]
     return out.to(y.dtype)
 
 
@@ -136,6 +154,7 @@ def run_lstm(
     dropout: float = 0.0,
     rw_dropout: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    bn_updates: Optional[List] = None,
 ):
     """Run a multi-layer LSTM stack.
 
@@ -147,7 +166,9 @@ def run_lstm(
     applied between layers and to the output, ``rw_dropout`` is DropConnect
     on ``w_hh`` (a fresh mask per layer per call), all drawn from
     ``generator``. The masks are not the JAX package's bits: the same seed
-    gives other numbers. Training a batch-norm stack is not ported yet.
+    gives other numbers. A batch-norm layer normalises with the batch's
+    statistics in training and appends them to ``bn_updates`` when given
+    (:func:`batch_norm_apply`).
     """
     num_layers = len(params)
     T, B, _ = x.shape
@@ -156,8 +177,6 @@ def run_lstm(
     use_rw = train and rw_dropout > 0.0
     if (use_dropout or use_rw) and generator is None:
         raise ValueError("dropout requires a generator")
-    if train and any("bn" in layer for layer in params.values()):
-        raise NotImplementedError("training a batch-norm LSTM stack is not ported yet")
     all_h, all_c = [], []
     out = x
     for i in range(num_layers):
@@ -177,7 +196,7 @@ def run_lstm(
         all_c.append(cs)
         out = ys
         if "bn" in layer:
-            out = batch_norm_apply(layer["bn"], out)
+            out = batch_norm_apply(layer["bn"], out, train, bn_updates)
     if use_dropout:
         out = _dropout(out, dropout, generator)
     h_n = torch.stack([h[-1] for h in all_h])

@@ -14,10 +14,13 @@
   never materialised. On a CUDA tensor that runs the Hopper kernels; on a CPU
   tensor their plain versions. ``transducer_loss`` over dense logits is the
   plain reference.
+- ``pack_to``: the packed joint runs those kernels over only the valid
+  lattice positions, ``pack_to`` rows (``_packed_joint_scores``); a cap
+  below the valid count makes both score tensors -inf, so the loss is not
+  finite and the train step skips.
 
-Not ported yet: ``pack_to`` (the packed joint), ``vocab_axis`` (the
-vocab-parallel joint) and the T-chunked dense route; asking for the first
-two raises.
+Not ported yet: ``vocab_axis`` (the vocab-parallel joint), which raises,
+and the T-chunked dense route.
 """
 
 from __future__ import annotations
@@ -229,6 +232,53 @@ def _fused_joint_scores(f, g, w_fc, b_fc, labels, blank_idx: int,
     return lp_b.reshape(B, T, U1), lp_l.reshape(B, T, U1)
 
 
+def _packed_joint_scores(f, g, w_fc, b_fc, labels, t_lens, u_lens, blank_idx: int,
+                         pack_to: int, generator: Optional[torch.Generator] = None,
+                         dropout_rate: float = 0.0):
+    """(lp_blank, lp_label) [B, T, U+1] with the joint run over ``pack_to``
+    rows, the valid positions in (b, t, u) order
+    (``caiman_asr_tpu/ops/transducer_loss.py:426-493``).
+
+    A slot's (b, t, u) comes from ``searchsorted`` over the cumulative
+    per-utterance lattice sizes ``t_len * (u_len + 1)``; the f and g rows
+    are gathered, relu'd (and dropped out), and the joint's scores
+    scattered back into a dense buffer of N + 1 slots whose last takes the
+    slots past the valid count; invalid positions hold 0, which the lattice
+    masks. Computed on the device throughout: when the valid count exceeds
+    ``pack_to`` both outputs are -inf, never a truncated lattice."""
+    B, T, H = f.shape
+    U1 = g.shape[1]
+    N = B * T * U1
+    dev = f.device
+    u1 = u_lens.long() + 1
+    sizes = t_lens.long() * u1
+    off = torch.cat([sizes.new_zeros(1), torch.cumsum(sizes, 0)])
+    slots = torch.arange(pack_to, device=dev)
+    b_i = torch.clamp(torch.searchsorted(off, slots, right=True) - 1, 0, B - 1)
+    rem = slots - off[b_i]
+    u1b = u1[b_i]
+    t_i = torch.clamp(rem // u1b, max=T - 1)
+    u_i = torch.clamp(rem % u1b, max=U1 - 1)
+    valid = slots < off[B]
+    g_rows = b_i * U1 + u_i
+    h = torch.relu(f.reshape(B * T, H)[b_i * T + t_i] + g.reshape(B * U1, H)[g_rows])
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("joint dropout requires a generator")
+        h = JointDropout.apply(h, dropout_rate, generator)
+    lab_flat = _lab_padded(labels).reshape(B * U1)[g_rows]
+    lp_b, lp_l = joint_kernel.fused_joint_lse(h, w_fc.t().to(h.dtype), b_fc, lab_flat,
+                                              blank_idx)
+    flat = torch.where(valid, (b_i * T + t_i) * U1 + u_i, N)
+    overflow = off[B] > pack_to
+
+    def scatter(v):
+        dense = torch.zeros(N + 1, dtype=torch.float32, device=dev).scatter(0, flat, v.float())
+        return torch.where(overflow, float("-inf"), dense[:N].reshape(B, T, U1))
+
+    return scatter(lp_b), scatter(lp_l)
+
+
 def transducer_loss_from_fg(
     f: torch.Tensor,
     g: torch.Tensor,
@@ -250,12 +300,16 @@ def transducer_loss_from_fg(
     f [B, T, Hj] and g [B, U+1, Hj] are the encoder and prediction
     projections, ``w_fc`` [K, Hj] and ``b_fc`` [K] the final joint linear.
     ``dropout_rate`` > 0 applies joint dropout drawn from ``generator``.
+    ``pack_to`` runs the joint over that many rows, the valid lattice
+    positions (``training/pack.pack_cap``), instead of all B * T * (U+1).
     """
-    if pack_to is not None:
-        raise NotImplementedError("the packed joint (pack_to) is not ported yet")
     if vocab_axis is not None:
         raise NotImplementedError("the vocab-parallel joint (vocab_axis) is not ported yet")
-    lp_blank, lp_label = _fused_joint_scores(f, g, w_fc, b_fc, labels, blank_idx,
-                                             generator, dropout_rate)
+    if pack_to is not None:
+        lp_blank, lp_label = _packed_joint_scores(f, g, w_fc, b_fc, labels, t_lens, u_lens,
+                                                  blank_idx, pack_to, generator, dropout_rate)
+    else:
+        lp_blank, lp_label = _fused_joint_scores(f, g, w_fc, b_fc, labels, blank_idx,
+                                                 generator, dropout_rate)
     null, emit = _penalised_scores(lp_blank, lp_label, labels, t_lens, mods)
     return rnnt_lattice(null, emit, t_lens, u_lens)

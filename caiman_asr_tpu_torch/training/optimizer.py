@@ -14,6 +14,10 @@ is the schedule at the count before the increment times the module's
 factor, and the EMA is ``e + (1 - decay) (p' - e)``. On a non-finite loss
 nothing changes: parameters, EMA, moments and both counts.
 
+``overwrite`` replaces some updated leaves before the EMA takes them: the
+batch-norm running stats, which the train step folds from the batch
+(``caiman_asr_tpu/training/step.py:336-357``, its optax path).
+
 The update is written in place, under ``torch.no_grad``, into the
 parameter, EMA and moment tensors it is given (the JAX version returns new
 trees); the counts are Python ints in a new state.
@@ -74,11 +78,16 @@ class Lamb:
     @torch.no_grad()
     def update(self, params: Tree, ema_params: Tree, state: LambState,
                grads: Dict[Tuple[str, ...], Optional[torch.Tensor]], good: bool,
-               ema_decay: float) -> Tuple[LambState, torch.Tensor]:
+               ema_decay: float,
+               overwrite: Optional[Dict[Tuple[str, ...], torch.Tensor]] = None,
+               ) -> Tuple[LambState, torch.Tensor]:
         """One step. ``grads`` maps each parameter's tree path to its
         gradient (None: no gradient, counted as zeros). Writes params, EMA
-        and moments in place when ``good``; returns (new state, the global
-        gradient norm before the clip)."""
+        and moments in place when ``good``; a leaf whose path is in
+        ``overwrite`` takes that value in place of its update, before the
+        EMA. Returns (new state, the global gradient norm before the
+        clip)."""
+        overwrite = overwrite or {}
         cfg = self.cfg
         f32 = np.float32
         paths = [path for path, _ in tree_items(params)]
@@ -113,6 +122,8 @@ class Lamb:
             trust = torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(pn), pn / un)
             factor = self.lr_factors.get(path[0], 1.0)
             p_new = (p32 + (-lr * factor * trust) * u).to(p.dtype)
+            if path in overwrite:
+                p_new = overwrite[path].to(p.dtype)
             e.add_(((1.0 - ema_decay) * (p_new.float() - e.float())).to(e.dtype))
             p.copy_(p_new)
         new = LambState(state.mu, state.nu, count_inc, min(state.sched_count + 1, INT32_MAX))

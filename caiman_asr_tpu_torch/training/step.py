@@ -6,6 +6,18 @@
 - Mixed precision as ``_cast_compute``: with ``compute_dtype``, matrices
   (and the features) are cast to it and vectors stay fp32; the fp32
   parameters are the master weights and get the gradients.
+- Random state passing (``rsp``): the streaming state is threaded through
+  the microbatches, each gated by its own 0/1 gate, detached and cast to
+  the carry's dtype after each (``_micro_loss``); a skipped step returns a
+  zero state.
+- The packed joint (``pack_to``) on every microbatch.
+- Gradient noise (``grad_noise``): ``std * N(0, 1)`` added to the encoder's
+  gradients after ``nan_to_num`` (``add_grad_noise``).
+- Batch-norm training: each microbatch's batch statistics folded into the
+  running stats in turn with ``BN_MOMENTUM``; after the LAMB update the
+  stat leaves take the folded stats, then the EMA.
+- Layer statistics (``collect_layer_stats``) from the parameters before
+  the update and the gradients the optimizer takes.
 - The non-finite skip: a step whose total loss is not finite changes
   nothing (``optimizer.Lamb.update``).
 - LAMB, its learning-rate schedule and the EMA of the weights
@@ -18,21 +30,26 @@ Batch layout (accumulation-major, time-major)::
   txt        [A, B, U]      int
   txt_lens   [A, B]         int
 
-Not ported yet, each raising when asked: random state passing (``rsp``),
-gradient noise, batch-norm training, the pruned loss, the tensor-parallel
-step and layer statistics.
+Not ported yet, each raising when asked: the pruned loss and the
+tensor-parallel step.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from caiman_asr_tpu_torch.device import resolve_device
+from caiman_asr_tpu_torch.log.layer_stats import layer_stats_vec
+from caiman_asr_tpu_torch.models.state import RNNTState
+from caiman_asr_tpu_torch.ops.lstm import BN_MOMENTUM
 from caiman_asr_tpu_torch.ops.transducer_loss import LossModifiers, transducer_loss_from_fg
 from caiman_asr_tpu_torch.training.optimizer import Lamb, LambState
 from caiman_asr_tpu_torch.training.tree import Tree, tree_items, tree_map
+
+Path = Tuple[str, ...]
+
 
 class TrainState(NamedTuple):
     params: Tree        # the model's own (fp32 master) parameters, updated in place
@@ -67,17 +84,68 @@ def _cast_compute(params: Tree, feats: torch.Tensor, compute_dtype):
     return tree_map(cast, params), feats.to(compute_dtype)
 
 
+def map_state(fn, *states: RNNTState) -> RNNTState:
+    """``fn`` over the leaves of one or more RNNTStates of one layout."""
+    def walk(*nodes):
+        if isinstance(nodes[0], torch.Tensor):
+            return fn(*nodes)
+        kids = [walk(*k) for k in zip(*nodes)]
+        return type(nodes[0])(*kids) if hasattr(nodes[0], "_fields") else tuple(kids)
+    return walk(*states)
+
+
 def _micro_loss(model, params: Tree, mb: Dict[str, torch.Tensor], generator,
-                mods: LossModifiers, denom: float, blank_idx: int, compute_dtype=None):
-    """Normalised loss of one microbatch (feats [T, B, F])."""
+                mods: LossModifiers, denom: float, blank_idx: int, compute_dtype=None, *,
+                pack_to: Optional[int] = None, rnnt_state: Optional[RNNTState] = None,
+                gate: Optional[torch.Tensor] = None, bn_updates: Optional[list] = None):
+    """(normalised loss, new streaming state) of one microbatch (feats
+    [T, B, F]). With ``rnnt_state`` (random state passing) the microbatch
+    starts from it, gated by ``gate`` (a 0-d 0/1 tensor) for every sample,
+    and the new state comes back detached in the carry's dtypes."""
     p, feats = _cast_compute(params, mb["feats"], compute_dtype)
-    (f, f_lens), (g, _) = model.enc_pred(feats, mb["feat_lens"], mb["txt"], mb["txt_lens"],
-                                         params=p, train=True, generator=generator)
+    B = feats.shape[1]
+    (f, f_lens), (g, _), new_state = model.enc_pred(
+        feats, mb["feat_lens"], mb["txt"], mb["txt_lens"], rnnt_state,
+        state_gate=None if gate is None else gate.expand(B), params=p, train=True,
+        generator=generator, bn_updates=bn_updates)
     per_utt = transducer_loss_from_fg(
         f, g, p["joint_fc"]["w"], p["joint_fc"]["b"], mb["txt"], f_lens, mb["txt_lens"],
         blank_idx, mods, generator=generator, dropout_rate=model.cfg.joint_dropout,
+        pack_to=pack_to,
     )
-    return per_utt.sum() / denom
+    if rnnt_state is not None:
+        new_state = map_state(lambda n, o: n.detach().to(o.dtype), new_state, rnnt_state)
+    return per_utt.sum() / denom, new_state
+
+
+def add_grad_noise(grads: Dict[Path, torch.Tensor], std: float,
+                   generator: Optional[torch.Generator] = None,
+                   normals: Optional[Dict[Path, torch.Tensor]] = None) -> Dict[Path, torch.Tensor]:
+    """``grads`` with ``std * N(0, 1)`` added to every encoder leaf
+    (``step.py:260-270``). The normals are drawn from ``generator``, or
+    taken from ``normals`` by path where given."""
+    if normals is None and generator is None:
+        raise ValueError("gradient noise requires a generator")
+    out = dict(grads)
+    for path, g in grads.items():
+        if path[0] != "encoder":
+            continue
+        if normals is not None:
+            z = normals[path].to(device=g.device, dtype=g.dtype)
+        else:
+            z = torch.randn(g.shape, generator=generator, device=g.device, dtype=g.dtype)
+        out[path] = g + std * z
+    return out
+
+
+def _nested(items: Dict[Path, torch.Tensor]) -> Tree:
+    tree: Tree = {}
+    for path, leaf in items.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
 
 
 def make_train_step(
@@ -96,48 +164,91 @@ def make_train_step(
     collect_layer_stats: bool = False,
     device="cuda",
 ):
-    """Build ``step(state, batch, generator, scalars) -> (state, metrics)``.
+    """Build ``step(state, batch, generator, scalars, rnnt_state=None,
+    gates=None, pack_to=None)``.
 
     ``scalars`` holds the host-scheduled ``delay_penalty`` and
-    ``star_penalty``; ``generator`` draws every dropout mask. The step
-    updates ``state``'s tensors in place and returns the new state with
-    metrics ``{"loss", "grad_norm", "skipped"}``. Runs on ``device``
+    ``star_penalty``, and ``grad_noise_std`` with ``grad_noise``;
+    ``generator`` draws every dropout mask and the gradient noise.
+    ``pack_to`` runs the joint over that many rows (``training/pack``). The
+    step updates ``state``'s tensors in place and returns the new state with
+    metrics ``{"loss", "grad_norm", "skipped"}`` (and ``"layer_stats"``,
+    the vector of ``log/layer_stats``, with ``collect_layer_stats``).
+
+    With ``rsp`` the step takes the carried ``rnnt_state`` and the A
+    microbatches' ``gates`` (``training/rsp.RSPController``) and returns
+    ``(state, metrics, new_rnnt_state)``; after a skipped step the returned
+    state is zero and the caller resets its controller. Runs on ``device``
     ("cuda" unless the caller asks for "cpu"), where the model must be.
     """
-    _on_device(model, device)
-    for flag, name in ((rsp, "random state passing"), (grad_noise, "gradient noise"),
-                       (pruned_range > 0, "the pruned loss"),
-                       (collect_layer_stats, "layer statistics"),
-                       (model.has_batch_norm, "batch-norm training")):
-        if flag:
-            raise NotImplementedError(f"{name} is not ported yet")
+    dev = _on_device(model, device)
+    if pruned_range > 0:
+        raise NotImplementedError("the pruned loss is not ported yet")
+    has_bn = model.has_batch_norm
+    if rsp and has_bn:
+        # the JAX package's own rule (the reference's constraint)
+        raise NotImplementedError("random state passing is not supported with batch-norm LSTMs")
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], generator,
-             scalars: Dict[str, Any]):
+             scalars: Dict[str, Any], rnnt_state: Optional[RNNTState] = None, gates=None,
+             pack_to: Optional[int] = None):
         A, _, B, _ = batch["feats"].shape
+        if rsp and (rnnt_state is None or gates is None):
+            raise ValueError("random state passing needs rnnt_state and gates")
         denom = float(A * B)
         mods = LossModifiers(
             delay_penalty=float(scalars["delay_penalty"]), eos_penalty=eos_penalty,
             eos_idx=eos_idx, star_penalty=float(scalars["star_penalty"]), star_idx=star_idx,
         )
         paths, leaves = zip(*tree_items(state.params))
+        wanted = [i for i, leaf in enumerate(leaves) if leaf.requires_grad]
         grads = [None] * len(leaves)
+        gate_t = (torch.as_tensor(gates, dtype=torch.float32).to(dev) if rsp else None)
+        bn_stats = list(model.bn_stats(state.params)) if has_bn else None
+        rs = rnnt_state if rsp else None
         total = None
         for a in range(A):
             mb = {k: v[a] for k, v in batch.items()}
-            loss = _micro_loss(model, state.params, mb, generator, mods, denom, blank_idx,
-                               compute_dtype)
-            mb_grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            for i, g in enumerate(mb_grads):
+            bn_updates = [] if has_bn else None
+            loss, new_rs = _micro_loss(
+                model, state.params, mb, generator, mods, denom, blank_idx, compute_dtype,
+                pack_to=pack_to, rnnt_state=rs, gate=gate_t[a] if rsp else None,
+                bn_updates=bn_updates)
+            mb_grads = torch.autograd.grad(loss, [leaves[i] for i in wanted], allow_unused=True)
+            for i, g in zip(wanted, mb_grads):
                 if g is not None:
                     grads[i] = g.float() if grads[i] is None else grads[i] + g.float()
             total = loss.detach() if total is None else total + loss.detach()
+            if rsp:
+                rs = new_rs
+            if has_bn:
+                bn_stats = [((1 - BN_MOMENTUM) * m + BN_MOMENTUM * bm,
+                             (1 - BN_MOMENTUM) * v + BN_MOMENTUM * bv)
+                            for (m, v), (bm, bv) in zip(bn_stats, bn_updates)]
         good = bool(torch.isfinite(total))
+        # every leaf gets a gradient, zero where the loss does not reach it
+        # (the batch-norm running stats), then nan_to_num and the noise
+        g32 = {path: torch.nan_to_num(g) if g is not None else torch.zeros_like(leaf,
+                                                                               dtype=torch.float32)
+               for path, g, leaf in zip(paths, grads, leaves)}
+        if grad_noise:
+            g32 = add_grad_noise(g32, float(scalars["grad_noise_std"]), generator)
+        metrics = {}
+        if collect_layer_stats:
+            metrics["layer_stats"] = layer_stats_vec(state.params, _nested(g32))
+        overwrite = None
+        if has_bn:
+            overwrite = {path: stat for pair_paths, pair in zip(
+                model.bn_stat_paths(state.params), bn_stats) for path, stat in zip(pair_paths,
+                                                                                   pair)}
         opt_state, grad_norm = optimizer.update(
-            state.params, state.ema_params, state.opt_state, dict(zip(paths, grads)), good,
-            ema_decay)
+            state.params, state.ema_params, state.opt_state, g32, good, ema_decay, overwrite)
         new = TrainState(state.params, state.ema_params, opt_state, state.step + int(good))
-        return new, {"loss": total, "grad_norm": grad_norm, "skipped": int(not good)}
+        metrics = {"loss": total, "grad_norm": grad_norm, "skipped": int(not good), **metrics}
+        if rsp:
+            # a non-finite step may have poisoned the carried state: zero it
+            return new, metrics, rs if good else map_state(torch.zeros_like, rs)
+        return new, metrics
 
     return step
 
@@ -151,8 +262,8 @@ def make_val_loss_step(model, blank_idx: int, *, device="cuda"):
 
     @torch.no_grad()
     def val(params: Tree, batch: Dict[str, torch.Tensor]):
-        (f, f_lens), (g, _) = model.enc_pred(batch["feats"], batch["feat_lens"], batch["txt"],
-                                             batch["txt_lens"], params=params)
+        (f, f_lens), (g, _), _ = model.enc_pred(batch["feats"], batch["feat_lens"],
+                                                batch["txt"], batch["txt_lens"], params=params)
         per_utt = transducer_loss_from_fg(
             f, g, params["joint_fc"]["w"], params["joint_fc"]["b"], batch["txt"], f_lens,
             batch["txt_lens"], blank_idx,

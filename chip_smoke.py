@@ -101,7 +101,25 @@ Phases:
      rebases firing; a synthetic n-gram (its device tables: S states x 8,704)
      and keyword list fused offline and streamed, the two equal, fusion
      changing some best path; ASRServer.handle over a beam engine; the beam
-     tick's compute path and bench_serving --decoder beam on a short ladder.
+     tick's compute path and bench_serving --decoder beam on a short ladder;
+  13. the train step as the JAX trainer runs it by default (base-85M, A=2
+     microbatches of the smoke's utterances with random transcripts holding
+     EOS and star tokens, bf16): the train FeaturePipeline with
+     configs/base-8703sp.yaml's SpecAugment (masked entries exactly 0, in
+     whole bands, the rest equal to the eval features; the masked share
+     beside its expectation) and the mel-normalisation ramp; four steps
+     with random state passing (an RSPController carrying state within the
+     first steps, its gates printed), the packed joint at pack_cap's cap
+     (host lattice sizes equal to the device's; both plans printed), the
+     delay penalty's StepSchedule, gradient noise and layer statistics, every
+     launch count equal to the expected number; the same step packed and
+     dense, timed in turns, with a breakdown of each and the joint's forward
+     and backward profiled by kernel; an undercounted cap
+     skipping the step with parameters, EMA and moments bit-identical; in
+     fp32 without dropout, the packed loss and gradients against the dense
+     ones and the RSP step from the carried state against its plain path
+     (loss, gradients, returned state); a batch-norm base-85M taking two
+     bf16 steps, its folded running stats against the plain path's.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -1267,20 +1285,22 @@ def check_route(counts: dict, store, tag: str, lstm: bool = True) -> None:
                              f"{missing}; launched from another route: {other}")
 
 
-def step_breakdown(run: dict, batch) -> dict:
-    """Two more steps of ``run``'s model, phase by phase, each phase ending
-    in a synchronise: ms per phase of the second (the first pays one-time
-    allocations)."""
-    _step_phases(run, batch)
-    times = _step_phases(run, batch)
+def step_breakdown(run: dict, batch, pack_to=None) -> dict:
+    """Two more steps of ``run``'s model on the first microbatch of
+    ``batch`` (packed to ``pack_to`` rows when given), phase by phase, each
+    phase ending in a synchronise: ms per phase of the second (the first
+    pays one-time allocations)."""
+    _step_phases(run, batch, pack_to)
+    times = _step_phases(run, batch, pack_to)
     total = sum(times.values())
     log(f"  step breakdown, B={batch['feats'].shape[2]} "
-        f"{'bf16' if run['compute'] is not None else 'fp32'} (ms, share): "
+        f"{'bf16' if run['compute'] is not None else 'fp32'}"
+        f"{'' if pack_to is None else f', packed to {pack_to} rows'} (ms, share): "
         + "; ".join(f"{k} {v:.1f} ({v / total:.0%})" for k, v in times.items()))
     return times
 
 
-def _step_phases(run: dict, batch) -> dict:
+def _step_phases(run: dict, batch, pack_to=None) -> dict:
     import torch
 
     from caiman_asr_tpu_torch.ops import transducer_loss as tl
@@ -1302,13 +1322,18 @@ def _step_phases(run: dict, batch) -> dict:
         last[0] = now
 
     p, feats = _cast_compute(state.params, mb["feats"], run["compute"])
-    (f, f_lens), (g, _) = model.enc_pred(feats, mb["feat_lens"], mb["txt"], mb["txt_lens"],
-                                         params=p, train=True, generator=run["gen"])
+    (f, f_lens), (g, _), _ = model.enc_pred(feats, mb["feat_lens"], mb["txt"], mb["txt_lens"],
+                                            params=p, train=True, generator=run["gen"])
     mark("encoder + predictor forward (K3a)")
     w_fc, b_fc = p["joint_fc"]["w"], p["joint_fc"]["b"]
-    lp_b, lp_l = tl._fused_joint_scores(f, g, w_fc, b_fc, mb["txt"], blank, run["gen"],
-                                        model.cfg.joint_dropout)
-    mark("joint forward")
+    if pack_to is None:
+        lp_b, lp_l = tl._fused_joint_scores(f, g, w_fc, b_fc, mb["txt"], blank, run["gen"],
+                                            model.cfg.joint_dropout)
+    else:
+        lp_b, lp_l = tl._packed_joint_scores(f, g, w_fc, b_fc, mb["txt"], f_lens,
+                                             mb["txt_lens"], blank, pack_to, run["gen"],
+                                             model.cfg.joint_dropout)
+    mark("joint forward" if pack_to is None else f"joint forward, packed to {pack_to} rows")
     null, emit = tl._penalised_scores(lp_b, lp_l, mb["txt"], f_lens, tl.LossModifiers())
     loss = tl.rnnt_lattice(null, emit, f_lens, mb["txt_lens"]).sum() / mb["feats"].shape[1]
     mark("lattice forward")
@@ -1323,6 +1348,53 @@ def _step_phases(run: dict, batch) -> dict:
                       dict(zip(paths, grads)), True, 0.999)
     mark("optimizer (LAMB + EMA)")
     return times
+
+
+def profile_joint(run: dict, batch, pack_to=None, top: int = 8) -> dict:
+    """The joint's forward and backward on the first microbatch of
+    ``batch`` (packed to ``pack_to`` rows when given), from f and g to their
+    gradients, under torch.profiler: device ms by kernel, the ``top``
+    largest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from caiman_asr_tpu_torch.ops import transducer_loss as tl
+    from caiman_asr_tpu_torch.training.step import _cast_compute
+
+    model = run["model"]
+    mb = {k: v[0] for k, v in batch.items()}
+    p, feats = _cast_compute(run["state"].params, mb["feats"], run["compute"])
+    with torch.no_grad():
+        (f, f_lens), (g, _), _ = model.enc_pred(feats, mb["feat_lens"], mb["txt"],
+                                                mb["txt_lens"], params=p)
+    leaves = [t.detach().requires_grad_() for t in (f, g, p["joint_fc"]["w"],
+                                                    p["joint_fc"]["b"])]
+    blank, rate = model.n_classes - 1, model.cfg.joint_dropout
+
+    def joint():
+        f_, g_, w_, b_ = leaves
+        if pack_to is None:
+            out = tl._fused_joint_scores(f_, g_, w_, b_, mb["txt"], blank, run["gen"], rate)
+        else:
+            out = tl._packed_joint_scores(f_, g_, w_, b_, mb["txt"], f_lens, mb["txt_lens"],
+                                          blank, pack_to, run["gen"], rate)
+        torch.autograd.grad(out, leaves, [torch.ones_like(o) for o in out])
+
+    joint()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        joint()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    total = sum(kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    route = "dense" if pack_to is None else f"packed to {pack_to} rows"
+    log(f"  the joint forward and backward, {route}: {total:.2f} device ms; "
+        + "; ".join(f"{k[:70]} {v:.2f}" for k, v in ranked))
+    return {"device_ms": total, "top_ms": dict(ranked)}
 
 
 def profile_step(run: dict, batch) -> dict:
@@ -1358,19 +1430,21 @@ def release(run: dict) -> dict:
     return run
 
 
-def step_grads(model, mb, n_utts: int):
-    """(loss, gradients by parameter name) of one fp32 microbatch."""
+def step_grads(model, mb, **kw):
+    """(loss, gradients by parameter name, new state) of one fp32
+    microbatch; ``kw`` as ``_micro_loss`` takes them (``pack_to``,
+    ``rnnt_state``, ``gate``, ``bn_updates``)."""
     import torch
 
     from caiman_asr_tpu_torch.ops.transducer_loss import LossModifiers
     from caiman_asr_tpu_torch.training.step import _micro_loss
     from caiman_asr_tpu_torch.training.tree import tree_items
 
-    items = list(tree_items(model.param_tree()))
-    loss = _micro_loss(model, model.param_tree(), mb, None, LossModifiers(), n_utts,
-                       model.n_classes - 1)
+    items = [(p, leaf) for p, leaf in tree_items(model.param_tree()) if leaf.requires_grad]
+    loss, state = _micro_loss(model, model.param_tree(), mb, None, LossModifiers(),
+                              mb["feats"].shape[1], model.n_classes - 1, **kw)
     grads = torch.autograd.grad(loss, [leaf for _, leaf in items])
-    return loss.detach(), {".".join(path): g for (path, _), g in zip(items, grads)}
+    return loss.detach(), {".".join(p): g for (p, _), g in zip(items, grads)}, state
 
 
 def no_dropout(name: str):
@@ -1404,10 +1478,10 @@ def whole_step_check(batch, name: str = "base-85M", store="bf16", model=None,
     Hj, K = model.cfg.joint_n_hid, model.n_classes
     with forced_route(store, rows, Hj, K):
         reset_counts()
-        loss_k, g_k = step_grads(model, mb, CHECK_B)
+        loss_k, g_k = step_grads(model, mb)[:2]
         counts = read_counts()
         with plain_path():
-            loss_p, g_p = step_grads(model, mb, CHECK_B)
+            loss_p, g_p = step_grads(model, mb)[:2]
     if read_counts() != counts:
         raise AssertionError("the plain path launched a kernel")
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
@@ -1426,19 +1500,26 @@ def whole_step_check(batch, name: str = "base-85M", store="bf16", model=None,
     return out
 
 
-def compare_routes(got, ref, store, name: str, n_utts: int) -> dict:
-    """(loss, gradients) of the route ``store`` against the bf16-slab
-    route's on the same utterances, at LOSS_RTOL and ROUTE_RTOL."""
-    (loss, grads), (loss_ref, g_ref) = got, ref
+def compare_grads(got, want, what: str, grad_rtol: float = GRAD_RTOL) -> dict:
+    """(loss, gradients by name) against another such pair: the loss at
+    LOSS_RTOL, each gradient at ``grad_rtol`` of its largest magnitude."""
+    (loss, grads), (loss_ref, g_ref) = got, want
     loss_err = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
     errs = {n: rel_err(grads[n], g_ref[n]) for n in grads}
     worst = max(errs, key=errs.get)
-    log(f"  routes, {name}, fp32, B={n_utts}: {ROUTE_NAME[store]} vs the bf16 slab: loss "
-        f"relative {loss_err:.3g} (tol {LOSS_RTOL}); worst gradient {worst}: "
-        f"{errs[worst]:.3g} of its largest magnitude (tol {ROUTE_RTOL[store]})")
-    if not loss_err <= LOSS_RTOL or not errs[worst] <= ROUTE_RTOL[store]:
-        raise AssertionError(f"route {store} differs from the bf16-slab route: {errs}")
+    log(f"  {what}: loss {float(loss):.6f} vs {float(loss_ref):.6f} (relative {loss_err:.3g}, "
+        f"tol {LOSS_RTOL}); worst gradient {worst}: {errs[worst]:.3g} of its largest "
+        f"magnitude (tol {grad_rtol})")
+    if not loss_err <= LOSS_RTOL or not errs[worst] <= grad_rtol:
+        raise AssertionError(f"{what}: {loss_err}, {errs}")
     return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst], "worst": worst}
+
+
+def compare_routes(got, ref, store, name: str, n_utts: int) -> dict:
+    """(loss, gradients) of the route ``store`` against the bf16-slab
+    route's on the same utterances, at LOSS_RTOL and ROUTE_RTOL."""
+    return compare_grads(got, ref, f"routes, {name}, fp32, B={n_utts}: {ROUTE_NAME[store]} vs "
+                         "the bf16 slab", ROUTE_RTOL[store])
 
 
 def routes_check(batch, name: str, model) -> dict:
@@ -1451,7 +1532,7 @@ def routes_check(batch, name: str, model) -> dict:
     for store in ("bf16", "i8", None):
         with forced_route(store):
             reset_counts()
-            got[store] = step_grads(model, mb, n_utts)
+            got[store] = step_grads(model, mb)[:2]
             check_route(read_counts(), store, f"routes {name}")
     return {str(store): compare_routes(got[store], got["bf16"], store, name, n_utts)
             for store in ("i8", None)}
@@ -1559,7 +1640,7 @@ def run_knob_routes(fp) -> dict:
     batch = train_batch(fp, MODELS[name][1], SEED)
     model = no_dropout(name)
     with forced_route("bf16"):
-        ref = step_grads(model, check_microbatch(batch, name)[0], CHECK_B)
+        ref = step_grads(model, check_microbatch(batch, name)[0])[:2]
     out["whole_step"] = {route: whole_step_check(batch, name, route, model, against=ref)
                          for route in KNOBS}
     return out
@@ -2766,6 +2847,448 @@ def run_beam() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+# The train step as the JAX trainer runs it by default
+# (`caiman_asr_tpu/train.py:246-304, :480-539`): the spec_augment block and
+# the user tokens of `configs/base-8703sp.yaml` (with a star token beside
+# its EOS), random state passing from a controller whose histories span 2
+# or 3 microbatches (delay 0), the packed joint at pack_cap's cap, a
+# delay-penalty StepSchedule toggling at step 2, the star penalty's schedule
+# at its default, gradient noise, layer statistics, the mel-normalisation
+# ramp; A microbatches of the smoke's utterances (other seeds), bf16.
+DEFAULT_A = 2
+DEFAULT_STEPS = 4
+BASE_SPEC_AUGMENT = dict(freq_masks=2, min_freq=0, max_freq=20, time_masks=10, min_time=0,
+                         max_time=0.03)
+USER_TOKENS = {"eos": "<EOS>", "star": "<star>"}
+STAR_SHARE = 0.1          # transcript positions that are the star token
+RSP_FREQ = [0, 1, 1]      # histories of 2 or 3 microbatches
+DELAY_SCHEDULE = dict(initial_value=0.0, final_value=0.01, toggle_step=2)
+STAR_SCHEDULE = dict(initial_value=0.75, final_value=1.0, wer_threshold=0.2)
+GRAD_NOISE = dict(noise_level=0.05, decay_const=0.55, start_step=1)
+MEL_RAMP = (0, 8)         # the blend ratio from 0 to 1 over steps 0..8
+# the masked share of the SpecAugment'd features against the expectation of
+# non-overlapping bands (overlaps and the random widths make it smaller or
+# larger, by much less than half)
+MASK_SHARE_RANGE = (0.5, 1.5)
+# the batch-norm running stats, kernels against the plain path, fp32
+BN_STATS_RTOL, BN_STATS_ATOL = 1e-5, 1e-7
+LSTM_LAYERS = MODELS["base-85M"][0]["enc_pre_rnn_layers"] + MODELS["base-85M"][0][
+    "enc_post_rnn_layers"] + MODELS["base-85M"][0]["pred_rnn_layers"]
+
+
+def smoke_tokenizer(n_pieces: int):
+    """The port's Tokenizer over a synthetic table of ``n_pieces``: <unk>, the
+    user tokens as user-defined pieces, then word pieces (written under
+    build/smoke/, read back as a sentencepiece table)."""
+    from caiman_asr_tpu_torch.data.tokenizer import (TYPE_NORMAL, TYPE_UNKNOWN,
+                                                     TYPE_USER_DEFINED, Tokenizer)
+
+    pieces = [["<unk>", 0.0, TYPE_UNKNOWN]]
+    pieces += [["▁" + t, 0.0, TYPE_USER_DEFINED] for t in USER_TOKENS.values()]
+    pieces += [[f"▁w{i}", -1.0, TYPE_NORMAL] for i in range(n_pieces - len(pieces))]
+    path = REPO / "build" / "smoke" / "tokenizer.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps({"pieces": pieces}))
+    return Tokenizer(list(" abcdefghijklmnopqrstuvwxyz'"), path)
+
+
+def mel_stats(pipe):
+    """Per-bin mean and std of the raw log-mels of every microbatch's
+    utterances: the dataset statistics the normalisation ramp blends in."""
+    import torch
+
+    from caiman_asr_tpu_torch.ops.logmel import LogMelFrontend
+
+    front = LogMelFrontend(pipe.logmel, device="cuda")
+    rows = []
+    for a in range(DEFAULT_A):
+        audio, lens = synthetic_audio(SEED + 10 * (a + 1))
+        feats, frame_lens = front(torch.from_numpy(audio).cuda(), torch.from_numpy(lens).cuda(),
+                                  torch.Generator(device="cuda").manual_seed(SEED))
+        valid = torch.arange(feats.shape[2], device="cuda")[None, :] < frame_lens[:, None]
+        rows.append(feats.permute(0, 2, 1)[valid])
+    x = torch.cat(rows)
+    return x.mean(0).cpu().numpy(), x.std(0).cpu().numpy()
+
+
+def default_transcripts(n_classes: int, eos: int, star: int, seed: int):
+    """U_MIN..U_MAX random tokens per utterance, the last one EOS, about
+    STAR_SHARE of the others the star token."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u_lens = rng.integers(U_MIN, U_MAX + 1, N_UTTS)
+    u_lens[0] = U_MAX
+    txt = rng.integers(0, n_classes - 1, (N_UTTS, U_MAX))
+    txt[rng.random((N_UTTS, U_MAX)) < STAR_SHARE] = star
+    txt[np.arange(N_UTTS), u_lens - 1] = eos
+    return txt, u_lens
+
+
+def default_batch(fp, n_classes: int, eos: int, star: int, gen, ratio: float) -> dict:
+    """DEFAULT_A microbatches of the smoke's utterances (seeds SEED + 10,
+    + 20, ...) through the pipeline ``fp`` (the train one: SpecAugment drawn
+    from ``gen``), with their audio lengths."""
+    import numpy as np
+    import torch
+
+    parts = {"feats": [], "feat_lens": [], "txt": [], "txt_lens": [], "audio_lens": []}
+    for a in range(DEFAULT_A):
+        audio, lens = synthetic_audio(SEED + 10 * (a + 1))
+        feats, feat_lens = fp(torch.from_numpy(audio).cuda(), torch.from_numpy(lens).cuda(), gen,
+                              dataset_to_utt_ratio=ratio)
+        txt, u_lens = default_transcripts(n_classes, eos, star, SEED + 10 * (a + 1) + 2)
+        for k, v in (("feats", feats), ("feat_lens", feat_lens),
+                     ("txt", torch.from_numpy(txt).cuda()),
+                     ("txt_lens", torch.from_numpy(u_lens).cuda()), ("audio_lens", lens)):
+            parts[k].append(v)
+    T = max(f.shape[0] for f in parts["feats"])
+    feats = [torch.nn.functional.pad(f, (0, 0, 0, 0, 0, T - f.shape[0])) for f in parts["feats"]]
+    batch = {"feats": torch.stack(feats), **{k: torch.stack(parts[k]) for k in
+                                             ("feat_lens", "txt", "txt_lens")}}
+    return batch, np.stack(parts["audio_lens"])
+
+
+def spec_augment_check(eval_fp, train_fp, ratio: float) -> dict:
+    """The train pipeline against the eval one on the same audio and the
+    same generator seed (the dither's draws come first): the entries it
+    masks are exactly 0 and form whole frequency rows and time columns;
+    every other entry equals the eval features bit for bit. The masked
+    share beside the expectation of non-overlapping bands."""
+    import numpy as np
+    import torch
+
+    cfg = train_fp.pipe.specaugment
+    audio, lens = synthetic_audio(SEED + 10)
+    a, l = torch.from_numpy(audio).cuda(), torch.from_numpy(lens).cuda()
+    seed = SEED + 13
+    got, got_lens = train_fp(a, l, torch.Generator(device="cuda").manual_seed(seed), ratio)
+    ref, ref_lens = eval_fp(a, l, torch.Generator(device="cuda").manual_seed(seed), ratio)
+    if not torch.equal(got_lens, ref_lens):
+        raise AssertionError("SpecAugment changed the lengths")
+    zero = got == 0
+    rows, cols = zero.all(dim=0), zero.all(dim=2)  # [B, F] frequency bins, [T, B] frames
+    bands = rows[None] | cols[:, :, None]
+    if not torch.equal(got, torch.where(bands, torch.zeros_like(ref), ref)):
+        raise AssertionError("SpecAugment changed entries outside whole bands, or left a "
+                             "masked entry nonzero")
+    m = got != ref
+    T, B, M = got.shape
+    fl = got_lens.float().cpu().numpy()
+    f_share = cfg.freq_masks * (cfg.min_freq + cfg.max_freq) / 2 / M
+    w_max = np.round(fl * cfg.max_time) if 0 < cfg.max_time < 1 else np.full(B, cfg.max_time)
+    n_t = np.round(fl * cfg.time_masks) if 0 < cfg.time_masks < 1 else np.full(B, cfg.time_masks)
+    t_share = n_t * (cfg.min_time + w_max) / 2 / T
+    expected = float(np.mean(1 - (1 - f_share) * (1 - t_share)))
+    share = float(m.sum() / (ref != 0).sum())
+    lo, hi = MASK_SHARE_RANGE
+    frames = [int(cols[:n, b].sum()) for b, n in enumerate(got_lens.tolist())]
+    log(f"  SpecAugment ({cfg}): {share:.4f} of the nonzero features masked, expected "
+        f"{expected:.4f} from non-overlapping bands; frequency bins masked per utterance "
+        f"{rows.sum(1).tolist()}, frames within its length {frames}")
+    if not lo * expected <= share <= hi * expected:
+        raise AssertionError(f"masked share {share} outside {MASK_SHARE_RANGE} x {expected}")
+    return {"masked_share": share, "expected_share": expected,
+            "freq_bins_masked": rows.sum(1).tolist(), "frames_masked": frames}
+
+
+def microbatch(batch, a: int, n: int = N_UTTS) -> dict:
+    """The first ``n`` utterances of microbatch ``a``, cut to their T and U."""
+    T = int(batch["feat_lens"][a, :n].max())
+    U = int(batch["txt_lens"][a, :n].max())
+    return {"feats": batch["feats"][a, :T, :n], "feat_lens": batch["feat_lens"][a, :n],
+            "txt": batch["txt"][a, :n, :U], "txt_lens": batch["txt_lens"][a, :n]}
+
+
+def nvalid(mb, factor: int) -> int:
+    return int((-(-mb["feat_lens"] // factor) * (mb["txt_lens"] + 1)).sum())
+
+
+def state_leaves(state) -> list:
+    from caiman_asr_tpu_torch.training.step import map_state
+
+    out = []
+    map_state(out.append, state)
+    return out
+
+
+def joint_launches_per_call(N: int, Hj: int, K: int) -> dict:
+    """The joint kernels one forward and backward of fused_joint_lse at
+    [N, Hj] x [Hj, K] in bf16 launches (the expected count a microbatch)."""
+    import torch
+
+    from caiman_asr_tpu_torch.ops import joint_kernel as jk
+
+    h, wt, b, labels, _, _ = joint_inputs(N, Hj, K, torch.bfloat16, SEED + 17)
+    h, w, b = (t.requires_grad_() for t in (h, wt.t(), b))  # w: [Hj, K]
+    reset_counts()
+    lp_b, lp_l = jk.fused_joint_lse(h, w, b, labels, K - 1)
+    torch.autograd.grad((lp_b.sum() + lp_l.sum()), (h, w, b))
+    torch.cuda.synchronize()
+    return {k: v for k, v in read_counts().items() if v}
+
+
+def run_default_train() -> dict:
+    """Phase 13: the default training path at base-85M full width."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch.data.featurize import FeaturePipeline
+    from caiman_asr_tpu_torch.log.layer_stats import layer_stat_names
+    from caiman_asr_tpu_torch.models.config import PipelineConfig
+    from caiman_asr_tpu_torch.models.rnnt import RNNT
+    from caiman_asr_tpu_torch.ops.features import SpecAugmentConfig
+    from caiman_asr_tpu_torch.ops.joint_kernel import store_plan
+    from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
+    from caiman_asr_tpu_torch.ops.lstm import BN_MOMENTUM
+    from caiman_asr_tpu_torch.training import pack, schedules
+    from caiman_asr_tpu_torch.training.optimizer import Lamb, OptimizerConfig
+    from caiman_asr_tpu_torch.training.rsp import RSPController, zero_rnnt_state
+    from caiman_asr_tpu_torch.training.step import init_train_state, make_train_step, map_state
+    from caiman_asr_tpu_torch.training.tree import tree_items
+    from caiman_asr_tpu_torch.utils.user_tokens import user_token_idx
+
+    name = "base-85M"
+    cfg, K = model_config(name), MODELS[name][1]
+    Hj, factor = cfg.joint_n_hid, cfg.enc_stack_time_factor
+    out = {}
+    tok = smoke_tokenizer(K - 1)
+    eos, star = (user_token_idx(t, USER_TOKENS, tok) for t in ("eos", "star"))
+    if min(eos, star) < 0:
+        raise AssertionError(f"the user tokens did not resolve: eos {eos}, star {star}")
+    log(f"  user tokens {USER_TOKENS}: eos_idx {eos}, star_idx {star}")
+
+    # 1. the train pipeline with SpecAugment
+    pipe = PipelineConfig(logmel=LogMelConfig(), specaugment=SpecAugmentConfig(**BASE_SPEC_AUGMENT))
+    stats = mel_stats(pipe)
+    ramp = schedules.MelNormRamp(*MEL_RAMP)
+    train_fp = FeaturePipeline(pipe, stats, train=True, device="cuda")
+    eval_fp = FeaturePipeline(pipe, stats, device="cuda")
+    out["spec_augment"] = spec_augment_check(eval_fp, train_fp, ramp.ratio(2))
+
+    # 2. the default-path steps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    batch, audio_lens = default_batch(train_fp, K, eos, star, gen, ramp.ratio(0))
+    T_pre = batch["feats"].shape[1]
+    dense_n = N_UTTS * -(-T_pre // factor) * (U_MAX + 1)
+    host = [pack.lattice_nvalid(audio_lens[a], batch["txt_lens"][a].cpu().numpy(), pipe, cfg)
+            for a in range(DEFAULT_A)]
+    device = [nvalid({k: v[a] for k, v in batch.items()}, factor) for a in range(DEFAULT_A)]
+    enc_lens = pack.enc_frame_lens(audio_lens[0], pipe, cfg)
+    if host != device or not np.array_equal(
+            enc_lens, (-(-batch["feat_lens"][0] // factor)).cpu().numpy()):
+        raise AssertionError(f"host lattice sizes {host} differ from the device's {device}")
+    cap = pack.pack_cap(max(host), dense_n)
+    if cap is None:
+        raise AssertionError(f"pack_cap gave no cap for {host} of {dense_n}")
+    dense_plan, packed_plan = store_plan(dense_n, Hj, K), store_plan(cap, Hj, K)
+    log(f"  batch: A={DEFAULT_A} x B={N_UTTS}, T={T_pre} (pre-stack), U={U_MAX}; valid lattice "
+        f"positions {host} (host = device); dense N={dense_n}, pack_cap {cap} "
+        f"({cap / dense_n:.1%}, {cap % 128} rows past a multiple of 128); plans: dense "
+        f"{dense_plan}; packed {packed_plan}")
+    out.update({"valid": host, "dense_n": dense_n, "pack_to": cap, "dense_plan": dense_plan,
+                "packed_plan": packed_plan})
+    per_call = joint_launches_per_call(cap, Hj, K)
+    expected = {"lstm_recurrence_sg": DEFAULT_A * LSTM_LAYERS,
+                "lstm_recurrence_bwd": DEFAULT_A * LSTM_LAYERS,
+                **{k: DEFAULT_A * v for k, v in per_call.items()}}
+
+    model = build_model(name, "cuda")
+    opt = Lamb(OptimizerConfig(warmup_steps=0), model.param_lr_factors())
+    state = init_train_state(model, opt, device="cuda")
+    step = make_train_step(model, opt, K - 1, eos_idx=eos, star_idx=star,
+                           compute_dtype=torch.bfloat16, grad_noise=True, rsp=True,
+                           collect_layer_stats=True, device="cuda")
+    ctl = RSPController(RSP_FREQ, delay=0, seed=SEED)
+    rs = zero_rnnt_state(model, N_UTTS, device="cuda")
+    dp = schedules.build_schedule(**DELAY_SCHEDULE)
+    sp = schedules.build_schedule(**STAR_SCHEDULE)
+    noise = schedules.GradNoiseSchedule(**GRAD_NOISE)
+    names = layer_stat_names(state.params)
+    rows = []
+    for i in range(DEFAULT_STEPS):
+        if i:
+            batch, _ = default_batch(train_fp, K, eos, star, gen, ramp.ratio(i))
+        gates = ctl.gates(i, DEFAULT_A)
+        scalars = {"delay_penalty": dp.step(i, hints={"wer": None}),
+                   "star_penalty": sp.step(i, hints={"wer": None}),
+                   "grad_noise_std": noise.std(i)}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m, rs = step(state, batch, gen, scalars, rs, gates, pack_to=cap)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = {k: v for k, v in read_counts().items() if v}
+        ls = m["layer_stats"]
+        row = {"ms": ms, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "skipped": int(m["skipped"]), "gates": gates.tolist(), "scalars": scalars,
+               "launches": counts, "carried_abs_mean": float(rs.enc_state.post_rnn[0].abs().mean()),
+               "layer_stats_finite": bool(torch.isfinite(ls).all())}
+        rows.append(row)
+        log(f"  default step {i + 1}: gates {row['gates']}, {ms:.1f} ms, loss {row['loss']:.4f}, "
+            f"grad_norm {row['grad_norm']:.4f}, skipped {row['skipped']}, scalars {scalars}, "
+            f"mel ratio {ramp.ratio(i)}, carried |h| {row['carried_abs_mean']:.4f}, "
+            f"launches {counts}")
+        if row["skipped"] or not math.isfinite(row["loss"]):
+            raise AssertionError(f"default step {i + 1} skipped or not finite: {row}")
+        if ls.shape[0] != len(names) or not row["layer_stats_finite"]:
+            raise AssertionError(f"layer statistics {ls.shape} for {len(names)} names")
+        if counts != expected:
+            raise AssertionError(f"default step {i + 1}: launches {counts}, expected {expected}")
+    if not any(g for r in rows for g in r["gates"]):
+        raise AssertionError("no microbatch continued from a carried state")
+    if rows[0]["scalars"]["delay_penalty"] == rows[-1]["scalars"]["delay_penalty"]:
+        raise AssertionError("the delay penalty's StepSchedule did not toggle")
+    if not all(r["scalars"]["grad_noise_std"] > 0 for r in rows[GRAD_NOISE["start_step"]:]):
+        raise AssertionError("no gradient noise from the schedule's start step on")
+    out["steps"] = rows
+    out["expected_launches"] = expected
+    stat = dict(zip(names, ls.tolist()))
+    log("  layer statistics of the last step, a few of "
+        f"{len(names)}: " + "; ".join(f"{n} {stat[n]:.4g}" for n in names[:5]))
+
+    # the same step packed and unpacked, timed in turns; a breakdown of each
+    run = {"model": model, "state": state, "compute": torch.bfloat16, "gen": gen, "opt": opt}
+    scalars = rows[-1]["scalars"]
+    timed = {cap: [], None: []}
+    for p in (cap, None, None, cap):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run["state"], _, rs = step(run["state"], batch, gen, scalars, rs,
+                                   np.ones(DEFAULT_A, np.float32), pack_to=p)
+        torch.cuda.synchronize()
+        timed[p].append(1e3 * (time.perf_counter() - t0))
+    out["step_ms"] = {"packed": timed[cap], "dense": timed[None]}
+    log(f"  the default step, A={DEFAULT_A} x B={N_UTTS} bf16: packed to {cap} rows "
+        f"{timed[cap]} ms, dense ({dense_n} rows) {timed[None]} ms; {card()}")
+    out["breakdown_ms"] = {"packed": step_breakdown(run, batch, cap),
+                           "dense": step_breakdown(run, batch)}
+    out["joint_profile"] = {"packed": profile_joint(run, batch, cap),
+                            "dense": profile_joint(run, batch)}
+
+    # 5. overflow: a cap one row below the larger microbatch's valid count
+    before = [t.clone() for tree in (run["state"].params, run["state"].ema_params,
+                                     run["state"].opt_state.mu, run["state"].opt_state.nu)
+              for _, t in tree_items(tree)]
+    counts0 = run["state"].opt_state.count, run["state"].step
+    st, m, rs_bad = step(run["state"], batch, gen, scalars, rs, np.ones(DEFAULT_A, np.float32),
+                         pack_to=max(host) - 1)
+    after = [t for tree in (st.params, st.ema_params, st.opt_state.mu, st.opt_state.nu)
+             for _, t in tree_items(tree)]
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    zero = all(not t.any() for t in state_leaves(rs_bad))
+    log(f"  overflow, pack_to {max(host) - 1} < {max(host)} valid: loss {float(m['loss'])}, "
+        f"skipped {int(m['skipped'])}; parameters, EMA and moments bit-identical: {same}; "
+        f"counts kept {(st.opt_state.count, st.step) == counts0}; the returned state zero: {zero}")
+    if math.isfinite(float(m["loss"])) or int(m["skipped"]) != 1 or not same or not zero or (
+            st.opt_state.count, st.step) != counts0:
+        raise AssertionError("the overflow did not skip the step with the state unchanged")
+    out["overflow"] = {"loss": str(float(m["loss"])), "skipped": int(m["skipped"]),
+                       "state_bit_identical": same}
+    carried = rs
+    del run, state, st, before, after, model, opt, step
+    torch.cuda.empty_cache()
+
+    # 3. packed against dense, 4. RSP against the plain path: fp32, dropout off
+    ref = no_dropout(name)
+    mb_eval, _ = default_batch(eval_fp, K, eos, star, None, ramp.ratio(0))
+    mb = microbatch(mb_eval, 0)
+    cap0 = pack.pack_cap(nvalid(mb, factor), N_UTTS * -(-mb["feats"].shape[0] // factor)
+                         * (mb["txt"].shape[1] + 1)) or nvalid(mb, factor)
+    reset_counts()
+    loss_p, g_p, _ = step_grads(ref, mb, pack_to=cap0)
+    packed_counts = {k: v for k, v in read_counts().items() if v}
+    loss_d, g_d, _ = step_grads(ref, mb)
+    out["packed_vs_dense"] = compare_grads(
+        (loss_p, g_p), (loss_d, g_d), f"packed ({cap0} rows) vs dense, fp32, B={N_UTTS}")
+    out["packed_vs_dense"]["launches"] = packed_counts
+    del g_p, g_d
+    small = microbatch(mb_eval, 1, CHECK_B)
+    sub_state = map_state(lambda t: t[:, :CHECK_B] if t.dim() == 3 else t[:CHECK_B], carried)
+    gate = torch.ones((), device="cuda")
+    n_small = nvalid(small, factor)
+    reset_counts()
+    loss_k, g_k, st_k = step_grads(ref, small, pack_to=n_small, rnnt_state=sub_state, gate=gate)
+    rsp_counts = {k: v for k, v in read_counts().items() if v}
+    with plain_path():
+        loss_q, g_q, st_q = step_grads(ref, small, pack_to=n_small, rnnt_state=sub_state,
+                                     gate=gate)
+    if read_counts() != {k: rsp_counts.get(k, 0) for k in read_counts()}:
+        raise AssertionError("the plain path launched a kernel")
+    out["rsp_vs_plain"] = compare_grads((loss_k, g_k), (loss_q, g_q),
+                                        f"RSP from a carried state, packed to {n_small} rows, "
+                                        f"kernels vs plain path, fp32, B={CHECK_B}")
+    state_err = max_err(state_leaves(st_k)[:-1], state_leaves(st_q)[:-1])
+    same_tok = torch.equal(state_leaves(st_k)[-1], state_leaves(st_q)[-1])
+    log(f"  RSP returned state: max |kernels - plain| {state_err:.3g} (tol {TOL['float32']}), "
+        f"last tokens equal {same_tok}; launches {rsp_counts}")
+    if not state_err <= TOL["float32"] or not same_tok:
+        raise AssertionError(f"the RSP state differs from the plain path's: {state_err}")
+    for k in LSTM_TRAIN_KERNELS:
+        if not rsp_counts.get(k):
+            raise AssertionError(f"{k} was not launched from the carried state: {rsp_counts}")
+    out["rsp_vs_plain"].update({"state_max_abs_err": state_err, "launches": rsp_counts})
+    del ref, g_k, g_q
+    torch.cuda.empty_cache()
+
+    # 6. batch-norm: two bf16 steps, then the folded stats against the plain path
+    bn_cfg = dataclasses.replace(cfg, enc_batch_norm=True, pred_batch_norm=True)
+    bn_model = RNNT(bn_cfg, K, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    bn_opt = Lamb(OptimizerConfig(warmup_steps=0), bn_model.param_lr_factors())
+    bn_state = init_train_state(bn_model, bn_opt, device="cuda")
+    bn_step = make_train_step(bn_model, bn_opt, K - 1, eos_idx=eos, star_idx=star,
+                              compute_dtype=torch.bfloat16, device="cuda")
+    stats0 = [t.clone() for pair in bn_model.bn_stats(bn_state.params) for t in pair]
+    bn_rows = []
+    for i in range(2):
+        reset_counts()
+        bn_state, m = bn_step(bn_state, batch, gen, scalars, pack_to=cap)
+        bn_rows.append({"loss": float(m["loss"]), "skipped": int(m["skipped"]),
+                        "launches": {k: v for k, v in read_counts().items() if v}})
+    stats1 = [t for pair in bn_model.bn_stats(bn_state.params) for t in pair]
+    moved = all(not torch.equal(a, b) for a, b in zip(stats0, stats1))
+    log(f"  batch-norm base-85M, bf16, two steps packed to {cap}: {bn_rows}; every running "
+        f"stat moved: {moved}")
+    if any(r["skipped"] or not math.isfinite(r["loss"]) for r in bn_rows) or not moved:
+        raise AssertionError(f"batch-norm steps: {bn_rows}, moved {moved}")
+    bn_ref = RNNT(dataclasses.replace(bn_cfg, enc_dropout=0.0, pred_dropout=0.0,
+                                      joint_dropout=0.0), K, device="cuda")
+    bn_ref.load_state_dict(bn_model.state_dict())
+    folded = {}
+    for path in ("kernels", "plain"):
+        with (plain_path() if path == "plain" else contextlib.nullcontext()):
+            reset_counts()
+            fold = list(bn_ref.bn_stats(bn_ref.param_tree()))
+            for a in range(DEFAULT_A):
+                sub = microbatch(mb_eval, a, CHECK_B)
+                updates = []
+                bn_ref.enc_pred(sub["feats"], sub["feat_lens"], sub["txt"], sub["txt_lens"],
+                                train=True, bn_updates=updates)
+                fold = [((1 - BN_MOMENTUM) * m_ + BN_MOMENTUM * bm,
+                         (1 - BN_MOMENTUM) * v_ + BN_MOMENTUM * bv)
+                        for (m_, v_), (bm, bv) in zip(fold, updates)]
+            folded[path] = ([t for pair in fold for t in pair],
+                            {k: v for k, v in read_counts().items() if v})
+    (got, counts), (want, _) = folded["kernels"], folded["plain"]
+    errs = [((a - b).abs() - BN_STATS_RTOL * b.abs()).max().item() for a, b in zip(got, want)]
+    worst_rel = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+                    for a, b in zip(got, want))
+    log(f"  batch-norm folded running stats, fp32, B={CHECK_B} x {DEFAULT_A} microbatches, "
+        f"kernels vs plain path: worst |d| - rtol |plain| = {max(errs):.3g} (atol "
+        f"{BN_STATS_ATOL}, rtol {BN_STATS_RTOL}); worst relative {worst_rel:.3g}; "
+        f"launches {counts}")
+    if not max(errs) <= BN_STATS_ATOL or not counts.get("lstm_recurrence_sg"):
+        raise AssertionError(f"batch-norm stats differ from the plain path's: {errs}")
+    out["batch_norm"] = {"steps": bn_rows, "stats_excess": max(errs),
+                         "stats_worst_rel": worst_rel, "launches": counts}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2949,6 +3472,11 @@ def main() -> int:
         "fusion, ASRServer --decoder beam, bench_serving --decoder beam, base-85M, W=4")
     beam = run_beam()
 
+    # 13. the train step as the JAX trainer runs it by default
+    log("== default training path: SpecAugment, random state passing, the packed joint, "
+        "schedules, gradient noise, layer statistics, batch-norm; base-85M, A=2 x B=16, bf16")
+    default = run_default_train()
+
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
     counts64 = cells[sorted(cells)[2]]["bfloat16"]["rows"][-1]["launches"]
@@ -3031,6 +3559,12 @@ def main() -> int:
                 "launches_beam_per": "phase 12: the fp32 offline fast beam's encoder, and fp32 "
                                      f"beam streaming of the smoke's utterances "
                                      f"({beam['streaming_vs_offline']['ticks']} ticks)"})
+        if wrapper in default["steps"][-1]["launches"]:  # phase 13's default step
+            kernels[-1].update({
+                "launches_default_train": default["steps"][-1]["launches"][wrapper],
+                "launches_default_train_per": (
+                    f"phase 13: one default train step of base-85M, A={DEFAULT_A} x "
+                    f"B={N_UTTS}, bf16, RSP, packed to {default['pack_to']} rows")})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -3100,6 +3634,7 @@ def main() -> int:
     log("serving summary: " + json.dumps(serving))
     log("router and clients summary: " + json.dumps(router))
     log("beam summary: " + json.dumps(beam))
+    log("default training summary: " + json.dumps(default))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},

@@ -30,6 +30,11 @@ leaked = sorted(m for m in sys.modules
 print(len(names), leaked)
 assert not leaked, leaked
 assert len(names) >= 15, names
+# the train step's default path (random state passing, packing, SpecAugment,
+# schedules, layer statistics, user tokens)
+for name in ("training.rsp", "training.pack", "training.schedules", "log.layer_stats",
+             "utils.user_tokens", "data.unk_handling", "ops.features", "data.featurize"):
+    assert "caiman_asr_tpu_torch." + name in names, name
 """
 
 

@@ -155,11 +155,56 @@ def test_dropouts_are_inverted_and_seeded(stack):
         run_lstm(tparams, xt, train=True, dropout=0.1)
 
 
-def test_training_a_batch_norm_stack_is_not_ported(stack):
+def test_training_a_batch_norm_stack_matches_jax(stack):
+    """run_lstm(train=True, bn_updates=...) with batch-norm on every layer:
+    the output, every gradient (scale and bias included; the running stats
+    get none) and the collected (batch mean, unbiased batch variance) pairs
+    against the JAX stack's, at the train-mode tolerances above (the stats
+    rtol 1e-5). The recurrent state stays the raw h."""
     params, x = stack
-    bn = {"scale": np.ones(H, np.float32), "bias": np.zeros(H, np.float32),
-          "mean": np.zeros(H, np.float32), "var": np.ones(H, np.float32)}
-    tparams = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), params)
-    tparams["layer_0"]["bn"] = {k: torch.from_numpy(v) for k, v in bn.items()}
-    with pytest.raises(NotImplementedError):
-        run_lstm(tparams, torch.from_numpy(x), train=True)
+    rng = np.random.default_rng(7)
+    jparams = {name: dict(layer, bn={
+        "scale": rng.uniform(0.5, 1.5, H).astype(np.float32),
+        "bias": (rng.normal(size=H) * 0.1).astype(np.float32),
+        "mean": (rng.normal(size=H) * 0.1).astype(np.float32),
+        "var": rng.uniform(0.5, 2.0, H).astype(np.float32)})
+        for name, layer in params.items()}
+    wy = rng.normal(size=(T, B, H)).astype(np.float32)
+
+    def jloss(p):
+        updates = []
+        out, _, (all_h, _) = jax_run_lstm(p, jnp.asarray(x), train=True, bn_updates=updates)
+        return jnp.sum(out * wy), (updates, all_h)
+
+    (want_loss, (want_updates, want_h)), j_grads = jax.value_and_grad(jloss, has_aux=True)(
+        jax.tree.map(jnp.asarray, jparams))
+    tparams = jax.tree.map(lambda a: torch.from_numpy(np.array(a)).requires_grad_(), jparams)
+    for layer in tparams.values():
+        for k in ("mean", "var"):
+            layer["bn"][k].requires_grad_(False)
+    updates = []
+    out, _, (all_h, _) = run_lstm(tparams, torch.from_numpy(x), train=True, bn_updates=updates)
+    loss = (out * torch.from_numpy(wy)).sum()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(all_h.detach().numpy(), np.asarray(want_h), atol=2e-5)
+    assert len(updates) == len(want_updates) == 3
+    for got, want in zip(updates, want_updates):
+        for g, w in zip(got, want):
+            assert not g.requires_grad
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-7)
+    for name, layer in tparams.items():
+        for k, t in list(layer.items()) + [(f"bn.{k}", v) for k, v in layer["bn"].items()]:
+            if k == "bn":
+                continue
+            if k in ("bn.mean", "bn.var"):
+                assert t.grad is None
+                continue
+            want = np.asarray(j_grads[name]["bn"][k[3:]] if k.startswith("bn.")
+                              else j_grads[name][k])
+            np.testing.assert_allclose(t.grad.numpy(), want,
+                                       atol=5e-5 * max(1.0, np.abs(want).max()), err_msg=k)
+    # eval (train=False) uses the running stats and collects nothing
+    ev = []
+    run_lstm(tparams, torch.from_numpy(x), bn_updates=ev)
+    assert ev == []

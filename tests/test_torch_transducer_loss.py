@@ -139,9 +139,61 @@ def test_joint_dropout_in_the_loss_needs_a_generator(fg):
     assert torch.isfinite(a).all() and not torch.equal(a, c)
 
 
-@pytest.mark.parametrize("kw", [dict(pack_to=64), dict(vocab_axis="model")])
+@pytest.mark.parametrize("kw", [dict(vocab_axis="model")])
 def test_routes_not_ported_raise(fg, kw):
     f, g, w, b, labels, t_lens, u_lens, blank = fg
     args = [torch.from_numpy(a) for a in (f, g, w, b, labels, t_lens, u_lens)]
     with pytest.raises(NotImplementedError):
         tl.transducer_loss_from_fg(*args, blank, **kw)
+
+
+@pytest.mark.parametrize("pack_to", [64, 53])
+def test_packed_route_matches_jax_and_the_dense_route(fg, pack_to):
+    """pack_to rows (64, and the valid count itself: 53, no multiple of a
+    tile) against the JAX packed loss (its Pallas joint in interpret mode
+    on the CPU) at the fused route's tolerances, and against the port's
+    dense fused route, the same arithmetic on a subset of its rows: loss
+    rtol 1e-5, gradients 1e-5 of their largest magnitude."""
+    f, g, w, b, labels, t_lens, u_lens, blank = fg
+    assert int(np.sum(t_lens * (u_lens + 1))) == 53
+    rest = tuple(jnp.asarray(a) for a in (labels, t_lens, u_lens))
+    weight = np.arange(1.0, B + 1.0, dtype=np.float32)
+
+    def jloss(f, g, w, b):
+        return jnp.sum(jtl.transducer_loss_from_fg(f, g, w, b, *rest, blank, pack_to=pack_to)
+                       * weight)
+
+    jargs = tuple(jnp.asarray(a) for a in (f, g, w, b))
+    want, want_grads = float(jloss(*jargs)), jax.grad(jloss, argnums=(0, 1, 2, 3))(*jargs)
+    out = {}
+    for route in (pack_to, None):
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (f, g, w, b)]
+        per_utt = tl.transducer_loss_from_fg(*leaves, *(torch.from_numpy(a) for a in
+                                                        (labels, t_lens, u_lens)), blank,
+                                             pack_to=route)
+        loss = (per_utt * torch.from_numpy(weight)).sum()
+        out[route] = float(loss.detach()), torch.autograd.grad(loss, leaves)
+    got, grads = out[pack_to]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for gr, wg in zip(grads, want_grads):
+        np.testing.assert_allclose(gr.numpy(), np.asarray(wg), atol=2e-3, rtol=1e-3)
+    dense, dense_grads = out[None]
+    np.testing.assert_allclose(got, dense, rtol=1e-5)
+    for gr, dg in zip(grads, dense_grads):
+        np.testing.assert_allclose(gr.numpy(), dg.numpy(), atol=1e-5 * float(dg.abs().max()))
+
+
+def test_an_undercounted_pack_to_poisons_the_loss(fg):
+    """One row short of the valid count: every score -inf, the summed loss
+    not finite in both packages (never a silently truncated lattice); per
+    utterance the same entries are finite (an empty transcript's lattice
+    has no label edge to poison)."""
+    f, g, w, b, labels, t_lens, u_lens, blank = fg
+    want = np.asarray(jtl.transducer_loss_from_fg(
+        *(jnp.asarray(a) for a in (f, g, w, b, labels, t_lens, u_lens)), blank, pack_to=52))
+    args = [torch.from_numpy(a) for a in (f, g, w, b, labels, t_lens, u_lens)]
+    lp_b, lp_l = tl._packed_joint_scores(*args, blank, 52)
+    assert torch.isneginf(lp_b).all() and torch.isneginf(lp_l).all()
+    got = tl.transducer_loss_from_fg(*args, blank, pack_to=52).numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    assert not np.isfinite(want.sum()) and not np.isfinite(got.sum())
