@@ -1,9 +1,9 @@
-"""Model, feature and training configuration, mirroring the ``rnnt:``,
-``filterbank_features``, ``frame_splicing``, ``spec_augment``,
-``grad_noise_scheduler``, ``user_tokens`` and ``ngram:`` parts of the JAX
-package's YAML configs (``caiman_asr_tpu/models/config.py``). Other sections
-of a config file are read by parts of the system not ported yet and are
-ignored here."""
+"""Model, feature, data and training configuration, mirroring the JAX
+package's YAML configs (``caiman_asr_tpu/models/config.py``): ``rnnt:``,
+``tokenizer:``, each input pipeline's ``audio_dataset``,
+``filterbank_features``, ``frame_splicing`` and ``spec_augment``,
+``grad_noise_scheduler``, ``user_tokens`` and ``ngram:``. The file is read
+by ``models/yaml_lite``, with or without PyYAML installed."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Optional
 
+from caiman_asr_tpu_torch.models import yaml_lite
 from caiman_asr_tpu_torch.ops.features import SpecAugmentConfig
 from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
 
@@ -51,6 +52,35 @@ class RNNTModelConfig:
 
 
 @dataclass(frozen=True)
+class TokenizerConfig:
+    """The ``tokenizer:`` block."""
+
+    sentpiece_model: Optional[str] = None
+    labels: tuple = tuple(" abcdefghijklmnopqrstuvwxyz'")
+    sampling: float = 0.0
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """An input pipeline's ``audio_dataset`` block: what the host loader
+    and the evaluation read (transcript normalisation, filters, the train
+    augmentations)."""
+
+    sample_rate: int = 16000
+    trim_silence: bool = False
+    normalize_transcripts: str = "lowercase"
+    standardize_wer: bool = True
+    standardize_text: bool = False
+    replacements: Optional[list] = None
+    remove_tags: bool = True
+    error_rate: str = "word"
+    max_duration: Optional[float] = None
+    min_duration: Optional[float] = None
+    max_transcript_len: Optional[int] = None
+    speed_perturbation: Optional[dict] = None
+
+
+@dataclass(frozen=True)
 class FrameSplicingConfig:
     frame_stacking: int = 3
     frame_subsampling: int = 3
@@ -58,12 +88,13 @@ class FrameSplicingConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """The feature half of ``input_train`` / ``input_val``; ``specaugment``
-    is None where the block has no ``spec_augment``."""
+    """One of ``input_train`` / ``input_val``; ``specaugment`` is None
+    where the block has no ``spec_augment``."""
 
     logmel: LogMelConfig = LogMelConfig()
     splicing: FrameSplicingConfig = FrameSplicingConfig()
     specaugment: Optional[SpecAugmentConfig] = None
+    dataset: DatasetConfig = DatasetConfig()
 
 
 @dataclass(frozen=True)
@@ -87,6 +118,7 @@ class NgramConfig:
 @dataclass(frozen=True)
 class Config:
     rnnt: RNNTModelConfig = RNNTModelConfig()
+    tokenizer: TokenizerConfig = TokenizerConfig()
     input_train: PipelineConfig = PipelineConfig()
     input_val: PipelineConfig = PipelineConfig()
     stats_path: Optional[str] = None
@@ -101,6 +133,10 @@ def _fill(cls, d: Optional[dict], where: str):
     unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
     if unknown:
         raise ValueError(f"Unknown config keys in {where}: {sorted(unknown)}")
+    if isinstance(d.get("labels"), list):
+        d["labels"] = tuple(d["labels"])
+    if d.get("replacements") is not None:
+        d["replacements"] = list(d["replacements"])
     return cls(**d)
 
 
@@ -134,21 +170,20 @@ def _pipeline(d: Optional[dict]) -> tuple[PipelineConfig, Optional[str]]:
     splicing = _fill(FrameSplicingConfig, d.get("frame_splicing"), "frame_splicing")
     spec = d.get("spec_augment")
     specaugment = _fill(SpecAugmentConfig, spec, "spec_augment") if spec else None
-    return PipelineConfig(LogMelConfig(**logmel), splicing, specaugment), fb.get("stats_path")
+    dataset = _fill(DatasetConfig, d.get("audio_dataset"), "audio_dataset")
+    return (PipelineConfig(LogMelConfig(**logmel), splicing, specaugment, dataset),
+            fb.get("stats_path"))
 
 
 def load_config(path: str | Path) -> Config:
-    """Load the model and feature parts of a YAML config (anchors and
-    merges supported)."""
-    import yaml  # only the config loader needs it
-
-    with open(path) as f:
-        raw = copy.deepcopy(yaml.safe_load(f))
+    """Load a YAML config (anchors and merges supported)."""
+    raw = copy.deepcopy(yaml_lite.safe_load(Path(path).read_text()))
     train, stats_train = _pipeline(raw.get("input_train"))
     val, stats_val = _pipeline(raw.get("input_val"))
     rnnt = {k: v for k, v in (raw.get("rnnt") or {}).items() if k not in _RNNT_IGNORED}
     return Config(
         rnnt=_fill(RNNTModelConfig, rnnt, "rnnt"),
+        tokenizer=_fill(TokenizerConfig, raw.get("tokenizer"), "tokenizer"),
         input_train=train,
         input_val=val,
         stats_path=stats_train or stats_val,

@@ -246,16 +246,23 @@ long ser_beam_tick(void* h, const int32_t* packed, long row_stride,
 
     int64_t blen = lens[best];
     const int32_t* bt = toks + best * win;
-    if (blen > (int64_t)ln.hist.size()) ln.hist.resize(blen, 0);
+    // positions the host has seen: after a lane reset or a rebase echo the
+    // best hypothesis can be shorter than base, and the resize below then
+    // pads positions no row ever carried
+    const int64_t seen = (int64_t)ln.hist.size();
+    if (blen > seen) ln.hist.resize(blen, 0);
     if (blen > base)
       for (int64_t i = base; i < blen; i++) ln.hist[i] = bt[i - base];
 
     if (ln.committed < base) {  // agreement slid out of the window
-      payload.clear();
-      emit_json(g, payload, ln, ln.hist.data() + ln.committed,
-                (int)(base - ln.committed), false);
-      if (!put_record(out, out_cap, off, b, payload, idx, idx_cap, nrec))
-        return -1;
+      const int64_t upto = base < seen ? base : seen;
+      if (upto > ln.committed) {
+        payload.clear();
+        emit_json(g, payload, ln, ln.hist.data() + ln.committed,
+                  (int)(upto - ln.committed), false);
+        if (!put_record(out, out_cap, off, b, payload, idx, idx_cap, nrec))
+          return -1;
+      }
       ln.committed = base;
     }
     int64_t p = ln.committed;

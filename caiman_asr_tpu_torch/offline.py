@@ -17,7 +17,7 @@ the search) -> one ``{frame: FrameResponses}`` per utterance. Decoders, as
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -45,6 +45,14 @@ def build_decoder(
     beam_prune_score_thresh: float = 0.4,
     beam_prune_topk_thresh: float = 1.5,
     beam_final_emission_thresh: float = float("inf"),
+    eos_strategy=None,
+    max_symbol_per_sample: Optional[int] = None,
+    fuzzy_topk_logits: bool = False,
+    max_inputs_per_batch: int = int(1e7),
+    eos_is_terminal: bool = False,
+    eos_vad_threshold: float = float("inf"),
+    user_token_ids: Sequence[int] = (),
+    return_partials: bool = True,
 ):
     """A decoder over ``model`` (blank: the last class). ``ngram_lm``: an
     ``lm.NGramLM``, fused at ``ngram_scale_factor`` (off at <= 0);
@@ -52,7 +60,13 @@ def build_decoder(
     ``id_to_piece``. ``max_symbols_per_step`` defaults to 30 (greedy) and 8
     (the beams), ``temperature`` to 1.0 (greedy) and 1.4 (the beams). The
     final-emission threshold is in seconds, turned into encoder frames of
-    the pipeline's window stride x frame subsampling x stack time."""
+    the pipeline's window stride x frame subsampling x stack time.
+
+    The rest as the decoders take them: ``eos_strategy``
+    (``decoding/eos``), ``max_symbol_per_sample``, ``fuzzy_topk_logits``,
+    ``max_inputs_per_batch`` (the encoder's batch split); for the host beam
+    ``eos_is_terminal``, ``eos_vad_threshold``, ``user_token_ids`` (which the
+    fixed-expansion beam's n-gram also skips) and ``return_partials``."""
     from caiman_asr_tpu_torch.decoding.beam import RNNTBeamDecoder
     from caiman_asr_tpu_torch.decoding.fast_beam import FastBeamDecoder
     from caiman_asr_tpu_torch.decoding.greedy import GreedyDecoder
@@ -63,8 +77,11 @@ def build_decoder(
     if decoder == "greedy":
         if ngram_lm is not None or keywords is not None:
             raise ValueError("n-gram fusion and keyword boosting need a beam decoder")
-        return GreedyDecoder(model, blank, max_symbols_per_step=max_symbols_per_step or 30,
-                             temperature=temperature or 1.0, tokenizer=tokenizer)
+        return GreedyDecoder(model, blank, eos_strategy=eos_strategy,
+                             max_symbols_per_step=max_symbols_per_step or 30,
+                             max_symbol_per_sample=max_symbol_per_sample,
+                             temperature=temperature or 1.0, fuzzy_topk_logits=fuzzy_topk_logits,
+                             tokenizer=tokenizer, max_inputs_per_batch=max_inputs_per_batch)
     if tokenizer is None or not hasattr(tokenizer, "id_to_piece"):
         raise ValueError(f"decoder={decoder!r} needs a tokenizer with id_to_piece")
     msym = max_symbols_per_step or 8
@@ -72,17 +89,21 @@ def build_decoder(
     if decoder == "beam":
         return RNNTBeamDecoder(
             model, blank, tokenizer, beam_width=beam_width, max_symbols_per_step=msym,
-            temperature=temp, beam_prune_score_thresh=beam_prune_score_thresh,
-            beam_prune_topk_thresh=beam_prune_topk_thresh,
+            max_symbol_per_sample=max_symbol_per_sample, temperature=temp,
+            beam_prune_score_thresh=beam_prune_score_thresh,
+            beam_prune_topk_thresh=beam_prune_topk_thresh, eos_strategy=eos_strategy,
+            eos_is_terminal=eos_is_terminal, eos_vad_threshold=eos_vad_threshold,
             final_emission_thresh=beam_final_emission_thresh, ngram_lm=ngram_lm,
-            ngram_alpha=ngram_scale_factor, keywords=keywords)
+            ngram_alpha=ngram_scale_factor, keywords=keywords, user_token_ids=user_token_ids,
+            fuzzy_topk_logits=fuzzy_topk_logits, return_partials=return_partials,
+            max_inputs_per_batch=max_inputs_per_batch)
     from caiman_asr_tpu_torch.keywords.device_table import build_keyword_tables
     from caiman_asr_tpu_torch.lm.device_table import build_device_tables
 
     pieces = piece_table(tokenizer, model.n_classes)
     tables = kw_tables = None
     if ngram_lm is not None and ngram_scale_factor > 0:
-        tables = build_device_tables(ngram_lm, pieces, skip_ids=[blank])
+        tables = build_device_tables(ngram_lm, pieces, skip_ids=[blank, *user_token_ids])
     if keywords is not None:
         kw_tables = build_keyword_tables(keywords, pieces, skip_ids=[blank])
     fe = float(beam_final_emission_thresh)
@@ -90,7 +111,8 @@ def build_decoder(
              * model.cfg.enc_stack_time_factor)
     return FastBeamDecoder(
         model, blank, beam_width=beam_width, max_symbols_per_step=msym, temperature=temp,
-        tokenizer=tokenizer, ngram_lm=tables,
+        eos_strategy=eos_strategy, fuzzy_topk_logits=fuzzy_topk_logits, tokenizer=tokenizer,
+        max_inputs_per_batch=max_inputs_per_batch, ngram_lm=tables,
         ngram_alpha=ngram_scale_factor if tables is not None else 0.0, keywords=kw_tables,
         score_thresh=beam_prune_score_thresh, topk_thresh=beam_prune_topk_thresh,
         final_emission_frames=max(1, round(fe / frame)) if fe != float("inf") else None)

@@ -119,7 +119,17 @@ Phases:
      fp32 without dropout, the packed loss and gradients against the dense
      ones and the RSP step from the carried state against its plain path
      (loss, gradients, returned state); a batch-norm base-85M taking two
-     bf16 steps, its folded running stats against the plain path's.
+     bf16 steps, its folded running stats against the plain path's;
+  14. validation as val.py runs it (base-85M from configs/base-8703sp.yaml,
+     fp32): the smoke's utterances written as WAV with a manifest of random
+     transcripts, the smoke tokenizer, their mel statistics and a checkpoint
+     the port writes (the blank calibrated, the EMA a perturbed copy) under
+     build/smoke/val/; val.validate on parsed argv (--calc_loss --dump_preds
+     --dump_ctm, batches of 8) with the kernels and under plain_path(): the
+     model holding the EMA leaves bit for bit, hypotheses and WER identical,
+     at least 12 of 16 non-empty, the loss within 1e-5, K1 8 a decoded batch
+     and 10 a loss batch, K2 one a batch; the same with --decoder fast_beam;
+     ms a batch, audio-s per s, the decode's and the loss's shares.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -128,6 +138,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import difflib
 import functools
@@ -3289,6 +3300,342 @@ def run_default_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+# Validation as val.py runs it: base-85M from configs/base-8703sp.yaml, the
+# smoke's utterances as WAV files with a manifest, the smoke tokenizer, mel
+# statistics and a checkpoint, through val.validate on parsed argv.
+VAL_CONFIG = "configs/base-8703sp.yaml"
+VAL_BATCH = 8
+VAL_MIN_NONEMPTY = 12     # of the N_UTTS hypotheses
+VAL_WORDS = (3, 8)        # words a transcript, each one of the tokenizer's pieces
+EMA_PERTURB = 1e-4        # the checkpoint's EMA: its params times (1 + this x a normal)
+VAL_BEAM_MSYM = 8         # the fast beam's expansion trips (the beams' own default)
+VAL_START_EMIT = 0.2      # calibrate_blank's start-state floor: most utterances emit
+
+
+def write_val_workspace(root: Path) -> dict:
+    """The smoke's utterances as 16-bit WAV files under ``root`` with a
+    manifest of random transcripts, the smoke tokenizer, and the mel
+    statistics of that audio as val.py reads them (``--mel_stats_path``)."""
+    import wave
+
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch.data.audio import read_audio
+    from caiman_asr_tpu_torch.models.config import load_config
+    from caiman_asr_tpu_torch.ops.logmel import LogMelFrontend
+
+    root.mkdir(parents=True, exist_ok=True)
+    K = MODELS["base-85M"][1]
+    smoke_tokenizer(K - 1)
+    audio, lens = synthetic_audio(SEED)
+    rng = np.random.default_rng(SEED + 14)
+    entries, waves = [], []
+    for i, n in enumerate(lens):
+        with wave.open(str(root / f"u{i:02d}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(SR)
+            w.writeframes((np.clip(audio[i, :n], -1, 1) * 32767).astype(np.int16).tobytes())
+        words = rng.integers(len(USER_TOKENS) + 1, K - 1, size=rng.integers(*VAL_WORDS))
+        entries.append({"transcript": " ".join(f"w{j - len(USER_TOKENS) - 1}" for j in words),
+                        "files": [{"fname": f"u{i:02d}.wav", "duration": int(n) / SR}],
+                        "original_duration": int(n) / SR})
+        waves.append(read_audio(root / f"u{i:02d}.wav", SR))
+    (root / "manifest.json").write_text(json.dumps(entries))
+    front = LogMelFrontend(load_config(REPO / VAL_CONFIG).input_val.logmel, device="cuda")
+    rows = []
+    for x in waves:
+        feats, frame_lens = front(torch.from_numpy(x)[None].cuda(),
+                                  torch.tensor([len(x)], device="cuda"))
+        rows.append(feats[0, :, : int(frame_lens[0])].T)
+    x = torch.cat(rows)
+    np.savez(root / "mel_stats.npz", melmeans=x.mean(0).cpu().numpy(),
+             melvars=x.var(0).cpu().numpy())
+    return {"audio_s": float(lens.sum()) / SR, "utterances": len(lens)}
+
+
+def calibrate_val_blank(model, batches) -> float:
+    """``calibrate_blank`` at the start-state floor VAL_START_EMIT on the
+    longest of ``batches`` ((features, lengths) as validation computes
+    them), then the blank bias lowered, where needed, until the start
+    state has a non-blank argmax on some frame of at least
+    VAL_MIN_NONEMPTY + 2 utterances (each then decodes to some text).
+    Returns the net raise."""
+    import torch
+
+    raised = calibrate_blank(model, *batches[-1], VAL_START_EMIT)
+    maxima = []
+    with torch.inference_mode():
+        for feats, feat_lens in batches:
+            f, f_lens, _ = model.encode(feats, feat_lens)
+            g, _, _ = model.predict(torch.zeros((f.shape[0], 0), dtype=torch.int64,
+                                                device=f.device))
+            logits = model.joint(f, g)[:, :, 0]  # the start state, [B, T, K]
+            margin = logits[..., :-1].amax(-1) - logits[..., -1]
+            valid = torch.arange(f.shape[1], device=f.device)[None, :] < f_lens[:, None]
+            maxima.append(margin.masked_fill(~valid, float("-inf")).amax(1))
+        kth = float(torch.cat(maxima).sort(descending=True).values[VAL_MIN_NONEMPTY + 1])
+        if kth <= 0:
+            drop = 1.1 * -kth + 1e-3
+            model.joint_net[2].bias[-1] -= drop
+            raised -= drop
+    return raised
+
+
+def write_val_checkpoint(root: Path, argv: list) -> dict:
+    """A checkpoint in the JAX package's format written by the port: params
+    of the base model built as val.py builds it (weights from SEED), its
+    blank calibrated on the features validation computes
+    (``calibrate_val_blank``), and an EMA a perturbed copy. Returns the EMA
+    leaves by name."""
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import val
+    from caiman_asr_tpu_torch.export.checkpointer import (flatten_named, save_checkpoint,
+                                                          unflatten_named)
+    from caiman_asr_tpu_torch.models.config import load_config
+    from caiman_asr_tpu_torch.setup import builders
+
+    args = val.val_arg_parser().parse_args(argv)
+    cfg = builders.apply_input_overrides(load_config(args.model_config), args)
+    tok = builders.build_tokenizer(cfg, args.tokenizer_model, sampling=0.0)
+    model, _ = builders.build_model(cfg, tok, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    # the features validation computes: its loader's batches, its pipeline
+    _, fp = builders.build_feature_pipelines(cfg, builders.load_mel_stats(args.mel_stats_path),
+                                             device="cuda")
+    loader = builders.build_data_source_loader(args, cfg, tok, args.val_batch_size, train=False)
+    with torch.inference_mode():
+        batches = [fp(torch.from_numpy(b.audio).cuda(), torch.from_numpy(b.audio_lens).cuda(),
+                      dataset_to_utt_ratio=1.0) for b in loader.epoch(0)]
+    raised = calibrate_val_blank(model, batches)
+    params = flatten_named(model.param_tree())
+    rng = np.random.default_rng(SEED + 15)
+    ema = {k: (v * (1 + EMA_PERTURB * rng.standard_normal(v.shape))).astype(v.dtype)
+           for k, v in params.items()}
+    save_checkpoint(args.ckpt, unflatten_named(params), unflatten_named(ema),
+                    meta={"step": 0, "blank_raise": raised})
+    log(f"  checkpoint {args.ckpt}: {len(params)} leaves, blank raised by {raised:.4f}, EMA "
+        f"the params times (1 + {EMA_PERTURB} x a normal)")
+    del model
+    torch.cuda.empty_cache()
+    return ema
+
+
+def val_emission(responses, feat_lens, stack: int) -> dict:
+    """What a decode emitted: its symbols, the encoder frames it read
+    (``ceil(len / stack)`` of each utterance), and the most symbols at one
+    frame."""
+    at = collections.Counter()
+    for b, resp in enumerate(responses):
+        for fr in resp.values():
+            if fr.final is not None and fr.final.alternatives:
+                at.update((b, t) for t in fr.final.alternatives[0].timesteps)
+    frames = sum(-(-int(n) // stack) for n in feat_lens.tolist())
+    return {"symbols": sum(at.values()), "frames": frames,
+            "most_at_a_frame": max(at.values(), default=0)}
+
+
+@contextlib.contextmanager
+def val_probes(stack: int):
+    """Within: what a val.validate call did, in ``probe``: the tree the
+    checkpoint was applied to, the evaluation's wall ms, and per batch the
+    ms of waiting for the loader, of the feature pipeline, of the decoder
+    (with its K1 launches and its emission, ``val_emission``, the encoder
+    stacking ``stack`` frames) and of the loss, each timed between two
+    synchronises the evaluation itself does not make."""
+    import torch
+
+    from caiman_asr_tpu_torch.data.featurize import FeaturePipeline
+    from caiman_asr_tpu_torch.data.loader import AudioDataLoader
+    from caiman_asr_tpu_torch.decoding.fast_beam import FastBeamDecoder
+    from caiman_asr_tpu_torch.decoding.greedy import GreedyDecoder
+    from caiman_asr_tpu_torch.evaluate import core
+    from caiman_asr_tpu_torch.export import checkpointer
+    from caiman_asr_tpu_torch.ops import lstm_kernel
+    from caiman_asr_tpu_torch.training import step
+
+    probe = {"load": [], "featurize": [], "decode": [], "loss": []}
+    launches = lambda: getattr(lstm_kernel.lstm_recurrence, "launches", 0)  # 0: plain path
+    real_apply, real_eval, real_loss = (checkpointer.apply_params, core.evaluate,
+                                        step.make_val_loss_step)
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            k1, t0 = launches(), time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            probe[kind].append({"ms": 1e3 * (time.perf_counter() - t0), "k1": launches() - k1})
+            return out
+        return call
+
+    def apply_params(template, loaded, **kw):
+        probe["tree"] = real_apply(template, loaded, **kw)
+        return probe["tree"]
+
+    def evaluate(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_eval(*a, **kw)
+        probe["eval_ms"] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def method(kind, real):
+        return lambda self, *a, **kw: timed(kind, lambda: real(self, *a, **kw))()
+
+    def decode(real):
+        def call(self, feats, feat_lens):
+            out = timed("decode", lambda: real(self, feats, feat_lens))()
+            probe["decode"][-1].update(val_emission(out, feat_lens, stack))
+            return out
+        return call
+
+    real_epoch = AudioDataLoader.epoch
+
+    def epoch(self, *a, **kw):
+        batches = real_epoch(self, *a, **kw)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            probe["load"].append({"ms": 1e3 * (time.perf_counter() - t0)})
+            yield batch
+
+    with contextlib.ExitStack() as patches:
+        patches.enter_context(mock.patch.object(checkpointer, "apply_params", apply_params))
+        patches.enter_context(mock.patch.object(core, "evaluate", evaluate))
+        patches.enter_context(mock.patch.object(
+            step, "make_val_loss_step", lambda *a, **kw: timed("loss", real_loss(*a, **kw))))
+        for cls in (GreedyDecoder, FastBeamDecoder):
+            patches.enter_context(mock.patch.object(cls, "decode", decode(cls.decode)))
+        patches.enter_context(mock.patch.object(FeaturePipeline, "__call__",
+                                                method("featurize", FeaturePipeline.__call__)))
+        patches.enter_context(mock.patch.object(AudioDataLoader, "epoch", epoch))
+        yield probe
+
+
+def run_validation() -> dict:
+    """Phase 14: python -m caiman_asr_tpu_torch.val at base-85M on the card,
+    with the kernels and under plain_path(), greedy with --calc_loss, then
+    the fast beam."""
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import val
+    from caiman_asr_tpu_torch.export.checkpointer import flatten_named
+    from caiman_asr_tpu_torch.models.config import load_config
+
+    root = REPO / "build" / "smoke" / "val"
+    work = write_val_workspace(root)
+    cfg = load_config(REPO / VAL_CONFIG)
+    enc_layers = cfg.rnnt.enc_pre_rnn_layers + cfg.rnnt.enc_post_rnn_layers
+    loss_layers = enc_layers + cfg.rnnt.pred_rnn_layers  # enc_pred runs the predictor's too
+    base = ["--model_config", str(REPO / VAL_CONFIG),
+            "--tokenizer_model", str(REPO / "build" / "smoke" / "tokenizer.json"),
+            "--ckpt", str(root / "ckpt.npz"), "--dataset_dir", str(root),
+            "--val_manifests", "manifest.json", "--mel_stats_path", str(root / "mel_stats.npz"),
+            "--val_batch_size", str(VAL_BATCH), "--skip_ngram", "--dump_preds"]
+    ema = write_val_checkpoint(root, base)
+    batches = -(-work["utterances"] // VAL_BATCH)
+    out = {"utterances": work["utterances"], "audio_s": work["audio_s"], "batches": batches,
+           "card": card()}
+
+    runs = {}
+    for decoder, extra in (("greedy", ["--calc_loss", "--dump_ctm"]),
+                           ("fast_beam", ["--decoder", "fast_beam", "--max_symbols_per_step",
+                                          str(VAL_BEAM_MSYM)])):
+        for path in ("kernels", "plain"):
+            args = val.val_arg_parser().parse_args(
+                base + extra + ["--output_dir", str(root / f"out_{decoder}_{path}")])
+            torch.cuda.synchronize()
+            reset_counts()
+            with val_probes(cfg.rnnt.enc_stack_time_factor) as probe, (
+                    plain_path() if path == "plain" else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                res = val.validate(args)
+                wall = time.perf_counter() - t0
+            runs[decoder, path] = {"res": res, "probe": probe, "counts": read_counts(),
+                                   "wall_s": wall}
+            torch.cuda.empty_cache()
+
+    # the EMA leaves, bit for bit, in the model validated
+    got = flatten_named(runs["greedy", "kernels"]["probe"]["tree"])
+    if set(got) != set(ema) or not all(np.array_equal(got[k], ema[k]) for k in ema):
+        raise AssertionError("the validated model's parameters are not the checkpoint's EMA")
+    log(f"  the validated model holds the checkpoint's EMA leaves bit for bit ({len(ema)} "
+        "leaves)")
+
+    k, p = runs["greedy", "kernels"], runs["greedy", "plain"]
+    rk, rp = k["res"], p["res"]
+    nonempty = sum(bool(h) for h in rk.hyps)
+    loss_err = abs(rk.loss - rp.loss) / abs(rp.loss)
+    counts = k["counts"]
+    dec = k["probe"]["decode"]
+    dec_k1 = [d["k1"] for d in dec]
+    expect = {"lstm_recurrence": batches * (enc_layers + loss_layers), "joint_fwd": batches}
+    log(f"  greedy --calc_loss, fp32: WER {rk.wer:.6f} (plain path {rp.wer:.6f}), loss "
+        f"{rk.loss:.6f} (plain {rp.loss:.6f}, relative {loss_err:.3g}, tol {VAL_RTOL}); "
+        f"hypotheses identical: {rk.hyps == rp.hyps}, {nonempty}/{len(rk.hyps)} non-empty; "
+        f"K1 a decoded batch {dec_k1} (expected {enc_layers}), launches {counts} (expected "
+        f"{expect}: {enc_layers} K1 a decode and {loss_layers} a loss, one K2 a loss, per "
+        "batch)")
+    if rk.hyps != rp.hyps or rk.wer != rp.wer or rk.refs != rp.refs:
+        raise AssertionError("validation with the kernels differs from the plain path's")
+    if not (np.isfinite(rk.loss) and loss_err <= VAL_RTOL):
+        raise AssertionError(f"validation loss {rk.loss} against the plain path's {rp.loss}")
+    if nonempty < VAL_MIN_NONEMPTY or len(rk.hyps) != work["utterances"]:
+        raise AssertionError(f"{nonempty} non-empty hypotheses of {len(rk.hyps)}")
+    if dec_k1 != [enc_layers] * batches or any(
+            counts[name] != n for name, n in expect.items()) or any(
+            v for name, v in counts.items() if name not in expect):
+        raise AssertionError(f"validation launches {counts}, decode K1 {dec_k1}")
+    preds = json.loads((root / "out_greedy_kernels" / "preds" / "preds_step0.json").read_text())
+    ctm = (root / "out_greedy_kernels" / "model.ctm").read_text()
+    if [x["hyp"] for x in preds["predictions"]] != rk.hyps or not ctm.strip():
+        raise AssertionError("the predictions JSON or the CTM do not hold the hypotheses")
+
+    bk, bp = runs["fast_beam", "kernels"]["res"], runs["fast_beam", "plain"]["res"]
+    beam_k1 = [d["k1"] for d in runs["fast_beam", "kernels"]["probe"]["decode"]]
+    log(f"  fast_beam (W=4, E={VAL_BEAM_MSYM}), fp32: WER {bk.wer:.6f}, hypotheses identical "
+        f"to the plain path's: {bk.hyps == bp.hyps}, {sum(map(bool, bk.hyps))} non-empty; K1 "
+        f"a decoded batch {beam_k1}")
+    if bk.hyps != bp.hyps or not any(bk.hyps) or beam_k1 != [enc_layers] * batches:
+        raise AssertionError("the fast beam's validation differs from the plain path's")
+
+    for (decoder, path), r in runs.items():
+        probe = r["probe"]
+        ev = probe["eval_ms"]
+        parts = {kind: [round(d["ms"], 1) for d in probe[kind]]
+                 for kind in ("load", "featurize", "decode", "loss")}
+        rest = ev - sum(sum(v) for v in parts.values())
+        emit = {k: [d[k] for d in probe["decode"]]
+                for k in ("symbols", "frames", "most_at_a_frame")}
+        out[f"{decoder}_{path}"] = {
+            "wer": r["res"].wer, "loss": r["res"].loss, "wall_s": r["wall_s"], "eval_ms": ev,
+            "ms_a_batch": ev / batches, "audio_s_per_s": work["audio_s"] / ev * 1e3,
+            **{f"{kind}_ms": v for kind, v in parts.items()},
+            **{f"{kind}_share": sum(v) / ev for kind, v in parts.items()},
+            "host_rest_ms": rest, "launches": r["counts"], "emission": emit,
+            "symbols_a_frame": sum(emit["symbols"]) / sum(emit["frames"])}
+        log(f"  {decoder} {path}: evaluation {ev:.1f} ms ({ev / batches:.1f} ms a batch, "
+            f"{work['audio_s'] / ev * 1e3:.1f} audio-s/s); ms a batch: "
+            + ", ".join(f"{kind} {v} ({sum(v) / ev:.1%})" for kind, v in parts.items())
+            + f", the rest on the host (trimming, detokenising, timestamps, WER, files) "
+            f"{rest:.1f} ({rest / ev:.1%}); the decode emitted {emit['symbols']} symbols "
+            f"over {emit['frames']} encoder frames a batch "
+            f"({sum(emit['symbols']) / sum(emit['frames']):.2f} a frame, at most "
+            f"{emit['most_at_a_frame']} at one); the first batch carries the capture of the "
+            f"decoder's CUDA graphs; validate() {r['wall_s']:.2f} s on {card()}")
+    out.update(ema_bit_equal=True, hyps_identical=True, nonempty=nonempty,
+               loss_rel_err=loss_err, decode_k1=dec_k1, launches=counts,
+               expected_launches=expect, beam_hyps_identical=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3477,6 +3824,11 @@ def main() -> int:
         "schedules, gradient noise, layer statistics, batch-norm; base-85M, A=2 x B=16, bf16")
     default = run_default_train()
 
+    # 14. validation as val.py runs it
+    log("== validation: val.validate on a manifest, a tokenizer, mel statistics and a "
+        f"checkpoint, base-85M from {VAL_CONFIG}, fp32, kernels and plain path")
+    validation = run_validation()
+
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
     counts64 = cells[sorted(cells)[2]]["bfloat16"]["rows"][-1]["launches"]
@@ -3565,6 +3917,13 @@ def main() -> int:
                 "launches_default_train_per": (
                     f"phase 13: one default train step of base-85M, A={DEFAULT_A} x "
                     f"B={N_UTTS}, bf16, RSP, packed to {default['pack_to']} rows")})
+        if wrapper in validation["expected_launches"]:  # phase 14's validation
+            kernels[-1].update({
+                "launches_validation": validation["launches"][wrapper],
+                "launches_validation_per": (
+                    f"phase 14: val.validate --calc_loss, base-85M fp32, {N_UTTS} utterances "
+                    f"in {validation['batches']} batches of {VAL_BATCH} (K1: 8 a decoded "
+                    "batch, 10 a loss batch)")})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -3635,6 +3994,7 @@ def main() -> int:
     log("router and clients summary: " + json.dumps(router))
     log("beam summary: " + json.dumps(beam))
     log("default training summary: " + json.dumps(default))
+    log("validation summary: " + json.dumps(validation))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},

@@ -20,6 +20,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any "import jax" now raises
 sys.modules["websockets"] = None  # the machine with the card may lack it
 sys.modules["pyaudio"] = None  # the live client imports it only for the microphone
+sys.modules["yaml"] = None  # the machine with the card has no YAML reader
 import caiman_asr_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(caiman_asr_tpu_torch.__path__,
                                                "caiman_asr_tpu_torch.")]
@@ -35,6 +36,13 @@ assert len(names) >= 15, names
 for name in ("training.rsp", "training.pack", "training.schedules", "log.layer_stats",
              "utils.user_tokens", "data.unk_handling", "ops.features", "data.featurize"):
     assert "caiman_asr_tpu_torch." + name in names, name
+# validation as val.py runs it
+for name in ("data.sampler", "data.loader", "evaluate.core", "evaluate.trim",
+             "evaluate.state_resets", "latency.timestamp", "latency.ctm", "setup.builders",
+             "args.shared", "log.logger", "val", "export.checkpointer", "models.yaml_lite"):
+    assert "caiman_asr_tpu_torch." + name in names, name
+from caiman_asr_tpu_torch.models.config import load_config
+assert load_config("configs/base-8703sp.yaml").rnnt.enc_n_hid == 1024
 """
 
 
@@ -69,6 +77,18 @@ def test_entry_points_without_a_device_raise_when_there_is_no_gpu(monkeypatch):
     model = RNNT(cfg, 5, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         offline.transcribe(model, torch.zeros(1, 8000), torch.tensor([8000]))
+
+
+def test_validation_without_a_gpu_raises_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from caiman_asr_tpu_torch import val
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = val.val_arg_parser().parse_args(
+        ["--model_config", str(REPO / "configs" / "testing-1023sp.yaml"),
+         "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        val.validate(args)
+    assert not any(tmp_path.iterdir())  # it stopped before writing anything
 
 
 def test_the_wavefront_benchmark_raises_when_there_is_no_gpu(monkeypatch):

@@ -3,6 +3,7 @@ against the JAX package's (``caiman_asr_tpu/native``): the same calls on
 the same random inputs give byte-identical JSON and identical staging,
 tick after tick. The port never loads the JAX package's library."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -48,18 +49,118 @@ def test_serializer_fuzz_is_byte_identical():
     ref.close()
 
 
+class _BeamLanes:
+    """A model of ser_beam_tick's commit state a lane (history, committed
+    horizon, frame index) and of the records it emits, as (lane, text,
+    is_provisional). ``oob_lanes`` names the lanes whose last row slid
+    agreement past positions no row carried: there the JAX package's build
+    reads its history out of bounds (or its zero padding), and the port
+    emits only the positions it has seen."""
+
+    def __init__(self, B: int, W: int, win: int, pieces):
+        self.W, self.win = W, win
+        self.text = [p.replace("▁", " ") for p in pieces]
+        self.lanes = [self._fresh() for _ in range(B)]
+
+    @staticmethod
+    def _fresh():
+        return {"hist": [], "committed": 0, "frame_idx": 0}
+
+    def reset_lane(self, lane: int):
+        self.lanes[lane] = self._fresh()
+
+    def _text(self, ids):
+        return "".join(self.text[i] if 0 <= i < len(self.text) else "" for i in ids)
+
+    def tick(self, packed: np.ndarray, adv: np.ndarray):
+        W, win = self.W, self.win
+        records, oob_lanes = [], []
+        for b in np.flatnonzero(adv):
+            ln, row = self.lanes[b], packed[b]
+            toks = row[: W * win].reshape(W, win)
+            lens = row[W * win: W * win + W].astype(np.int64)
+            base, echo = int(row[W * win + W]), int(row[W * win + W + 1])
+            scores = row[W * win + W + 2:].view(np.float32)
+            if echo > 0:
+                ln["committed"] = max(ln["committed"] - echo, 0)
+                ln["hist"] = ln["hist"][echo:]
+            alive = scores > -1e29
+            if not alive.any():
+                ln["frame_idx"] += 1
+                continue
+            norm = [scores[w] / max(int(lens[w]) + 1, 1) if alive[w] else -np.inf
+                    for w in range(W)]
+            best = int(np.argmax(norm))
+            blen, bt = int(lens[best]), toks[best]
+            seen = len(ln["hist"])
+            ln["hist"] += [0] * max(blen - seen, 0)
+            for i in range(base, blen):
+                ln["hist"][i] = int(bt[i - base])
+            if ln["committed"] < base:
+                if base > seen:
+                    oob_lanes.append(int(b))
+                upto = min(base, seen)
+                if upto > ln["committed"]:
+                    records.append((int(b), self._text(ln["hist"][ln["committed"]:upto]),
+                                    False))
+                ln["committed"] = base
+            p = ln["committed"]
+            min_len = int(lens[alive].min())
+            if min_len > p:
+                j = p - base
+                while j < min_len - base and (toks[alive, j] == bt[j]).all():
+                    j += 1
+                p = base + j
+            if p > ln["committed"]:
+                records.append((int(b), self._text(bt[ln["committed"] - base: p - base]),
+                                False))
+                ln["committed"] = p
+            if blen > p:
+                records.append((int(b), self._text(bt[p - base: blen - base]), True))
+            ln["frame_idx"] += 1
+        return records, oob_lanes
+
+
+def _fields(rec: str):
+    """(transcript, is_provisional) of one record's JSON."""
+    d = json.loads(rec)
+    return d["alternatives"][0]["transcript"], d["is_provisional"]
+
+
+def _records(raw: bytes, idx: np.ndarray):
+    """(lane, text, is_provisional) of each record of a beam tick."""
+    return [(lane, *_fields(raw[off:off + n].decode("utf-8"))) for lane, off, n in idx.tolist()]
+
+
+def _by_lane(raw: bytes, idx: np.ndarray):
+    """Each lane's records of a tick, as the raw JSON bytes in order."""
+    out = {}
+    for lane, off, n in idx.tolist():
+        out.setdefault(lane, []).append(raw[off:off + n])
+    return out
+
+
 @pytest.mark.parametrize("W,win", [(1, 2), (3, 8), (4, 16)])
-def test_beam_serializer_fuzz_is_byte_identical(W, win):
+@pytest.mark.parametrize("repeat", range(3))
+def test_beam_serializer_fuzz_is_byte_identical(W, win, repeat):
     """ser_beam_tick on random windows: hypotheses agreeing on a random
     prefix, dead ones (scores below -1e29), bases that slide past the
-    committed horizon, rebase echoes, lane resets. The same JSON, records,
-    dev_len and commit state as the JAX package's build."""
+    committed horizon, rebase echoes, lane resets. Every tick's records
+    equal the lane model's; dev_len and the commit state equal the JAX
+    package's build's; each lane's JSON equals that build's byte for byte
+    except on a lane whose agreement slid past positions the host has seen
+    (where that build reads its history out of bounds), and on a tick with
+    no such lane the whole buffer and index do, through the raw and the
+    parsed calls. Each width runs several times in one process: the result
+    must not depend on what ran before."""
     B = 5
     rng = np.random.default_rng(W)
     pieces = PIECES + [f"▁p{i}" for i in range(20)]
     ours = native.ResponseSerializer(B, 0.06, pieces, beam_width=W, beam_win=win)
     ref = JaxSerializer(B, W, win, 0.06, pieces)
+    model = _BeamLanes(B, W, win, pieces)
     lens = np.zeros((B, W), np.int64)
+    oob_ticks = parsed_ticks = 0
     for t in range(TICKS):
         lens = np.minimum(lens + rng.integers(0, 3, size=(B, W)), 10_000)
         toks = rng.integers(0, len(pieces), size=(B, W, win)).astype(np.int32)
@@ -76,18 +177,72 @@ def test_beam_serializer_fuzz_is_byte_identical(W, win):
         for lane in np.flatnonzero(rng.random(B) < 0.03):
             ours.reset_lane(int(lane))
             ref.reset_lane(int(lane))
+            model.reset_lane(int(lane))
             lens[lane] = 0
-        raw, idx, dev_len = ours.beam_tick_raw(packed, adv)
-        want_raw, want_idx, want_dev = ref.beam_tick_raw(packed, adv)
-        assert raw == want_raw
-        np.testing.assert_array_equal(idx, want_idx)
+        want_records, oob_lanes = model.tick(packed, adv)
+        if t % 8 == 7 and not oob_lanes:
+            got, dev_len = ours.beam_tick(packed, adv)
+            want, want_dev = ref.beam_tick(packed, adv)
+            assert got == want
+            assert [(lane, *_fields(r)) for lane, rs in got.items() for r in rs] == want_records
+            parsed_ticks += 1
+        else:
+            raw, idx, dev_len = ours.beam_tick_raw(packed, adv)
+            want_raw, want_idx, want_dev = ref.beam_tick_raw(packed, adv)
+            assert _records(raw, idx) == want_records, t
+            got, want = _by_lane(raw, idx), _by_lane(want_raw, want_idx)
+            for lane in set(got) | set(want):
+                if lane not in oob_lanes:
+                    assert got.get(lane) == want.get(lane), (t, lane)
+            if oob_lanes:
+                oob_ticks += 1
+            else:
+                assert raw == want_raw
+                np.testing.assert_array_equal(idx, want_idx)
         np.testing.assert_array_equal(dev_len, want_dev)
         assert [ours.committed(i) for i in range(B)] == [ref.committed(i) for i in range(B)]
+        assert [ours.committed(i) for i in range(B)] == [ln["committed"] for ln in model.lanes]
         assert [ours.frame_idx(i) for i in range(B)] == [ref.frame_idx(i) for i in range(B)]
-    assert ours.beam_tick(packed, adv)[0] == ref.beam_tick(packed, adv)[0]
+    print(f"W={W}: {oob_ticks} of {TICKS} ticks slid past the history")
+    assert 0 < oob_ticks < TICKS and parsed_ticks > 0
     assert sum(ours.committed(i) for i in range(B)) > 0
     ours.close()
     ref.close()
+
+
+def test_beam_serializer_slides_only_over_seen_positions():
+    """A lane is reset; a row commits one token and shows a second as a
+    partial; then a row whose best live hypothesis (2 tokens) is shorter
+    than the window's base (3). The slid-out final carries only the seen
+    second token, nothing past the history; committed moves to the base,
+    dev_len is the longest (dead) hypothesis."""
+    W, win = 2, 4
+    pieces = PIECES + [f"▁p{i}" for i in range(20)]
+    ours = native.ResponseSerializer(1, 0.06, pieces, beam_width=W, beam_win=win)
+
+    def row(toks, lens, base, scores):
+        t = np.zeros((W, win), np.int32)
+        for w, seq in enumerate(toks):
+            t[w, :len(seq)] = seq
+        return np.concatenate([t.ravel(), lens, [base, 0],
+                               np.asarray(scores, np.float32).view(np.int32)]
+                              ).astype(np.int32)[None]
+
+    adv = np.ones(1, bool)
+    ours.beam_tick_raw(row([[12, 13, 14], [12, 13, 14]], [3, 3], 0, [-1.0, -2.0]), adv)
+    assert ours.committed(0) == 3
+    ours.reset_lane(0)
+    assert ours.committed(0) == 0
+    raw, idx, _ = ours.beam_tick_raw(row([[12, 13], [12, 14]], [2, 2], 0, [-1.0, -2.0]), adv)
+    assert _records(raw, idx) == [(0, " p0", False), (0, " p1", True)]
+    assert ours.committed(0) == 1
+    raw, idx, dev_len = ours.beam_tick_raw(
+        row([[15, 16, 17, 18], [0, 0]], [7, 2], 3, [-1e30, -1.0]), adv)
+    assert _records(raw, idx) == [(0, " p1", False)]
+    assert ours.committed(0) == 3
+    assert int(dev_len[0]) == 7
+    assert ours.frame_idx(0) == 2  # the reset restarted its clock
+    ours.close()
 
 
 def test_beam_serializer_refuses_a_beam_past_64():
