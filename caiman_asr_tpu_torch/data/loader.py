@@ -38,6 +38,9 @@ class Batch:
     token_lens: np.ndarray   # [B] int32
     transcripts: List[str]
     fnames: List[str]
+    # the host random streams' states after this batch was made
+    # (AudioDataLoader.host_rng_state): a resumed run restores them
+    host_rng: Optional[list] = None
 
 
 class AudioDataLoader:
@@ -112,6 +115,34 @@ class AudioDataLoader:
             )
             self._token_cache[idx] = self.tokenizer.tokenize(text)
         return self._token_cache[idx]
+
+    def _host_rngs(self) -> List[np.random.Generator]:
+        """The host random streams a training batch draws from, in a fixed
+        order: the loader's, the background-noise and babble samplers' (one
+        object when ``setup/builders.build_noise`` made both) and the
+        tokenizer's subword sampling."""
+        rngs = [self.rng]
+        if self.background_noise is not None:
+            rngs.append(self.background_noise[1].rng)
+        if self.babble_noise is not None:
+            rngs.append(self.babble_noise.rng)
+        tok_rng = getattr(self.tokenizer, "_rng", None)
+        if tok_rng is not None:
+            rngs.append(tok_rng)
+        return rngs
+
+    def host_rng_state(self) -> list:
+        """The states of ``_host_rngs`` (JSON-serialisable dicts)."""
+        return [r.bit_generator.state for r in self._host_rngs()]
+
+    def set_host_rng_state(self, states: list) -> None:
+        """Restore states taken by ``host_rng_state``, so that the next
+        batch draws what it would have drawn in the run that took them."""
+        rngs = self._host_rngs()
+        if len(states) != len(rngs):
+            raise ValueError(f"{len(states)} host random states for {len(rngs)} streams")
+        for rng, state in zip(rngs, states):
+            rng.bit_generator.state = state
 
     def _load_one(self, idx: int, rng: np.random.Generator):
         u = self.utts[idx]
@@ -205,6 +236,7 @@ class AudioDataLoader:
             token_lens=tok_lens,
             transcripts=[self.utts[i].transcript for i in idxs],
             fnames=[self.utts[i].fname for i in idxs],
+            host_rng=self.host_rng_state() if self.train else None,
         )
 
     def epoch(self, epoch: int, resume_step: int = 0) -> Iterator[Batch]:

@@ -1,14 +1,16 @@
-"""Subword tokenizer, the reading half of ``caiman_asr_tpu/data/tokenizer.py``:
+"""Subword tokenizer (the port of ``caiman_asr_tpu/data/tokenizer.py``):
 SentencePiece ``.model`` files (or their bytes, as a serving bundle carries
-them) read by a minimal protobuf wire-format reader, unigram Viterbi
-encoding word by word, subword-regularisation sampling, and the
-``Tokenizer`` facade (``tokenize``, ``detokenize``, ``id_to_piece``). No
-native dependency: the ``sentencepiece`` package is not needed.
+them) read and written by a minimal protobuf wire-format reader and writer,
+unigram Viterbi encoding word by word, subword-regularisation sampling, the
+``Tokenizer`` facade (``tokenize``, ``detokenize``, ``id_to_piece``), and a
+unigram-style trainer (``train_tokenizer``) with the JSON and ``.model``
+writers. No native dependency: the ``sentencepiece`` package is not
+needed.
 
 Conventions match SentencePiece's defaults: piece 0 is ``<unk>``,
 word-initial pieces carry the U+2581 ``▁`` marker, and ``num_labels``
 counts all pieces. The RNN-T blank is not a piece: the model appends it at
-index ``num_labels``. The trainer and the writers are not ported yet.
+index ``num_labels``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import json
 import math
 import struct
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +49,18 @@ def _read_varint(buf: bytes, pos: int) -> Tuple[int, int]:
         if not b & 0x80:
             return result, pos
         shift += 7
+
+
+def _write_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
 
 
 def _skip_field(buf: bytes, pos: int, wire_type: int) -> int:
@@ -102,6 +117,21 @@ def parse_sentencepiece_model(buf: bytes) -> List[Tuple[str, float, int]]:
         else:
             pos = _skip_field(buf, pos, wt)
     return pieces
+
+
+def save_sentencepiece_model(
+    path: str | Path, pieces: Sequence[Tuple[str, float, int]]
+) -> None:
+    """Write a minimal SentencePiece-compatible .model file."""
+    out = bytearray()
+    for piece, score, ptype in pieces:
+        body = bytearray()
+        pb = piece.encode("utf-8")
+        body += _write_varint((1 << 3) | 2) + _write_varint(len(pb)) + pb
+        body += _write_varint((2 << 3) | 5) + struct.pack("<f", score)
+        body += _write_varint((3 << 3) | 0) + _write_varint(ptype)
+        out += _write_varint((1 << 3) | 2) + _write_varint(len(body)) + bytes(body)
+    Path(path).write_bytes(bytes(out))
 
 
 # --------------------------------------------------------------------------
@@ -253,6 +283,84 @@ class Tokenizer:
 
     def id_to_piece(self, i: int) -> str:
         return self.model.pieces[i][0]
+
+
+# --------------------------------------------------------------------------
+# Trainer (replacement for spm_train; reference builds vocabs with
+# data/spm/spm_from_json.py calling sentencepiece's trainer).
+# --------------------------------------------------------------------------
+
+
+def train_tokenizer(
+    corpus: Sequence[str],
+    vocab_size: int,
+    max_piece_len: int = 16,
+    user_symbols: Sequence[str] = (),
+    seed_mult: int = 20,
+) -> List[Tuple[str, float, int]]:
+    """Train a unigram piece table.
+
+    Seeds with frequent substrings, then runs EM-style pruning (score = log
+    expected frequency under Viterbi segmentation) down to ``vocab_size``.
+    Returns a piece table usable with UnigramModel / save_sentencepiece_model.
+    """
+    words = Counter()
+    for line in corpus:
+        for w in line.split():
+            words[WORD_MARKER + w] += 1
+
+    # Seed candidates: all substrings up to max_piece_len weighted by freq.
+    subs = Counter()
+    chars = Counter()
+    for w, c in words.items():
+        for i in range(len(w)):
+            chars[w[i]] += c
+            for j in range(i + 1, min(len(w), i + max_piece_len) + 1):
+                subs[w[i:j]] += c * (j - i)  # favour longer pieces
+
+    n_seed = min(len(subs), max(vocab_size * seed_mult, vocab_size + 100))
+    seed = dict(subs.most_common(n_seed))
+    for ch, c in chars.items():
+        seed.setdefault(ch, c)  # single chars must survive for coverage
+
+    def normalize(freqs: Dict[str, float]) -> List[Tuple[str, float, int]]:
+        total = sum(freqs.values()) or 1.0
+        pieces = [("<unk>", 0.0, TYPE_UNKNOWN)]
+        for s in user_symbols:
+            pieces.append((s, 0.0, TYPE_USER_DEFINED))
+        for p, f in sorted(freqs.items(), key=lambda kv: (-kv[1], kv[0])):
+            pieces.append((p, math.log(f / total), TYPE_NORMAL))
+        return pieces
+
+    keep_budget = vocab_size - 1 - len(user_symbols)
+    freqs = {p: float(c) for p, c in seed.items()}
+    for _ in range(4):  # EM iterations with pruning
+        model = UnigramModel(normalize(freqs))
+        new = Counter()
+        for w, c in words.items():
+            for pid in model.encode(w):
+                piece = model.pieces[pid][0]
+                if model.pieces[pid][2] == TYPE_NORMAL:
+                    new[piece] += c
+        # Single characters always survive (full coverage, like SPM's
+        # character_coverage=1.0); their floor frequency keeps them usable
+        # as alternatives even when Viterbi never picks them.
+        kept = {
+            ch: max(float(new.get(ch, 0)), 0.5 * float(c))
+            for ch, c in chars.items()
+        }
+        for p, c in new.most_common():
+            if len(kept) >= keep_budget:
+                break
+            if p not in kept:
+                kept[p] = float(c)
+        freqs = kept
+
+    return normalize(freqs)
+
+
+def save_tokenizer_json(path: str | Path, pieces: List[Tuple[str, float, int]]):
+    Path(path).write_text(json.dumps({"pieces": pieces}))
 
 
 def piece_table(tokenizer, n_classes: int) -> List[str]:

@@ -115,7 +115,7 @@ def evaluate(
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(
             "evaluation over several processes (evaluate/distributed.py) is not ported "
-            "yet (ROADMAP.md Queue 1 item 4)")
+            "yet (ROADMAP.md Queue 1 item 2)")
     t0 = time.time()
     norm_cfg = normalize_config or NormalizeConfig()
     charset = charset if charset is not None else list(" abcdefghijklmnopqrstuvwxyz'")

@@ -175,9 +175,20 @@ def _pipeline(d: Optional[dict]) -> tuple[PipelineConfig, Optional[str]]:
             fb.get("stats_path"))
 
 
-def load_config(path: str | Path) -> Config:
-    """Load a YAML config (anchors and merges supported)."""
-    raw = copy.deepcopy(yaml_lite.safe_load(Path(path).read_text()))
+def load_raw(path: str | Path) -> dict:
+    """The config file as nested dicts and lists (anchors and merges
+    resolved), as the JAX package keeps it beside its ``Config``."""
+    return copy.deepcopy(yaml_lite.safe_load(Path(path).read_text()))
+
+
+def load_config(path: str | Path, max_duration: Optional[float] = None) -> Config:
+    """Load a YAML config (anchors and merges supported). ``max_duration``
+    (the trainer's ``--max_duration``) replaces ``input_train``'s
+    ``audio_dataset.max_duration``."""
+    raw = load_raw(path)
+    if max_duration is not None:
+        raw.setdefault("input_train", {}).setdefault("audio_dataset", {})[
+            "max_duration"] = max_duration
     train, stats_train = _pipeline(raw.get("input_train"))
     val, stats_val = _pipeline(raw.get("input_val"))
     rnnt = {k: v for k, v in (raw.get("rnnt") or {}).items() if k not in _RNNT_IGNORED}

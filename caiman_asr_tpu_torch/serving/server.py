@@ -20,7 +20,9 @@ imports):
 
 The model is built from the config's ``rnnt`` block with the bundle's
 weights; the tokenizer from the bundle's ``sentencepiece`` bytes (or
-``--tokenizer_model``). ``--num_chips N`` serves over the first N cards,
+``--tokenizer_model``). A training checkpoint serves in place of a bundle,
+as in the JAX server: ``--ckpt best.npz --mel_stats_path stats.npz`` (its
+EMA weights where it has them; the config's tokenizer). ``--num_chips N`` serves over the first N cards,
 one engine each (``serving/multi_chip.py``). The beam, with n-gram fusion
 and keyword boosting:
 
@@ -30,8 +32,8 @@ and keyword boosting:
 
 (``--ngram_path`` defaults to the bundle's ``ngram`` extra, its scale to
 ``--ngram_scale_factor``, else the bundle's ``ngram_scale``, else the
-config's ``ngram.scale_factor``). Not ported: ``--ckpt`` (checkpoints) and
-kenlm's binary n-gram format.
+config's ``ngram.scale_factor``). Not ported: kenlm's binary n-gram
+format.
 """
 
 from __future__ import annotations
@@ -287,10 +289,12 @@ def beam_options(args, cfg, tokenizer, n_classes: int, extras, frame_secs: float
 
 def build_engine(args):
     """The engine the CLI asks for: the model from ``--model_config``
-    with the weights of ``--serving_bundle`` (loaded strictly), the
-    tokenizer from the bundle's SentencePiece bytes unless
-    ``--tokenizer_model`` names a file, the mel statistics from the bundle
-    unless ``--mel_stats_path`` names an ``.npz`` (melmeans, melvars). Runs
+    with the weights of ``--serving_bundle`` or, with ``--ckpt``, of a
+    training checkpoint (its EMA where it has one), loaded strictly; the
+    tokenizer from ``--tokenizer_model``, else the bundle's SentencePiece
+    bytes, else (``--ckpt``) the config's file; the mel statistics from
+    ``--mel_stats_path`` (an ``.npz`` of melmeans, melvars), else the
+    bundle's. Runs
     on ``--device`` (cuda unless "cpu" is asked for; no card raises). With
     ``--num_chips`` N > 1, a ``MultiChipEngine`` over the first N cards
     (``SystemExit`` when fewer are visible), or over N engines on the CPU
@@ -300,6 +304,7 @@ def build_engine(args):
 
     from caiman_asr_tpu_torch.data.tokenizer import Tokenizer
     from caiman_asr_tpu_torch.device import resolve_device
+    from caiman_asr_tpu_torch.export.checkpointer import load_checkpoint
     from caiman_asr_tpu_torch.export.from_jax import load_jax_params
     from caiman_asr_tpu_torch.export.serving_bundle import bundle_mel_stats, load_serving_bundle
     from caiman_asr_tpu_torch.models.config import load_config
@@ -313,20 +318,26 @@ def build_engine(args):
         visible = torch.cuda.device_count()
         if visible < num_chips:
             raise SystemExit(f"--num_chips {num_chips} but only {visible} cards visible")
-    if getattr(args, "ckpt", None):
-        raise NotImplementedError("--ckpt: reading checkpoints is not ported yet; "
-                                  "pass --serving_bundle")
-    if not args.serving_bundle:
-        raise ValueError("--serving_bundle is required")
+    if not args.serving_bundle and not getattr(args, "ckpt", None):
+        raise ValueError("pass --serving_bundle, or --ckpt with --mel_stats_path")
     device = resolve_device(device)
     cfg = load_config(args.model_config)
-    weights, extras, _ = load_serving_bundle(args.serving_bundle)
+    extras = {}
+    if args.serving_bundle:
+        weights, extras, _ = load_serving_bundle(args.serving_bundle)
+    else:
+        loaded, ema, _, _ = load_checkpoint(args.ckpt)
+        weights = {k: v for k, v in (ema if ema is not None else loaded).items()
+                   if k not in ("simple_am", "simple_lm")}
     if args.tokenizer_model:
         tokenizer = Tokenizer([], args.tokenizer_model)
     elif "sentencepiece" in extras:
         tokenizer = Tokenizer([], np.asarray(extras["sentencepiece"], np.uint8).tobytes())
+    elif not args.serving_bundle and cfg.tokenizer.sentpiece_model:
+        tokenizer = Tokenizer([], cfg.tokenizer.sentpiece_model)
     else:
-        raise ValueError("the bundle carries no sentencepiece model: pass --tokenizer_model")
+        raise ValueError("no sentencepiece model in the bundle or the config: pass "
+                         "--tokenizer_model")
     model = load_jax_params(RNNT(cfg.rnnt, tokenizer.num_labels + 1, device="cpu"),
                             weights).to(device)
     if args.mel_stats_path:
@@ -364,8 +375,10 @@ def build_engine(args):
 def main(argv=None):
     p = argparse.ArgumentParser(description="streaming ASR WebSocket server (PyTorch/CUDA)")
     p.add_argument("--model_config", required=True)
-    p.add_argument("--serving_bundle", required=True)
-    p.add_argument("--ckpt", default=None, help="not ported: pass --serving_bundle")
+    p.add_argument("--serving_bundle", default=None)
+    p.add_argument("--ckpt", default=None,
+                   help="a training checkpoint (its EMA weights where it has them) in place "
+                        "of --serving_bundle; the mel statistics from --mel_stats_path")
     p.add_argument("--tokenizer_model", default=None)
     p.add_argument("--mel_stats_path", default=None)
     p.add_argument("--host", default="0.0.0.0")

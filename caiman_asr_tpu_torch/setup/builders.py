@@ -1,11 +1,13 @@
-"""Builders for the validation entry point (the validation half of
+"""Builders for the train and validation entry points (the port of
 ``caiman_asr_tpu/setup/builders.py``): a config and the command line in;
-the tokenizer, the model, the manifest loader, the feature pipelines and
-the decoder out. The decoders themselves are built in one place,
-``offline.build_decoder``; ``build_decoder`` here maps the flags onto it.
+the tokenizer, the model, the manifest loaders (the train one with its
+sampler and noise), the feature pipelines and the decoder out. The
+decoders themselves are built in one place, ``offline.build_decoder``;
+``build_decoder`` here maps the flags onto it.
 
-The webdataset and HuggingFace sources, parallel beam decoding and the
-train loader raise, naming the ``ROADMAP.md`` item that will port them.
+The webdataset and HuggingFace sources, loaders over several processes and
+parallel beam decoding raise, naming the ``ROADMAP.md`` item that will port
+them.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import numpy as np
 
 from caiman_asr_tpu_torch.data.loader import AudioDataLoader, FeaturePipeline
 from caiman_asr_tpu_torch.data.manifest import Utterance, load_manifests, utterances_from_dir
-from caiman_asr_tpu_torch.data.sampler import SortedSampler
+from caiman_asr_tpu_torch.data.sampler import (BucketingSampler, RandomSampler, SortedSampler,
+                                              WeightedBucketingSampler)
 from caiman_asr_tpu_torch.data.text.normalize import NormalizeConfig, NormalizeLevel
 from caiman_asr_tpu_torch.data.tokenizer import Tokenizer
 from caiman_asr_tpu_torch.models.config import Config, PipelineConfig
@@ -36,16 +39,18 @@ _LEVELS = {
 
 
 def build_tokenizer(cfg: Config, override_path: Optional[str] = None,
-                    sampling: Optional[float] = None) -> Tokenizer:
+                    sampling: Optional[float] = None, seed: Optional[int] = None) -> Tokenizer:
     """The config's tokenizer (or the one at ``override_path``); ``sampling``
-    overrides the config's subword-sampling rate (validation passes 0)."""
+    overrides the config's subword-sampling rate (validation passes 0);
+    ``seed`` seeds the sampling's stream (None: fresh entropy)."""
     path = override_path or cfg.tokenizer.sentpiece_model
     if path is None or not Path(path).exists():
         raise FileNotFoundError(
             f"sentencepiece model not found: {path!r} "
             "(set tokenizer.sentpiece_model in the config or --tokenizer_model)")
     return Tokenizer(labels=list(cfg.tokenizer.labels), sentpiece_model=path,
-                     sampling=cfg.tokenizer.sampling if sampling is None else sampling)
+                     sampling=cfg.tokenizer.sampling if sampling is None else sampling,
+                     seed=seed)
 
 
 def build_model(cfg: Config, tokenizer: Tokenizer, args=None, *, device="cuda"):
@@ -112,11 +117,76 @@ def load_utterances(manifests: Sequence[str], dataset_dir: str,
         max_transcript_len=ds.max_transcript_len)
 
 
-def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, train: bool):
-    """The loader over JSON manifests (``--val_manifests``) or, with
-    ``--val_from_dir``, a directory of audio and ``{stem}.txt`` pairs, with
-    the same utterance filters; ``--n_utterances_only`` keeps a seeded random
-    subset."""
+def build_train_loader(utts, tokenizer, pipe: PipelineConfig, batch_size: int, seed: int,
+                       args=None) -> AudioDataLoader:
+    """The train loader: ``batch_size`` utterances a microbatch, drawn by
+    the sampler the flags choose (``--train_manifest_ratios``,
+    ``--relative_train_manifest_ratios`` or ``--canary_manifest_exponent``:
+    the weighted bucketing sampler; ``--num_buckets 0``: the random one;
+    else duration buckets), ``--randomize_first_n_epochs``, the noise of
+    ``build_noise``, ``--prob_train_narrowband`` and ``--inspect_audio``."""
+    ratio_modes = {
+        "absolute_ratios": getattr(args, "train_manifest_ratios", None),
+        "relative_ratios": getattr(args, "relative_train_manifest_ratios", None),
+        "canary_exponent": getattr(args, "canary_manifest_exponent", None),
+    }
+    rand_first = getattr(args, "randomize_first_n_epochs", 0) or 0
+    num_buckets = getattr(args, "num_buckets", 6)
+    durations = [u.duration for u in utts]
+    if any(v is not None for v in ratio_modes.values()):
+        sampler = WeightedBucketingSampler(
+            durations, [u.manifest_idx for u in utts], batch_size=batch_size, seed=seed,
+            num_buckets=num_buckets, randomize_first_n_epochs=rand_first,
+            **{k: v for k, v in ratio_modes.items() if v is not None})
+    elif num_buckets == 0:
+        # no duration grouping at all (the reference's --num_buckets 0)
+        sampler = RandomSampler(durations, batch_size=batch_size, seed=seed)
+    else:
+        sampler = BucketingSampler(durations, batch_size=batch_size, seed=seed,
+                                   num_buckets=num_buckets, randomize_first_n_epochs=rand_first)
+    background, babble = build_noise(args, pipe, seed)
+    return AudioDataLoader(
+        utts, sampler, tokenizer, pipe, train=True,
+        normalize_config=normalize_config_from(pipe), seed=seed,
+        background_noise=background, babble_noise=babble,
+        prob_narrowband=getattr(args, "prob_train_narrowband", 0.0),
+        inspect_audio_dir=(str(Path(args.output_dir) / "augmented_audio")
+                           if getattr(args, "inspect_audio", False) else None))
+
+
+def build_noise(args, pipe: PipelineConfig, seed: int):
+    """(background, babble): a ``(NoiseDataset, NoiseSampler)`` pair when
+    ``--prob_background_noise`` > 0 and ``--noise_dataset`` names a
+    directory, and a babble ``NoiseSampler`` when ``--prob_babble_noise`` >
+    0; each None otherwise. Both samplers draw from one generator seeded
+    with ``(seed, 77)``."""
+    if args is None:
+        return None, None
+    from caiman_asr_tpu_torch.data.noise import NoiseDataset, NoiseSampler
+
+    rng = np.random.default_rng((seed, 77))
+    background = None
+    if getattr(args, "prob_background_noise", 0.0) > 0 and getattr(args, "noise_dataset", None):
+        ds = NoiseDataset.from_spec(args.noise_dataset, pipe.logmel.sample_rate,
+                                    hf_config=getattr(args, "noise_config", None),
+                                    max_clips=getattr(args, "noise_max_clips", 2048) or None)
+        background = (ds, NoiseSampler(args.prob_background_noise, rng,
+                                       args.noise_initial_low, args.noise_initial_high))
+    babble = None
+    if getattr(args, "prob_babble_noise", 0.0) > 0:
+        babble = NoiseSampler(args.prob_babble_noise, rng,
+                              getattr(args, "noise_initial_low", 30),
+                              getattr(args, "noise_initial_high", 60))
+    return background, babble
+
+
+def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, train: bool,
+                             seed: int = 0):
+    """The loader over JSON manifests (``--train_manifests`` with ``train``,
+    else ``--val_manifests``) or, for validation with ``--val_from_dir``, a
+    directory of audio and ``{stem}.txt`` pairs, with the same utterance
+    filters; ``--n_utterances_only`` keeps a seeded random subset. ``seed``
+    seeds the train loader's sampler, augmentation and noise."""
     if getattr(args, "read_from_tar", False):
         raise NotImplementedError(
             "--read_from_tar (the webdataset loader) is not ported yet (ROADMAP.md Queue 1 "
@@ -125,12 +195,8 @@ def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, trai
         raise NotImplementedError(
             "--use_hugging_face (the HuggingFace loader) is not ported yet (ROADMAP.md "
             "Queue 1 item 3)")
-    if train:
-        raise NotImplementedError(
-            "the train loader is not ported yet (ROADMAP.md Queue 1 item 4, the training "
-            "entry point)")
-    pipe = cfg.input_val
-    if getattr(args, "val_from_dir", False):
+    pipe = cfg.input_train if train else cfg.input_val
+    if not train and getattr(args, "val_from_dir", False):
         root = Path(args.dataset_dir)
         utts = utterances_from_dir(
             root / args.val_audio_dir if args.val_audio_dir else root,
@@ -139,16 +205,20 @@ def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, trai
         # and scored against the whole transcript
         utts = [u for u in utts if _keep(u, pipe.dataset)]
     else:
-        utts = load_utterances(args.val_manifests, args.dataset_dir, pipe)
+        utts = load_utterances(args.train_manifests if train else args.val_manifests,
+                               args.dataset_dir, pipe)
     n_only = getattr(args, "n_utterances_only", None)
     if n_only is not None and len(utts) > n_only:
         # seeded shuffle, then truncate
         utts = random.Random(getattr(args, "seed", 1)).sample(utts, n_only)
     if getattr(args, "multihost", False):
         raise NotImplementedError(
-            "evaluation over several processes is not ported yet (ROADMAP.md Queue 1 item 4)")
-    loader = build_val_loader(utts, tokenizer, pipe, batch_size,
-                              prob_narrowband=getattr(args, "prob_val_narrowband", 0.0))
+            "loaders over several processes are not ported yet (ROADMAP.md Queue 1 item 2)")
+    if train:
+        loader = build_train_loader(utts, tokenizer, pipe, batch_size, seed, args)
+    else:
+        loader = build_val_loader(utts, tokenizer, pipe, batch_size,
+                                  prob_narrowband=getattr(args, "prob_val_narrowband", 0.0))
     loader.norm_cfg = normalize_config_from(pipe, cfg.user_tokens)
     return loader
 
@@ -222,7 +292,7 @@ def build_decoder(model, blank_idx, tokenizer, args, cfg: Optional[Config] = Non
     if name == "beam" and (args.beam_parallel_procs > 1 or args.beam_parallel_procs == -1):
         raise NotImplementedError(
             "--beam_parallel_procs > 1 (decoding/parallel.py) is not ported yet (ROADMAP.md "
-            "Queue 1 item 5)")
+            "Queue 1 item 4)")
 
     ngram_lm = None
     ngram_path = args.ngram_path or (cfg.ngram.ngram_path if cfg else None)

@@ -129,7 +129,23 @@ Phases:
      model holding the EMA leaves bit for bit, hypotheses and WER identical,
      at least 12 of 16 non-empty, the loss within 1e-5, K1 8 a decoded batch
      and 10 a loss batch, K2 one a batch; the same with --decoder fast_beam;
-     ms a batch, audio-s per s, the decode's and the loss's shares.
+     ms a batch, audio-s per s, the decode's and the loss's shares;
+  15. the training CLI (python -m caiman_asr_tpu_torch.train, base-85M from
+     configs/base-8703sp.yaml on the phase-14 workspace with its manifest
+     listed twice, the smoke tokenizer, mel statistics from
+     generate_mel_stats.main, four seeded noise clips; bf16, A=2 x B=16,
+     RSP [99, 0, 1] from step 0, packing, SpecAugment, background noise
+     0.25 from step 0, validation and checkpoints every 2 steps, a train
+     sample at step 4): 4 steps, then 2 steps and --resume to 4 in another
+     directory, the resumed steps' losses and gradient norms and the
+     step-4 checkpoint's params, EMA and optimizer leaves equal to the bit
+     (else named and held within 1e-6 relative); K3a / K3b / K5 launches a
+     step; ms a step, PhaseTimers' shares, ms a validation, a checkpoint's
+     MB and save ms; the step-4 checkpoint through create_serving_bundle,
+     the server built from the bundle and from --ckpt + --mel_stats_path
+     (equal weights and statistics, identical streamed transcripts of the
+     16 utterances); a 500-step synthetic_e2e whose mean loss over its last
+     20 steps falls below half that of its first 20.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -3636,6 +3652,315 @@ def run_validation() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+# The training CLI: python -m caiman_asr_tpu_torch.train at base-85M from
+# configs/base-8703sp.yaml on the phase-14 workspace (the smoke's utterances
+# as WAV, the smoke tokenizer), mel statistics from generate_mel_stats.main,
+# a directory of seeded noise clips; the JAX trainer's defaults otherwise
+# (bf16, RSP [99, 0, 1], packing, SpecAugment, the noise probability 0.25).
+CLI_STEPS = 4
+CLI_NOISE_CLIPS, CLI_NOISE_S = 4, 3.0
+CLI_RESUME_RTOL = 1e-6    # only where a CUDA op proves non-deterministic (printed)
+# the short synthetic_e2e run: the mean loss of its last 20 logged steps
+# must be below E2E_BAR times that of its first 20
+E2E_STEPS, E2E_BAR = 500, 0.5
+
+
+def train_cli_argv(root: Path, out: Path, steps: int) -> list:
+    return ["--model_config", str(REPO / VAL_CONFIG),
+            "--tokenizer_model", str(REPO / "build" / "smoke" / "tokenizer.json"),
+            # the manifest twice: an epoch of two microbatches of 16
+            "--dataset_dir", str(root), "--train_manifests", "manifest.json", "manifest.json",
+            "--val_manifests", "manifest.json", "--output_dir", str(out),
+            "--mel_stats_path", str(root / "mel_stats.npz"), "--norm_use_global_stats",
+            "--global_batch_size", str(2 * N_UTTS), "--grad_accumulation_batches", "2",
+            "--rsp_delay", "0", "--noise_dataset", str(root / "noise"),
+            "--prob_background_noise", "0.25", "--noise_delay_steps", "0",
+            "--training_steps", str(steps), "--val_frequency", "2", "--save_frequency", "2",
+            "--log_frequency", "1", "--prediction_frequency", str(CLI_STEPS),
+            "--val_batch_size", str(VAL_BATCH), "--skip_ngram"]
+
+
+def write_noise(root: Path) -> None:
+    """CLI_NOISE_CLIPS seeded clips of low-passed noise as WAV files."""
+    import wave
+
+    import numpy as np
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 16)
+    for i in range(CLI_NOISE_CLIPS):
+        x = np.convolve(rng.normal(size=int(CLI_NOISE_S * SR)), np.ones(8) / 8, mode="same")
+        with wave.open(str(root / f"noise{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(SR)
+            w.writeframes((np.clip(0.3 * x, -1, 1) * 32767).astype(np.int16).tobytes())
+
+
+def train_log(out: Path) -> dict:
+    """{step: (loss, grad_norm)} of a run's train records."""
+    recs = {}
+    for f in sorted(out.glob("log_*.jsonl")):
+        for line in f.read_text().splitlines():
+            r = json.loads(line)
+            if r.get("subset") == "train" and "loss" in r:
+                recs[r["step"][1]] = (r["loss"], r["grad_norm"])
+    return recs
+
+
+@contextlib.contextmanager
+def cli_probes():
+    """Within: what a train.main call did, in ``probe``: per train step its
+    ms (between two synchronises) and kernel launches, per evaluation and
+    per checkpoint save their ms (and the file's MB)."""
+    import torch
+
+    from caiman_asr_tpu_torch.evaluate import core
+    from caiman_asr_tpu_torch.export.checkpointer import Checkpointer
+    from caiman_asr_tpu_torch.training import step as step_mod
+
+    probe = {"steps": [], "evals": [], "saves": []}
+    real_make, real_eval, real_save = (step_mod.make_train_step, core.evaluate,
+                                       Checkpointer.save)
+
+    def make_train_step(*a, **kw):
+        inner = real_make(*a, **kw)
+
+        def timed(*sa, **skw):
+            torch.cuda.synchronize()
+            before, t0 = read_counts(), time.perf_counter()
+            out = inner(*sa, **skw)
+            torch.cuda.synchronize()
+            after = read_counts()
+            probe["steps"].append({"ms": 1e3 * (time.perf_counter() - t0),
+                                   "launches": {k: after[k] - before[k] for k in after
+                                                if after[k] != before[k]},
+                                   "pack_to": skw.get("pack_to")})
+            return out
+        return timed
+
+    def evaluate(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_eval(*a, **kw)
+        torch.cuda.synchronize()
+        probe["evals"].append({"ms": 1e3 * (time.perf_counter() - t0), "wer": out.wer,
+                               "loss": out.loss})
+        return out
+
+    def save(self, *a, **kw):
+        t0 = time.perf_counter()
+        path = real_save(self, *a, **kw)
+        probe["saves"].append({"ms": 1e3 * (time.perf_counter() - t0), "name": path.name,
+                               "mb": path.stat().st_size / 2 ** 20})
+        return path
+
+    with contextlib.ExitStack() as patches:
+        patches.enter_context(mock.patch.object(step_mod, "make_train_step", make_train_step))
+        patches.enter_context(mock.patch.object(core, "evaluate", evaluate))
+        patches.enter_context(mock.patch.object(Checkpointer, "save", save))
+        yield probe
+
+
+def run_cli(root: Path, out: Path, steps: int, resume: bool = False) -> dict:
+    """train.main on parsed argv, probed; returns the probe, its counts and
+    the PhaseTimers summary it wrote."""
+    from caiman_asr_tpu_torch import train
+
+    args = train.train_arg_parser().parse_args(
+        train_cli_argv(root, out, steps) + (["--resume"] if resume else []))
+    reset_counts()
+    with cli_probes() as probe:
+        t0 = time.perf_counter()
+        state, best = train.main(args)
+        wall = time.perf_counter() - t0
+    timings = json.loads((out / "benchmark" / f"timings_step{steps}.json").read_text())
+    return {"probe": probe, "counts": read_counts(), "wall_s": wall, "timings": timings,
+            "best_wer": best, "step": state.step}
+
+
+def _serving_transcripts(args) -> tuple:
+    """(the engine's weights by name, its streamed transcripts of the
+    workspace's utterances) for a server built from ``args``."""
+    import numpy as np
+
+    from caiman_asr_tpu_torch.data.audio import read_audio
+    from caiman_asr_tpu_torch.serving import server
+    from caiman_asr_tpu_torch.training.tree import tree_items
+
+    engine = server.build_engine(args)
+    engine.warmup()
+    root = Path(args.dataset_dir)
+    pcm = []
+    for u in json.loads((root / "manifest.json").read_text()):
+        x = read_audio(root / u["files"][0]["fname"], SR)
+        x = (np.clip(x, -1, 1) * 32767).astype(np.int16)
+        pcm.append(x[: len(x) // 960 * 960])
+    _, texts = _stream_texts(engine, pcm)
+    weights = {"/".join(p): t.detach().cpu().numpy() for p, t in
+               tree_items(engine.model.param_tree())}
+    stats = [getattr(engine, k).detach().cpu().numpy() for k in ("_mean", "_std")]
+    return weights, texts, stats
+
+
+def serving_check(root: Path, ckpt: Path) -> dict:
+    """The step-4 checkpoint through create_serving_bundle and the server
+    built from that bundle and from --ckpt + --mel_stats_path: the same
+    weights and mel statistics, identical streamed transcripts."""
+    from argparse import Namespace
+
+    import numpy as np
+
+    from caiman_asr_tpu_torch.export.serving_bundle import create_serving_bundle
+
+    spm = REPO / "build" / "smoke" / "tokenizer.model"
+    t0 = time.perf_counter()
+    bundle = create_serving_bundle(ckpt, REPO / VAL_CONFIG, root / "bundle.npz",
+                                   mel_stats_path=root / "mel_stats.npz",
+                                   sentencepiece_path=spm, ngram_path=None)
+    bundle_ms = 1e3 * (time.perf_counter() - t0)
+    common = dict(model_config=str(REPO / VAL_CONFIG), dataset_dir=str(root), max_streams=N_UTTS,
+                  pipeline_depth=0, wire_responses=False, decoder="greedy", num_chips=1,
+                  device="cuda")
+    from_bundle = _serving_transcripts(Namespace(**common, serving_bundle=str(bundle), ckpt=None,
+                                                 tokenizer_model=None, mel_stats_path=None))
+    from_ckpt = _serving_transcripts(Namespace(**common, serving_bundle=None, ckpt=str(ckpt),
+                                               tokenizer_model=str(spm),
+                                               mel_stats_path=str(root / "mel_stats.npz")))
+    (wb, tb, sb), (wc, tc, sc) = from_bundle, from_ckpt
+    same_weights = wb.keys() == wc.keys() and all(np.array_equal(wb[k], wc[k]) for k in wb)
+    same_stats = len(sb) == len(sc) and all(np.array_equal(a, b) for a, b in zip(sb, sc))
+    log(f"  serving: bundle {bundle.stat().st_size / 2 ** 20:.1f} MB written in {bundle_ms:.1f} "
+        f"ms; servers from the bundle and from --ckpt: weights equal {same_weights} "
+        f"({len(wb)} leaves), mel statistics equal {same_stats}, transcripts identical "
+        f"{tb == tc} ({sum(map(bool, tb))} of {len(tb)} non-empty, {sum(map(len, tb))} "
+        "characters)")
+    if not (same_weights and same_stats and tb == tc):
+        raise AssertionError("the bundle server and the --ckpt server differ")
+    return {"bundle_mb": bundle.stat().st_size / 2 ** 20, "bundle_ms": bundle_ms,
+            "weights_equal": same_weights, "stats_equal": same_stats,
+            "transcripts_identical": True, "nonempty": sum(map(bool, tb)),
+            "characters": sum(map(len, tb))}
+
+
+def run_train_cli() -> dict:
+    """Phase 15: python -m caiman_asr_tpu_torch.train at base-85M on the
+    card: 4 steps; 2 steps then --resume to 4, equal to the bit; the bundle
+    server against the --ckpt server; a short synthetic_e2e."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import synthetic_e2e
+    from caiman_asr_tpu_torch.data import generate_mel_stats
+    from caiman_asr_tpu_torch.data.tokenizer import save_sentencepiece_model
+    from caiman_asr_tpu_torch.export.checkpointer import flatten_named, load_checkpoint
+
+    root = REPO / "build" / "smoke" / "train_cli"
+    work = write_val_workspace(root)
+    pieces = json.loads((REPO / "build" / "smoke" / "tokenizer.json").read_text())["pieces"]
+    save_sentencepiece_model(REPO / "build" / "smoke" / "tokenizer.model", pieces)
+    write_noise(root / "noise")
+    t0 = time.perf_counter()
+    generate_mel_stats.main(["--model_config", str(REPO / VAL_CONFIG), "--dataset_dir",
+                             str(root), "--manifests", "manifest.json", "--output_path",
+                             str(root / "mel_stats.npz")])
+    stats_ms = 1e3 * (time.perf_counter() - t0)
+    out_a, out_b = root / "run_a", root / "run_b"
+    for d in (out_a, out_b):
+        shutil.rmtree(d, ignore_errors=True)
+    a = run_cli(root, out_a, CLI_STEPS)
+    torch.cuda.empty_cache()
+    b1 = run_cli(root, out_b, CLI_STEPS // 2)
+    torch.cuda.empty_cache()
+    b2 = run_cli(root, out_b, CLI_STEPS, resume=True)
+    torch.cuda.empty_cache()
+
+    # the resumed run against the uninterrupted one
+    log_a, log_b = train_log(out_a), train_log(out_b)
+    tail = range(CLI_STEPS // 2 + 1, CLI_STEPS + 1)
+    logs_equal = all(log_a[s] == log_b[s] for s in tail)
+    ca, cb = (load_checkpoint(o / "ckpts" / f"step{CLI_STEPS}.npz") for o in (out_a, out_b))
+    leaves = {}
+    for name, x, y in (("params", ca[0], cb[0]), ("ema", ca[1], cb[1])):
+        fx, fy = flatten_named(x), flatten_named(y)
+        leaves.update({f"{name}/{k}": (fx[k], fy[k]) for k in fx})
+    leaves.update({f"opt/{i}": (x, y) for i, (x, y) in enumerate(zip(ca[2], cb[2]))})
+    unequal = sorted(k for k, (x, y) in leaves.items() if not np.array_equal(x, y))
+    rel = max([abs(y - x) / max(abs(x), 1e-30) for s in tail
+               for x, y in zip(log_a[s], log_b[s])]
+              + [float(np.max(np.abs(x.astype(np.float64) - y)) / max(np.max(np.abs(x)), 1e-30))
+                 for x, y in leaves.values()])
+    bit_equal = logs_equal and not unequal
+    log(f"  resume: steps {list(tail)} of the run resumed at step {CLI_STEPS // 2} against the "
+        f"uninterrupted run: losses and gradient norms equal to the bit {logs_equal} "
+        f"({[log_a[s] for s in tail]} / {[log_b[s] for s in tail]}); the step-{CLI_STEPS} "
+        f"checkpoint's {len(leaves)} params, EMA and opt leaves equal to the bit "
+        f"{not unequal} (unequal: {unequal[:6]}{'...' if len(unequal) > 6 else ''}); the "
+        f"largest relative difference {rel:.3g}")
+    if not bit_equal:
+        log(f"  NOTE: the resumed run is not bit-equal; held within {CLI_RESUME_RTOL} relative")
+    if rel > CLI_RESUME_RTOL or sorted(log_a) != list(range(1, CLI_STEPS + 1)):
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {rel}")
+    if any(r["probe"]["steps"][i]["launches"].get(k, 0) == 0 for r in (a, b1, b2)
+           for i in range(len(r["probe"]["steps"])) for k in LSTM_TRAIN_KERNELS):
+        raise AssertionError("a train step of the CLI did not launch K3a and K3b")
+
+    serving = serving_check(root, out_a / "ckpts" / f"step{CLI_STEPS}.npz")
+    torch.cuda.empty_cache()
+
+    # the short synthetic_e2e: the loss falls
+    e2e_root = REPO / "build" / "smoke" / "e2e"
+    reset_counts()
+    t0 = time.perf_counter()
+    e2e = synthetic_e2e.run(e2e_root, steps=E2E_STEPS, log_frequency=1)
+    e2e_s = time.perf_counter() - t0
+    e2e_counts = {k: v for k, v in read_counts().items() if v}
+    losses = [e2e["losses"][k] for k in sorted(e2e["losses"])]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    log(f"  synthetic_e2e, {E2E_STEPS} steps: mean loss of the first 20 steps {first:.4f}, of "
+        f"the last 20 {last:.4f} ({last / first:.3f} of it; bar {E2E_BAR}); greedy best dev "
+        f"WER {e2e['greedy_best_wer']:.4f}, fast beam {e2e['beam_wer']:.4f}; training "
+        f"{e2e['train_s']:.1f} s ({1e3 * e2e['train_s'] / E2E_STEPS:.1f} ms a step with "
+        f"validation), {e2e_s:.1f} s in all; launches {e2e_counts}")
+    if not last < E2E_BAR * first:
+        raise AssertionError(f"the synthetic task's loss did not fall: {first} -> {last}")
+    for k in ("lstm_recurrence", "lstm_recurrence_sg", "lstm_recurrence_bwd"):
+        if not e2e_counts.get(k):
+            raise AssertionError(f"synthetic_e2e never launched {k}")
+
+    steps_ms = [r["ms"] for r in a["probe"]["steps"]]
+    per_step = a["probe"]["steps"][-1]["launches"]
+    shares = {k: v["total_s"] for k, v in a["timings"].items()}
+    total = sum(shares.values())
+    evals = [e["ms"] for r in (a, b1, b2) for e in r["probe"]["evals"]]
+    saves = [s for r in (a, b1, b2) for s in r["probe"]["saves"]]
+    log(f"  train CLI, base-85M bf16, A=2 x B={N_UTTS}: step 1 {steps_ms[0]:.1f} ms, steps "
+        f"2-{CLI_STEPS} median {float(np.median(steps_ms[1:])):.1f} ms ({steps_ms[1:]}); "
+        "PhaseTimers' shares of run A: " + ", ".join(
+            f"{k} {v / total:.1%} ({1e3 * v / a['timings'][k]['count']:.1f} ms each)"
+            for k, v in shares.items())
+        + f"; pack_to {[r['pack_to'] for r in a['probe']['steps']]}; launches a step "
+        f"{per_step} (phase 13's default step: K3a 20, K3b 20, K5 2 each); validation "
+        f"{[round(e, 1) for e in evals]} ms; checkpoint saves "
+        f"{[(s['name'], round(s['ms'], 1), round(s['mb'], 1)) for s in saves]} (ms, MB); run "
+        f"A {a['wall_s']:.1f} s, B {b1['wall_s']:.1f} + {b2['wall_s']:.1f} s; mel statistics "
+        f"{stats_ms:.1f} ms; on {card()}")
+    return {"steps_ms": steps_ms, "step1_ms": steps_ms[0],
+            "median_ms": float(np.median(steps_ms[1:])), "phase_s": shares,
+            "launches_a_step": per_step, "launches": a["counts"],
+            "pack_to": [r["pack_to"] for r in a["probe"]["steps"]],
+            "eval_ms": evals, "saves": saves, "wall_s": [a["wall_s"], b1["wall_s"],
+                                                         b2["wall_s"]],
+            "resume_bit_equal": bit_equal, "resume_max_rel": rel, "serving": serving,
+            "e2e": {"steps": E2E_STEPS, "first20": first, "last20": last, "bar": E2E_BAR,
+                    "greedy_best_wer": e2e["greedy_best_wer"], "beam_wer": e2e["beam_wer"],
+                    "train_s": e2e["train_s"], "wall_s": e2e_s, "launches": e2e_counts},
+            "mel_stats_ms": stats_ms, "utterances": work["utterances"], "card": card()}
+
+
 def main() -> int:
     import torch
 
@@ -3829,6 +4154,12 @@ def main() -> int:
         f"checkpoint, base-85M from {VAL_CONFIG}, fp32, kernels and plain path")
     validation = run_validation()
 
+    # 15. the training CLI
+    log("== training CLI: python -m caiman_asr_tpu_torch.train, base-85M from "
+        f"{VAL_CONFIG}, bf16, A=2 x B={N_UTTS}, RSP, packing, SpecAugment, noise; resume, "
+        "serving from the checkpoint, a short synthetic_e2e")
+    cli = run_train_cli()
+
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
     counts64 = cells[sorted(cells)[2]]["bfloat16"]["rows"][-1]["launches"]
@@ -3924,6 +4255,13 @@ def main() -> int:
                     f"phase 14: val.validate --calc_loss, base-85M fp32, {N_UTTS} utterances "
                     f"in {validation['batches']} batches of {VAL_BATCH} (K1: 8 a decoded "
                     "batch, 10 a loss batch)")})
+        if cli["launches"].get(wrapper):  # phase 15's 4-step CLI run
+            kernels[-1].update({
+                "launches_train_cli": cli["launches"][wrapper],
+                "launches_train_cli_per": (
+                    f"phase 15: train.main, base-85M bf16, {CLI_STEPS} steps of A=2 x "
+                    f"B={N_UTTS} with validation every 2 ({N_UTTS} utterances, batches of "
+                    f"{VAL_BATCH}) and a train-sample decode at step {CLI_STEPS}")})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -3995,6 +4333,7 @@ def main() -> int:
     log("beam summary: " + json.dumps(beam))
     log("default training summary: " + json.dumps(default))
     log("validation summary: " + json.dumps(validation))
+    log("training CLI summary: " + json.dumps(cli))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},

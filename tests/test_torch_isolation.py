@@ -41,6 +41,11 @@ for name in ("data.sampler", "data.loader", "evaluate.core", "evaluate.trim",
              "evaluate.state_resets", "latency.timestamp", "latency.ctm", "setup.builders",
              "args.shared", "log.logger", "val", "export.checkpointer", "models.yaml_lite"):
     assert "caiman_asr_tpu_torch." + name in names, name
+# the training CLI on one process
+for name in ("train", "args.train", "data.noise", "data.generate_mel_stats", "data.spm_train",
+             "data.tokenizer", "export.checkpoint_averaging", "export.model_schema",
+             "export.serving_bundle", "log.profiling", "synthetic_e2e", "serving.server"):
+    assert "caiman_asr_tpu_torch." + name in names, name
 from caiman_asr_tpu_torch.models.config import load_config
 assert load_config("configs/base-8703sp.yaml").rnnt.enc_n_hid == 1024
 """
@@ -71,7 +76,14 @@ def test_entry_points_without_a_device_raise_when_there_is_no_gpu(monkeypatch):
     cfg = RNNTModelConfig(in_feats=12, enc_n_hid=8, enc_pre_rnn_layers=1,
                           enc_post_rnn_layers=1, pred_n_hid=8, pred_rnn_layers=1,
                           joint_n_hid=8)
-    for entry in (lambda: RNNT(cfg, 5), LogMelFrontend, FeaturePipeline):
+    from caiman_asr_tpu_torch import train
+    from caiman_asr_tpu_torch.data import generate_mel_stats
+
+    for entry in (lambda: RNNT(cfg, 5), LogMelFrontend, FeaturePipeline,
+                  lambda: train.main(train.train_arg_parser().parse_args([])),
+                  lambda: generate_mel_stats.main(["--model_config",
+                                                   "configs/base-8703sp.yaml",
+                                                   "--output_path", "unused.npz"])):
         with pytest.raises(RuntimeError, match="cuda"):
             entry()
     model = RNNT(cfg, 5, device="cpu")

@@ -68,7 +68,8 @@ def bundle(tmp_path_factory):
              melvars=(np.abs(rng.normal(size=80)) + 0.5).astype(np.float32) ** 2)
     out = create_serving_bundle(ckpt, config, d / "bundle.npz", mel_stats_path=stats,
                                 sentencepiece_path=spm, skip_state_dict_check=True)
-    return {"config": str(config), "bundle": str(out), "params": params}
+    return {"config": str(config), "bundle": str(out), "params": params, "ckpt": str(ckpt),
+            "stats": str(stats)}
 
 
 def _args(bundle, **kw):
@@ -132,8 +133,28 @@ def test_build_engine_refuses_what_is_not_ported(bundle):
     with pytest.raises(SystemExit):
         server.build_engine(_args(bundle, num_chips=max(2, torch.cuda.device_count() + 1),
                                   device="cuda"))
-    with pytest.raises(NotImplementedError):
-        server.build_engine(_args(bundle, ckpt="x.npz"))
+    # neither a bundle nor a checkpoint
+    with pytest.raises(ValueError, match="--ckpt"):
+        server.build_engine(_args(bundle, serving_bundle=None))
+
+
+def test_build_engine_from_a_checkpoint_equals_the_bundle(bundle):
+    """--ckpt with --mel_stats_path (the JAX server's route) builds the
+    weights and the mel statistics that the bundle written from that
+    checkpoint carries, and the tokenizer the config names."""
+    from caiman_asr_tpu_torch.training.tree import tree_items
+
+    from_bundle = server.build_engine(_args(bundle))
+    from_ckpt = server.build_engine(_args(bundle, serving_bundle=None, ckpt=bundle["ckpt"],
+                                          mel_stats_path=bundle["stats"]))
+    a, b = (dict(tree_items(e.model.param_tree())) for e in (from_bundle, from_ckpt))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(from_bundle._mean, from_ckpt._mean)
+    assert torch.equal(from_bundle._std, from_ckpt._std)
+    assert [from_ckpt.tokenizer.id_to_piece(i) for i in range(N_PIECES - 1)] == [
+        from_bundle.tokenizer.id_to_piece(i) for i in range(N_PIECES - 1)]
 
 
 def _dispatch(srv, out):

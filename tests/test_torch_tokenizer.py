@@ -1,7 +1,9 @@
-"""The port's tokenizer (the reading half of ``data/tokenizer.py``) against
-the JAX package's: a SentencePiece model written by the JAX package loads to
-the same pieces, from a file or from its bytes, and ``tokenize``,
-``detokenize`` and ``id_to_piece`` agree, with and without sampling."""
+"""The port's tokenizer (``data/tokenizer.py``) against the JAX package's: a
+SentencePiece model written by the JAX package loads to the same pieces,
+from a file or from its bytes, and ``tokenize``, ``detokenize`` and
+``id_to_piece`` agree, with and without sampling; the trainer gives the same
+piece table, and the ``.model`` and JSON writers the same bytes, as do the
+``spm_train`` CLIs."""
 
 import json
 
@@ -71,3 +73,45 @@ def test_sampling_agrees(model_file):
     want = JaxTokenizer(["a"], model_file, sampling=0.5, seed=3)
     for s in SENTENCES * 4:
         assert got.tokenize(s) == want.tokenize(s)
+
+
+TRAIN_CORPORA = {
+    "sentences": CORPUS,
+    "repeats": ["alpha bravo charlie", "delta echo", "alpha alpha delta", "kilo lima"] * 5,
+    "characters": ["a b c ab abc", "ba cab"] * 4,
+}
+
+
+@pytest.mark.parametrize("corpus", sorted(TRAIN_CORPORA))
+@pytest.mark.parametrize("vocab_size, user_symbols", [(20, ()), (64, ("<EOS>",)), (200, ())])
+def test_trainer_and_writers_match_jax(corpus, vocab_size, user_symbols, tmp_path):
+    from caiman_asr_tpu.data import tokenizer as jax_tok
+    from caiman_asr_tpu_torch.data import tokenizer as tok
+
+    texts = TRAIN_CORPORA[corpus]
+    got = tok.train_tokenizer(texts, vocab_size=vocab_size, user_symbols=user_symbols)
+    want = jax_tok.train_tokenizer(texts, vocab_size=vocab_size, user_symbols=user_symbols)
+    assert got == want
+    for name, mod in (("port", tok), ("jax", jax_tok)):
+        mod.save_sentencepiece_model(tmp_path / f"{name}.model", got)
+        mod.save_tokenizer_json(tmp_path / f"{name}.json", got)
+    for ext in ("model", "json"):
+        assert (tmp_path / f"port.{ext}").read_bytes() == (tmp_path / f"jax.{ext}").read_bytes()
+
+
+def test_spm_train_writes_what_jax_writes(tmp_path):
+    from caiman_asr_tpu.data.spm_train import main as jax_main
+    from caiman_asr_tpu_torch.data.spm_train import main
+
+    entries = [{"transcript": t.upper() + "!", "files": [{"fname": f"u{i}.wav",
+                                                         "duration": 1.0}],
+                "original_duration": 1.0} for i, t in enumerate(CORPUS)]
+    (tmp_path / "m.json").write_text(json.dumps(entries))
+    for name, fn in (("port", main), ("jax", jax_main)):
+        fn(["--manifests", "m.json", "--dataset_dir", str(tmp_path), "--vocab_size", "40",
+            "--output_prefix", str(tmp_path / name)])
+    for ext in ("model", "json"):
+        assert (tmp_path / f"port.{ext}").read_bytes() == (tmp_path / f"jax.{ext}").read_bytes()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        main(["--read_from_tar", "--tar_files", "x.tar", "--output_prefix",
+              str(tmp_path / "t")])
