@@ -63,10 +63,16 @@ def train_arg_parser() -> argparse.ArgumentParser:
              "on the device inside the train step",
     )
     training.add_argument("--multihost", action="store_true",
-                          help="one process a host over several hosts (not ported yet: raises)")
-    training.add_argument("--coordinator_address", type=str, default=None)
-    training.add_argument("--num_hosts", type=int, default=None)
-    training.add_argument("--host_id", type=int, default=None)
+                          help="data parallelism over torch.distributed, one process a card "
+                               "(implied under torch.distributed.run); --global_batch_size "
+                               "is then each process's")
+    training.add_argument("--coordinator_address", type=str, default=None,
+                          help="outside torch.distributed.run: rank 0's host:port, or an "
+                               "init URL (tcp://, file://)")
+    training.add_argument("--num_hosts", type=int, default=None,
+                          help="outside torch.distributed.run: the number of processes")
+    training.add_argument("--host_id", type=int, default=None,
+                          help="outside torch.distributed.run: this process's rank")
     training.add_argument("--profiler", action="store_true",
                           help="capture a torch.profiler trace + phase timings")
     training.add_argument("--timings_frequency", type=int, default=500)

@@ -242,7 +242,8 @@ class AudioDataLoader:
     def epoch(self, epoch: int, resume_step: int = 0) -> Iterator[Batch]:
         """Yield this rank's batches for an epoch, with prefetch."""
         batches = self.sampler.epoch_batches(epoch, resume_step)
-        idx_lists = [self.sampler.shard(b, self.rank) for b in batches]
+        # a last global batch shorter than the ranks may leave a rank nothing
+        idx_lists = [i for i in (self.sampler.shard(b, self.rank) for b in batches) if len(i)]
         if not idx_lists:
             return
         futures: List[cf.Future] = []

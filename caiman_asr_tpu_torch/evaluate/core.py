@@ -9,7 +9,8 @@ offline endpointing (``evaluate/trim.py``); then detokenisation and the
 normalised reference. After the loop: corpus WER, word timestamps, the CTM
 and emission latency against a ground-truth CTM, the logged metrics and the
 predictions JSON. Features reach the decoder as device tensors; only the
-segmentation and the trimming read the host.
+segmentation and the trimming read the host. Over several processes each
+rank evaluates its shard and ``evaluate/distributed.py`` combines them.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from caiman_asr_tpu_torch.evaluate.state_resets import (
     merge_segments,
     segment_batch,
 )
+from caiman_asr_tpu_torch.evaluate.distributed import aggregate_eval_results
 from caiman_asr_tpu_torch.evaluate.trim import EOSTrimConfig, trim_predictions
 from caiman_asr_tpu_torch.evaluate.wer import ErrorRateKind, WERResult, word_error_rate
 from caiman_asr_tpu_torch.latency.ctm import dump_ctm, measure_emission_latency
@@ -44,6 +46,7 @@ from caiman_asr_tpu_torch.latency.timestamp import (
     group_timestamps,
     user_perceived_time,
 )
+from caiman_asr_tpu_torch.parallel import mesh
 
 
 @dataclass
@@ -111,11 +114,6 @@ def evaluate(
     per-utterance Silence/EOS/Never termination is recorded.
     pre_enc_width: stacked input-feature frame seconds (``feat_lens``' unit);
     defaults to frame_width / 2 (stack time factor 2)."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "evaluation over several processes (evaluate/distributed.py) is not ported "
-            "yet (ROADMAP.md Queue 1 item 2)")
     t0 = time.time()
     norm_cfg = normalize_config or NormalizeConfig()
     charset = charset if charset is not None else list(" abcdefghijklmnopqrstuvwxyz'")
@@ -195,6 +193,13 @@ def evaluate(
     # word-level timestamps, the CTM and emission latency against ground truth
     result.word_timestamps = group_timestamps(
         pieces_list, [[user_perceived_time(t) for t in ts] for ts in tss], hyps, terminations)
+    if mesh.world() > 1:
+        # each rank's shard, then the whole set alike on every rank; only
+        # rank 0 logs and writes the predictions and the CTM
+        result = aggregate_eval_results(result, loss_count)
+        hyps, refs, fnames = result.hyps, result.refs, result.fnames
+        if mesh.rank() != 0:
+            logger, dump_preds_dir, ctm_path = None, None, None
     if ctm_path is not None:
         last_emit = dump_ctm(fnames, result.word_timestamps, ctm_path, frame_width)
         if gt_ctm_path is not None:

@@ -11,11 +11,14 @@ matmul, rounds it to the compute dtype, and hands the sequential part to
 ``ops/lstm_kernel.recurrence``: the Hopper kernels for CUDA tensors (K1, or
 under a gradient K3a forward and K3b backward), their plain versions for CPU
 tensors. h and c are carried in fp32. ``run_lstm`` with ``train=True`` adds
-the training-time dropouts and normalises with batch statistics.
+the training-time dropouts and normalises with batch statistics; under
+``batch_norm_group`` (the train step over several processes) those are the
+statistics of the global batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -25,6 +28,39 @@ Params = Dict[str, Any]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+# the process group over which training batch-norm takes its statistics
+# (None: this process's batch alone)
+_BN_GROUP: List[Any] = [None]
+
+
+@contextlib.contextmanager
+def batch_norm_group(group):
+    """Within, training batch-norm normalises with the statistics of the
+    global batch: every rank of ``group`` contributes its rows."""
+    prev, _BN_GROUP[0] = _BN_GROUP[0], group
+    try:
+        yield
+    finally:
+        _BN_GROUP[0] = prev
+
+
+def _global_moments(yf: torch.Tensor, axes: tuple, group):
+    """(mean, biased variance, count) of yf [..., H] over ``axes`` and every
+    rank of ``group``: one all-reduce of the sum, the sum of squares and the
+    count (in float64), through ``AllReduceSum`` so that the backward
+    all-reduces their gradients."""
+    from caiman_asr_tpu_torch.parallel.mesh import AllReduceSum
+
+    y64 = yf.double()
+    H = y64.shape[-1]
+    local = torch.cat([y64.sum(axes), torch.square(y64).sum(axes),
+                       y64.new_tensor([float(math.prod(yf.shape[:-1]))])])
+    tot = AllReduceSum.apply(local, group)
+    n = tot[2 * H]
+    mu = tot[:H] / n
+    var = tot[H:2 * H] / n - torch.square(mu)
+    return mu.float(), var.float(), float(n.detach())
 
 
 def hard_sigmoid(z: torch.Tensor) -> torch.Tensor:
@@ -120,16 +156,20 @@ def batch_norm_apply(bn: Params, y: torch.Tensor, train: bool = False,
 
     Eval: the running stats, a per-feature affine. ``train``: the batch's
     statistics over every (time, batch) position, padded frames included,
-    the biased variance normalising; with ``updates``, the pair
+    the biased variance normalising (under ``batch_norm_group``, those of
+    the global batch); with ``updates``, the pair
     (batch mean, unbiased batch variance), detached, is appended for the
     train step to fold into the running stats (``BN_MOMENTUM``)."""
     yf = y.float()
     if train:
         axes = tuple(range(y.ndim - 1))
-        mu = yf.mean(axes)
-        var = torch.square(yf - mu).mean(axes)
-        if updates is not None:
+        if _BN_GROUP[0] is not None:
+            mu, var, n = _global_moments(yf, axes, _BN_GROUP[0])
+        else:
+            mu = yf.mean(axes)
+            var = torch.square(yf - mu).mean(axes)
             n = math.prod(y.shape[:-1])
+        if updates is not None:
             updates.append((mu.detach(), (var * (n / max(n - 1, 1))).detach()))
     else:
         mu, var = bn["mean"], bn["var"]

@@ -5,7 +5,9 @@ sampler and noise), the feature pipelines and the decoder out. The
 decoders themselves are built in one place, ``offline.build_decoder``;
 ``build_decoder`` here maps the flags onto it.
 
-The webdataset and HuggingFace sources, loaders over several processes and
+Over several processes (``parallel/mesh.py``) every loader is this rank's
+shard: the manifest samplers' ``batch[rank::world]`` of each global batch,
+the tar reader's every ``world``-th sample pair. The HuggingFace source and
 parallel beam decoding raise, naming the ``ROADMAP.md`` item that will port
 them.
 """
@@ -118,8 +120,9 @@ def load_utterances(manifests: Sequence[str], dataset_dir: str,
 
 
 def build_train_loader(utts, tokenizer, pipe: PipelineConfig, batch_size: int, seed: int,
-                       args=None) -> AudioDataLoader:
-    """The train loader: ``batch_size`` utterances a microbatch, drawn by
+                       args=None, rank: int = 0, world_size: int = 1) -> AudioDataLoader:
+    """The train loader: ``batch_size`` utterances a microbatch on each of
+    ``world_size`` ranks (this one ``rank``), drawn by
     the sampler the flags choose (``--train_manifest_ratios``,
     ``--relative_train_manifest_ratios`` or ``--canary_manifest_exponent``:
     the weighted bucketing sampler; ``--num_buckets 0``: the random one;
@@ -135,18 +138,21 @@ def build_train_loader(utts, tokenizer, pipe: PipelineConfig, batch_size: int, s
     durations = [u.duration for u in utts]
     if any(v is not None for v in ratio_modes.values()):
         sampler = WeightedBucketingSampler(
-            durations, [u.manifest_idx for u in utts], batch_size=batch_size, seed=seed,
-            num_buckets=num_buckets, randomize_first_n_epochs=rand_first,
+            durations, [u.manifest_idx for u in utts], batch_size=batch_size,
+            world_size=world_size, seed=seed, num_buckets=num_buckets,
+            randomize_first_n_epochs=rand_first,
             **{k: v for k, v in ratio_modes.items() if v is not None})
     elif num_buckets == 0:
         # no duration grouping at all (the reference's --num_buckets 0)
-        sampler = RandomSampler(durations, batch_size=batch_size, seed=seed)
+        sampler = RandomSampler(durations, batch_size=batch_size, world_size=world_size,
+                                seed=seed)
     else:
-        sampler = BucketingSampler(durations, batch_size=batch_size, seed=seed,
-                                   num_buckets=num_buckets, randomize_first_n_epochs=rand_first)
+        sampler = BucketingSampler(durations, batch_size=batch_size, world_size=world_size,
+                                   seed=seed, num_buckets=num_buckets,
+                                   randomize_first_n_epochs=rand_first)
     background, babble = build_noise(args, pipe, seed)
     return AudioDataLoader(
-        utts, sampler, tokenizer, pipe, train=True,
+        utts, sampler, tokenizer, pipe, rank=rank, train=True,
         normalize_config=normalize_config_from(pipe), seed=seed,
         background_noise=background, babble_noise=babble,
         prob_narrowband=getattr(args, "prob_train_narrowband", 0.0),
@@ -183,19 +189,35 @@ def build_noise(args, pipe: PipelineConfig, seed: int):
 def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, train: bool,
                              seed: int = 0):
     """The loader over JSON manifests (``--train_manifests`` with ``train``,
-    else ``--val_manifests``) or, for validation with ``--val_from_dir``, a
-    directory of audio and ``{stem}.txt`` pairs, with the same utterance
-    filters; ``--n_utterances_only`` keeps a seeded random subset. ``seed``
-    seeds the train loader's sampler, augmentation and noise."""
-    if getattr(args, "read_from_tar", False):
-        raise NotImplementedError(
-            "--read_from_tar (the webdataset loader) is not ported yet (ROADMAP.md Queue 1 "
-            "item 3)")
+    else ``--val_manifests``), over tar or zip shards (``--read_from_tar``:
+    ``--train_tar_files`` / ``--val_tar_files``, beneath ``--dataset_dir``
+    where relative) or, for validation with ``--val_from_dir``, a directory
+    of audio and ``{stem}.txt`` pairs, with the same utterance filters;
+    ``--n_utterances_only`` keeps a seeded random subset. ``seed`` seeds the
+    train loader's sampler, augmentation and noise, and the tar reader's
+    shuffle. Each is this process's shard (``parallel/mesh.rank``, ``world``)."""
+    from caiman_asr_tpu_torch.parallel import mesh
+
     if getattr(args, "use_hugging_face", False):
         raise NotImplementedError(
             "--use_hugging_face (the HuggingFace loader) is not ported yet (ROADMAP.md "
             "Queue 1 item 3)")
     pipe = cfg.input_train if train else cfg.input_val
+    rank, world = mesh.rank(), mesh.world()
+    if getattr(args, "read_from_tar", False):
+        from caiman_asr_tpu_torch.data.webdataset import WebDatasetLoader, WebDatasetReader
+
+        tars = [t if Path(t).is_absolute() else str(Path(args.dataset_dir) / t)
+                for t in (args.train_tar_files if train else args.val_tar_files)]
+        # sharded over the ranks, where the JAX package has every host read
+        # every sample (ROADMAP.md Queue 3)
+        reader = WebDatasetReader(
+            tars, sample_rate=pipe.logmel.sample_rate, seed=seed, shard_id=rank,
+            num_shards=world, max_duration=pipe.dataset.max_duration if train else None,
+            max_transcript_len=pipe.dataset.max_transcript_len if train else None)
+        return WebDatasetLoader(reader, tokenizer, batch_size,
+                                normalize_config=normalize_config_from(pipe, cfg.user_tokens),
+                                drop_last=train)
     if not train and getattr(args, "val_from_dir", False):
         root = Path(args.dataset_dir)
         utts = utterances_from_dir(
@@ -211,25 +233,26 @@ def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, trai
     if n_only is not None and len(utts) > n_only:
         # seeded shuffle, then truncate
         utts = random.Random(getattr(args, "seed", 1)).sample(utts, n_only)
-    if getattr(args, "multihost", False):
-        raise NotImplementedError(
-            "loaders over several processes are not ported yet (ROADMAP.md Queue 1 item 2)")
     if train:
-        loader = build_train_loader(utts, tokenizer, pipe, batch_size, seed, args)
+        loader = build_train_loader(utts, tokenizer, pipe, batch_size, seed, args,
+                                    rank=rank, world_size=world)
     else:
         loader = build_val_loader(utts, tokenizer, pipe, batch_size,
-                                  prob_narrowband=getattr(args, "prob_val_narrowband", 0.0))
+                                  prob_narrowband=getattr(args, "prob_val_narrowband", 0.0),
+                                  rank=rank, world_size=world)
     loader.norm_cfg = normalize_config_from(pipe, cfg.user_tokens)
     return loader
 
 
 def build_val_loader(utts, tokenizer, pipe: PipelineConfig, batch_size: int,
-                     prob_narrowband: float = 0.0):
+                     prob_narrowband: float = 0.0, rank: int = 0, world_size: int = 1):
     """Sorted by duration (the least padding), no shuffling, the last
-    batch kept."""
+    batch kept; over several ranks each evaluates its shard of every
+    sorted global batch of ``batch_size * world_size``."""
     sampler = SortedSampler([u.duration for u in utts], batch_size=batch_size,
-                            pessimistic_first_batch=False, drop_last=False)
-    return AudioDataLoader(utts, sampler, tokenizer, pipe, train=False,
+                            world_size=world_size, pessimistic_first_batch=False,
+                            drop_last=False)
+    return AudioDataLoader(utts, sampler, tokenizer, pipe, rank=rank, train=False,
                            normalize_config=normalize_config_from(pipe),
                            prob_narrowband=prob_narrowband)
 

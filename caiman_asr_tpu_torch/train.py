@@ -1,5 +1,5 @@
 """Training entry point (the port of ``caiman_asr_tpu/train.py``; reference
-training/caiman_asr_train/train.py:83-528), on one process.
+training/caiman_asr_train/train.py:83-528), on one process or several.
 
 Step-based training: the host loader feeds audio batches; on the device
 the train ``FeaturePipeline`` (log-mel, normalisation blend, splicing,
@@ -16,21 +16,36 @@ Run:  python -m caiman_asr_tpu_torch.train --model_config configs/base-8703sp.ya
         --dataset_dir D --train_manifests train.json --val_manifests dev.json \\
         --output_dir OUT --mel_stats_path D/mel_stats.npz [the JAX flags]
 
+Over several cards, one process a card: ``python -m torch.distributed.run
+--nproc_per_node N -m caiman_asr_tpu_torch.train --multihost ...`` (or
+``--multihost`` with ``--coordinator_address``, ``--num_hosts`` and
+``--host_id``; under the launcher the process group is joined with or
+without the flag). ``--global_batch_size`` is then each process's: the
+sampler's global batch is W times it and rank r takes ``batch[r::W]``. The
+step computes the JAX step over the global batch (``training/step.py``);
+ranks stop together (a stop flag all-reduced after each step, and an
+epoch ends on every rank once one has no whole group left); only rank 0
+writes checkpoints, logs, the train sample and serving bundles, and each
+checkpoint holds every rank's host random streams and the carried RSP
+state in the global batch's row order.
+
 It runs on the card and raises without one; ``main(args, device="cpu")``
 runs on the CPU. Random streams are derived, never chained: the features
 of microbatch ``a`` of step ``s`` draw from a generator seeded by
 ``(seed, s * (A + 1) + a)``, the step's dropout and gradient noise from
-``(seed, s * (A + 1) + A)``, and the host loader's random streams ride the
-checkpoint (``meta["_host_rng"]``), so that ``--resume`` reproduces the
-uninterrupted run bit for bit. Not ported, each raising and naming its
-``ROADMAP.md`` item: ``--model_parallel`` > 1, ``--pruned_loss_range`` > 0,
-``--multihost``, ``--read_from_tar``, ``--use_hugging_face`` and a hub
+``(seed, s * (A + 1) + A)`` (on rank r > 0 with r folded in; the gradient
+noise over several ranks from a generator without it), and the host
+loader's random streams ride the checkpoint (``meta["_host_rng"]``), so
+that ``--resume`` reproduces the uninterrupted run bit for bit. Not ported,
+each raising and naming its ``ROADMAP.md`` item: ``--model_parallel`` > 1,
+``--pruned_loss_range`` > 0, ``--use_hugging_face`` and a hub
 ``--noise_dataset``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import signal
 import time
 from collections import deque
@@ -49,6 +64,9 @@ from caiman_asr_tpu_torch.training.schedules import (
 from caiman_asr_tpu_torch.training.tree import tree_items
 
 SKIP_WINDOW = 100  # the skipped-step alarm's window; all skipped in it aborts
+# extra words of a derived seed: a rank's own streams, and the gradient
+# noise that every rank draws alike
+RANK_TAG, NOISE_TAG = 0x72616E6B, 0x6E6F6973
 
 
 def _refuse_unported(args) -> None:
@@ -58,8 +76,6 @@ def _refuse_unported(args) -> None:
          "--model_parallel > 1 (parallel/vocab_parallel.py, make_train_step_tp)", 5),
         ((getattr(args, "pruned_loss_range", 0) or 0) > 0, "--pruned_loss_range > 0 "
          "(ops/pruned_loss.py)", 5),
-        (getattr(args, "multihost", False), "--multihost (training over several processes)", 2),
-        (getattr(args, "read_from_tar", False), "--read_from_tar (the webdataset loader)", 3),
         (getattr(args, "use_hugging_face", False), "--use_hugging_face (the HuggingFace "
          "loader)", 3),
     ]
@@ -69,21 +85,25 @@ def _refuse_unported(args) -> None:
                                       f"{item})")
 
 
-def derived_seed(seed: int, index: int) -> int:
-    """A 63-bit generator seed, a fixed function of ``(seed, index)``."""
-    state = np.random.SeedSequence([seed, index]).generate_state(2, np.uint32)
+def derived_seed(seed: int, index: int, *more: int) -> int:
+    """A 63-bit generator seed, a fixed function of ``(seed, index, *more)``."""
+    state = np.random.SeedSequence([seed, index, *more]).generate_state(2, np.uint32)
     return (int(state[0]) << 31) ^ int(state[1])
 
 
-def derived_generator(seed: int, index: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(derived_seed(seed, index))
+def derived_generator(seed: int, index: int, device, rank: int = 0) -> torch.Generator:
+    """The generator of ``(seed, index)``, rank r > 0's own for r folded in:
+    rank 0 draws what one process draws."""
+    more = (RANK_TAG, rank) if rank else ()
+    return torch.Generator(device=device).manual_seed(derived_seed(seed, index, *more))
 
 
-def stack_microbatches(micro):
-    """Stack A microbatch dicts (padding T and U to the group's longest)
-    into the [A, ...] layout the train step takes."""
-    T = max(m["feats"].shape[0] for m in micro)
-    U = max(m["txt"].shape[1] for m in micro)
+def stack_microbatches(micro, T: int = 0, U: int = 0):
+    """Stack A microbatch dicts (padding T and U to the group's longest, or
+    to ``T`` and ``U`` where longer: the longest over the ranks) into the
+    [A, ...] layout the train step takes."""
+    T = max([T] + [m["feats"].shape[0] for m in micro])
+    U = max([U] + [m["txt"].shape[1] for m in micro])
     pad = torch.nn.functional.pad
     return {
         "feats": torch.stack([pad(m["feats"], (0, 0, 0, 0, 0, T - m["feats"].shape[0]))
@@ -144,6 +164,18 @@ def _rsp_leaves(rnnt_state) -> list:
     return out
 
 
+def _batch_axis(leaf) -> int:
+    """The batch axis of a carried-state leaf: (h, c) [L, B, H], the last
+    token [B, 1]."""
+    return 1 if leaf.ndim == 3 else 0
+
+
+def _per_rank(host_rng) -> bool:
+    """Whether saved host streams are a list a rank (several processes) or
+    one process's list of states."""
+    return bool(host_rng) and all(isinstance(x, list) for x in host_rng)
+
+
 def main(args=None, *, device="cuda"):
     """Train as the flags say; returns (the final ``TrainState``, the best
     dev WER)."""
@@ -151,9 +183,10 @@ def main(args=None, *, device="cuda"):
     from caiman_asr_tpu_torch.device import resolve_device
     from caiman_asr_tpu_torch.evaluate.core import evaluate
     from caiman_asr_tpu_torch.export.checkpointer import Checkpointer, load_extra
-    from caiman_asr_tpu_torch.log import init_log
+    from caiman_asr_tpu_torch.log import MetricLogger, init_log
     from caiman_asr_tpu_torch.log.profiling import PhaseTimers, Profiler, ResourceRecorder
     from caiman_asr_tpu_torch.models.config import load_config
+    from caiman_asr_tpu_torch.parallel import mesh
     from caiman_asr_tpu_torch.setup.builders import (
         apply_input_overrides,
         build_data_source_loader,
@@ -182,14 +215,25 @@ def main(args=None, *, device="cuda"):
     if args is None:
         args = train_arg_parser().parse_args()
     _refuse_unported(args)
-    dev = resolve_device(device)
+    joined = False
+    if ((getattr(args, "multihost", False) or "WORLD_SIZE" in os.environ)
+            and not mesh.is_initialized()):
+        mesh.init_multihost(args.coordinator_address, args.num_hosts, args.host_id,
+                            device=device)
+        joined = True
+    rank, world, group = mesh.rank(), mesh.world(), mesh.group()
+    lead = rank == 0  # the one rank that writes
+    dev = mesh.device() or resolve_device(device)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     run_ts = getattr(args, "timestamp", None) or str(int(time.time()))
-    logger = init_log(out_dir, enable_tensorboard=args.tensorboard,
-                      log_file=getattr(args, "log_file", None), timestamp=run_ts)
-    (out_dir / f"training_args_{run_ts}.json").write_text(
-        json.dumps(vars(args), default=str, indent=1))
+    if lead:
+        logger = init_log(out_dir, enable_tensorboard=args.tensorboard,
+                          log_file=getattr(args, "log_file", None), timestamp=run_ts)
+        (out_dir / f"training_args_{run_ts}.json").write_text(
+            json.dumps(vars(args), default=str, indent=1))
+    else:
+        logger = MetricLogger(None, stdout=False)
 
     resolve_train_dataset_yaml(args)
     cfg = apply_input_overrides(load_config(args.model_config, args.max_duration), args)
@@ -207,7 +251,7 @@ def main(args=None, *, device="cuda"):
     # ------------------------------------------------------------ resume
     ckptr = Checkpointer(out_dir / "ckpts")
     start_step, epoch, best_wer = 0, 0, float("inf")
-    host_rng = None
+    host_rng, data_pos = None, None
     ckpt_path = args.ckpt or (ckptr.last_checkpoint() if args.resume else None)
     if args.resume and ckpt_path is not None:
         _, _, opt_state, meta = ckptr.load_for_resume(
@@ -217,6 +261,7 @@ def main(args=None, *, device="cuda"):
         epoch = int(meta.get("epoch", 0))
         best_wer = float(meta.get("best_wer", float("inf")))
         host_rng = meta.get("_host_rng")
+        data_pos = meta.get("_data_position")
         print(f"Resumed from {ckpt_path} at step {start_step}")
     elif args.fine_tune:
         if ckpt_path is None:
@@ -225,6 +270,11 @@ def main(args=None, *, device="cuda"):
                                  allow_partial=args.allow_partial_checkpoint)
         copy_tree(state.ema_params, state.params)
         print(f"Fine-tuning from {ckpt_path}")
+    if world > 1:
+        # every replica starts from rank 0's values, to the bit
+        mesh.broadcast_tree([t for tree in (state.params, state.ema_params,
+                                            state.opt_state.mu, state.opt_state.nu)
+                             for _, t in tree_items(tree)])
 
     # -------------------------------------------------------------- data
     mel_stats = load_mel_stats(args.mel_stats_path)
@@ -233,22 +283,24 @@ def main(args=None, *, device="cuda"):
     micro_bs = max(args.global_batch_size // accum, 1)
     train_loader = build_data_source_loader(args, cfg, tokenizer, micro_bs, train=True,
                                             seed=args.seed)
-    if train_loader.steps_per_epoch(epoch) < accum:
+    by_steps = hasattr(train_loader, "steps_per_epoch")  # else a tar stream's
+    if by_steps and train_loader.steps_per_epoch(epoch) < accum:
         # the group of A microbatches is begun afresh each epoch: it would
         # never fill (the JAX trainer loops without a step)
         raise ValueError(
             f"an epoch holds {train_loader.steps_per_epoch(epoch)} microbatches of "
             f"{micro_bs}, fewer than --grad_accumulation_batches {accum}")
     noise_snr_sched = None
-    if train_loader.background_noise is not None or train_loader.babble_noise is not None:
+    # (the tar loader, as JAX's, adds no noise)
+    background = getattr(train_loader, "background_noise", None)
+    babble = getattr(train_loader, "babble_noise", None)
+    if background is not None or babble is not None:
         from caiman_asr_tpu_torch.data.noise import NoiseSchedule
 
         noise_snr_sched = NoiseSchedule(
             args.noise_delay_steps, args.noise_ramp_steps, args.noise_initial_low,
-            args.noise_initial_high,
-            background=train_loader.background_noise[1] if train_loader.background_noise
-            else None,
-            babble=train_loader.babble_noise)
+            args.noise_initial_high, background=background[1] if background else None,
+            babble=babble)
     # validation, the decoder and the user tokens use a tokenizer of their
     # own, without subword sampling: the train loader's thread samples from
     # the train tokenizer's stream meanwhile
@@ -268,7 +320,8 @@ def main(args=None, *, device="cuda"):
         model, optimizer, blank_idx, ema_decay=args.ema, eos_idx=eos_idx, star_idx=star_idx,
         eos_penalty=args.eos_penalty, grad_noise=cfg.grad_noise.noise_level > 0, rsp=rsp_on,
         compute_dtype=None if args.no_amp else torch.bfloat16,
-        collect_layer_stats=getattr(args, "log_layer_stats", False), device=dev)
+        collect_layer_stats=getattr(args, "log_layer_stats", False), group=group,
+        device=dev)
     rsp_ctl, rnnt_state = None, None
     if rsp_on:
         delay = (args.rsp_delay if args.rsp_delay is not None
@@ -284,14 +337,26 @@ def main(args=None, *, device="cuda"):
             ex = load_extra(ckpt_path)
             rsp_leaves = [ex[k] for k in sorted((k for k in ex if k.startswith("rsp/")),
                                                 key=lambda k: int(k.split("/")[1]))]
-            if rsp_leaves and len(rsp_leaves) == len(_rsp_leaves(rnnt_state)):
-                rnnt_state = _rsp_state_from_leaves(rnnt_state, rsp_leaves)
-                print("Restored carried RSP state from checkpoint")
+            mine = _rsp_leaves(rnnt_state)
+            if rsp_leaves and len(rsp_leaves) == len(mine):
+                # the global rows; this rank's are every world-th from rank
+                if all(np.shape(v)[_batch_axis(t)] == t.shape[_batch_axis(t)] * world
+                       for v, t in zip(rsp_leaves, mine)):
+                    rnnt_state = _rsp_state_from_leaves(rnnt_state, [
+                        mesh.take_rows(torch.as_tensor(np.asarray(v)), _batch_axis(t), rank,
+                                       world) for v, t in zip(rsp_leaves, mine)])
+                    print("Restored carried RSP state from checkpoint")
+                else:
+                    print("WARNING: the checkpoint's carried RSP state is of another global "
+                          "batch; starting from zero state")
 
     def _rsp_extra():
+        """The carried state in the global batch's row order (gathered from
+        every rank: a collective)."""
         if not rsp_on or rnnt_state is None:
             return None
-        return {f"rsp/{i}": leaf for i, leaf in enumerate(_rsp_leaves(rnnt_state))}
+        return {f"rsp/{i}": mesh.gather_rows(leaf, _batch_axis(leaf))
+                for i, leaf in enumerate(_rsp_leaves(rnnt_state))}
 
     # the weights validated (the EMA) and decoded for the train sample (the
     # parameters) are copied into a model of their own
@@ -320,9 +385,9 @@ def main(args=None, *, device="cuda"):
                 start_ratio=getattr(args, "norm_starting_ratio", 0.0))
 
     # -------------------------------------------------------------- loop
-    profiler = Profiler(out_dir, enabled=args.profiler)
-    timers = PhaseTimers(out_dir)
-    resources = ResourceRecorder(out_dir, enabled=args.profiler)
+    profiler = Profiler(out_dir, enabled=args.profiler and lead)
+    timers = PhaseTimers(out_dir if lead else None)
+    resources = ResourceRecorder(out_dir, enabled=args.profiler and lead)
     profiler.start()
     resources.start()
     rng_seed = args.seed + 7
@@ -333,32 +398,49 @@ def main(args=None, *, device="cuda"):
     audio_secs_since_log = 0.0
     durs_since_log = []
     utts_since_log = 0
-    print(f"Training: micro-batch {micro_bs} x accum {accum}, on {dev}, "
-          f"starting at step {step}")
+    print(f"Training: micro-batch {micro_bs} x accum {accum}"
+          + (f" on each of {world} ranks (this one {rank})" if world > 1 else "")
+          + f", on {dev}, starting at step {step}")
 
+    restored = False
     if host_rng is not None:
         # last, so that nothing of the set-up draws from the restored streams
-        try:
-            train_loader.set_host_rng_state(host_rng)
-        except ValueError as e:  # the resumed run draws from other streams
-            print(f"WARNING: host random streams not restored: {e}")
+        if world > 1 or _per_rank(host_rng):
+            saved = host_rng if _per_rank(host_rng) else [host_rng]
+            host_rng = None
+            if len(saved) != world:
+                print(f"host random streams saved by {len(saved)} process(es), {world} now: "
+                      "each rank's streams start afresh from (seed, rank)")
+            else:
+                host_rng = saved[rank]
+        if host_rng is not None:
+            try:
+                train_loader.set_host_rng_state(host_rng)
+                restored = True
+            except ValueError as e:  # the resumed run draws from other streams
+                print(f"WARNING: host random streams not restored: {e}")
     resume_batches = 0
-    if start_step:
+    if start_step and by_steps:
         # the epoch and the position in it from the step count alone: a
         # checkpoint saved when a signal cut an epoch short stores epoch + 1
         spe = max(train_loader.steps_per_epoch(epoch) // accum, 1)
         epoch = start_step // spe
         resume_batches = (start_step % spe) * accum
-        if host_rng is not None and resume_batches == 0 and epoch > 0:
+        if restored and resume_batches == 0 and epoch > 0:
             _make_epoch_tail(train_loader, epoch - 1, accum)
+    elif start_step and data_pos is not None:
+        # a stream of unknown length: the position the checkpoint recorded
+        epoch, resume_batches = (int(x) for x in data_pos)
+    # where a stream of unknown length stands: (epoch, microbatches taken)
+    position = [epoch, resume_batches]
     skip_hist: deque = deque(maxlen=SKIP_WINDOW)
     skip_warned = False
-    preempted = {"flag": False}
+    preempted = {"flag": False, "signalled": False}
 
     def _on_term(signum, frame):
-        if preempted["flag"]:  # a second signal: give up at once
+        if preempted["signalled"]:  # a second signal: give up at once
             raise KeyboardInterrupt
-        preempted["flag"] = True
+        preempted["signalled"] = True
         print(f"signal {signum}: finishing the current step, then saving "
               "the last checkpoint and exiting (resume with --resume)", flush=True)
 
@@ -369,24 +451,45 @@ def main(args=None, *, device="cuda"):
         except ValueError:  # not the main thread
             pass
 
-    def ckpt_meta():
-        return _ckpt_meta(cfg, mel_ramp, step, host_rng)
+    def save(**kw):
+        """A checkpoint: the replicated state, every rank's host streams
+        and the carried state gathered (collectives), written by rank 0
+        while the others wait."""
+        extra = _rsp_extra()
+        streams = host_rng
+        if world > 1:
+            streams = mesh.all_gather_objects(host_rng)
+            streams = streams if all(x is not None for x in streams) else None
+        path = None
+        if lead:
+            path = ckptr.save(state.params, state.ema_params, state.opt_state, epoch, step,
+                              best_wer, meta=_ckpt_meta(
+                                  cfg, mel_ramp, step, streams,
+                                  None if by_steps else position),
+                              extra=extra, **kw)
+        mesh.barrier()
+        return path
 
     while step < args.training_steps and not preempted["flag"]:
         micro_group = []
         micro_nvalid = []
         batch_iter = iter(train_loader.epoch(epoch, resume_step=resume_batches))
+        whole_epoch, epoch_start_step = resume_batches == 0, step
+        stopped = False
         resume_batches = 0  # only the first resumed epoch is partial
         while True:
             with timers.phase("dataloading"):
                 batch = next(batch_iter, None)
             if batch is None:
+                if world > 1:
+                    # no whole group left here: the epoch ends on every rank
+                    mesh.all_reduce_ints([0, 0, 1])
                 break
             host_rng = batch.host_rng
             if noise_snr_sched is not None:
                 noise_snr_sched.adjust_snrs(step)
             ratio = mel_ramp.ratio(step) if mel_ramp else 0.0
-            gen = derived_generator(rng_seed, step * (accum + 1) + len(micro_group), dev)
+            gen = derived_generator(rng_seed, step * (accum + 1) + len(micro_group), dev, rank)
             with timers.phase("feat_proc"):
                 feats, feat_lens = train_fp(torch.from_numpy(batch.audio).to(dev),
                                             torch.from_numpy(batch.audio_lens).to(dev), gen,
@@ -402,7 +505,17 @@ def main(args=None, *, device="cuda"):
             if len(micro_group) < accum:
                 continue
 
-            stacked = stack_microbatches(micro_group)
+            T = U = 0
+            if world > 1:
+                # one shape over the ranks, as JAX's global array has; and
+                # the epoch's end wherever a rank ran out
+                T, U, ended = mesh.all_reduce_ints(
+                    [max(m["feats"].shape[0] for m in micro_group),
+                     max(m["txt"].shape[1] for m in micro_group), 0])
+                if ended:
+                    break
+            stacked = stack_microbatches(micro_group, T, U)
+            position = [epoch, position[1] + accum]
             pack_to = None
             if not getattr(args, "no_lattice_packing", False):
                 enc_t = -(-stacked["feats"].shape[1] // model.cfg.enc_stack_time_factor)
@@ -415,17 +528,25 @@ def main(args=None, *, device="cuda"):
                 "star_penalty": star_sched.step(step, hints={"wer": last_wer}),
                 "grad_noise_std": noise_sched.std(step) if noise_sched else 0.0,
             }
-            gen = derived_generator(rng_seed, step * (accum + 1) + accum, dev)
+            gen = derived_generator(rng_seed, step * (accum + 1) + accum, dev, rank)
+            noise_gen = None
+            if group is not None:  # the same noise on every rank
+                noise_gen = torch.Generator(device=dev).manual_seed(
+                    derived_seed(rng_seed, step * (accum + 1) + accum, NOISE_TAG))
             with timers.phase("fwd_bwd"):
                 if rsp_on:
                     gates = rsp_ctl.gates(step, accum)
                     state, metrics, rnnt_state = train_step(
-                        state, stacked, gen, scalars, rnnt_state, gates, pack_to=pack_to)
+                        state, stacked, gen, scalars, rnnt_state, gates, pack_to=pack_to,
+                        noise_generator=noise_gen)
                     if metrics["skipped"]:
                         rsp_ctl.reset()
                 else:
-                    state, metrics = train_step(state, stacked, gen, scalars, pack_to=pack_to)
+                    state, metrics = train_step(state, stacked, gen, scalars, pack_to=pack_to,
+                                                noise_generator=noise_gen)
             step += 1
+            # a signal seen by any rank stops every rank after this step
+            preempted["flag"] = bool(mesh.all_reduce_ints([preempted["signalled"]])[0])
             if args.profiler and step % args.timings_frequency == 0:
                 timers.dump(step)
 
@@ -449,8 +570,9 @@ def main(args=None, *, device="cuda"):
                                "skipped": metrics["skipped"]})
             if step % args.log_frequency == 0:
                 dt = time.time() - t_log
-                tput = {"audio_s_per_s": audio_secs_since_log / dt,
-                        "utts_per_s": utts_since_log / dt}
+                # the global batch's audio
+                secs, utts = mesh.all_reduce_floats([audio_secs_since_log, utts_since_log])
+                tput = {"audio_s_per_s": secs / dt, "utts_per_s": utts / dt}
                 if durs_since_log:
                     d = np.asarray(durs_since_log)
                     tput.update(seq_len_mean_s=float(d.mean()), seq_len_max_s=float(d.max()))
@@ -477,7 +599,7 @@ def main(args=None, *, device="cuda"):
                 t_log, audio_secs_since_log, utts_since_log = time.time(), 0.0, 0
                 durs_since_log = []
 
-            if step % args.prediction_frequency == 0:
+            if step % args.prediction_frequency == 0 and lead:
                 copy_tree(eval_params, state.params)
                 _log_train_sample(logger, decoder, batch, train_fp, val_tokenizer,
                                   normalize_config_from(cfg.input_train), epoch, step, dev)
@@ -495,18 +617,24 @@ def main(args=None, *, device="cuda"):
                 last_wer = result.wer
                 if args.die_if_wer_bad and step >= 10000 and result.wer > 0.99:
                     raise RuntimeError(f"dev WER {result.wer:.2%} at step {step}")
-                if result.wer < best_wer:
+                if result.wer < best_wer:  # alike on every rank
                     best_wer = result.wer
-                    best_path = ckptr.save(state.params, state.ema_params, state.opt_state,
-                                           epoch, step, best_wer, is_best=True,
-                                           meta=ckpt_meta(), extra=_rsp_extra())
-                    _maybe_export_serving_bundle(best_path, args, out_dir)
+                    best_path = save(is_best=True)
+                    if lead:
+                        _maybe_export_serving_bundle(best_path, args, out_dir)
 
             if step % args.save_frequency == 0:
-                ckptr.save(state.params, state.ema_params, state.opt_state, epoch, step,
-                           best_wer, meta=ckpt_meta(), extra=_rsp_extra())
+                save()
             if step >= args.training_steps or preempted["flag"]:
+                stopped = True
                 break
+        if not stopped:  # the epoch's end
+            if step == epoch_start_step and whole_epoch:
+                # a stream shorter than a step (with manifests refused above)
+                raise ValueError(f"an epoch made no step: this rank's share holds fewer than "
+                                 f"--grad_accumulation_batches {accum} microbatches of "
+                                 f"{micro_bs}")
+            position = [epoch + 1, 0]
         epoch += 1
 
     for sig, h in prev_handlers.items():
@@ -514,13 +642,14 @@ def main(args=None, *, device="cuda"):
     if preempted["flag"]:
         print(f"preempted at step {step}; saving last checkpoint", flush=True)
     if not getattr(args, "dont_save_at_the_end", False):
-        ckptr.save(state.params, state.ema_params, state.opt_state, epoch, step, best_wer,
-                   is_last=True, meta=ckpt_meta(), extra=_rsp_extra())
+        save(is_last=True)
     profiler.stop()
     resources.stop()
     timers.dump(step)
     print(f"Training done at step {step}; best dev WER {best_wer:.2%}")
     logger.close()
+    if joined:
+        mesh.shutdown()
     return state, best_wer
 
 
@@ -540,7 +669,10 @@ def _maybe_export_serving_bundle(ckpt_path, args, out_dir):
         print(f"serving bundle not exported: {e}")
 
 
-def _ckpt_meta(cfg, mel_ramp, step, host_rng=None):
+def _ckpt_meta(cfg, mel_ramp, step, host_rng=None, data_position=None):
+    """The checkpoint's meta; ``_host_rng`` holds the host random streams
+    (over several processes a list a rank), ``_data_position`` the epoch and
+    the microbatches taken of it, for a stream of unknown length."""
     meta = {
         "tokenizer_kw": {"labels": list(cfg.tokenizer.labels),
                          "sampling": cfg.tokenizer.sampling},
@@ -548,6 +680,8 @@ def _ckpt_meta(cfg, mel_ramp, step, host_rng=None):
     }
     if host_rng is not None:
         meta["_host_rng"] = host_rng
+    if data_position is not None:
+        meta["_data_position"] = data_position
     return meta
 
 

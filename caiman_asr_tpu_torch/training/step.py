@@ -22,6 +22,15 @@
   nothing (``optimizer.Lamb.update``).
 - LAMB, its learning-rate schedule and the EMA of the weights
   (``training/optimizer.py``).
+- Over several processes (``group``): each rank runs its own rows and the
+  step computes what the JAX step computes over the global batch. The loss
+  is normalised by A*B*W; the raw fp32 gradients and the total loss are
+  summed over the ranks in one all-reduce (``parallel/mesh.all_reduce_flat``)
+  before ``nan_to_num``, so the non-finite skip, the gradient norm, the
+  layer statistics and the update are alike on every rank; the gradient
+  noise is drawn from a generator the caller seeds alike on every rank;
+  batch-norm normalises with the global batch's statistics
+  (``ops/lstm.batch_norm_group``).
 
 Batch layout (accumulation-major, time-major)::
 
@@ -36,6 +45,7 @@ tensor-parallel step.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -43,7 +53,8 @@ import torch
 from caiman_asr_tpu_torch.device import resolve_device
 from caiman_asr_tpu_torch.log.layer_stats import layer_stats_vec
 from caiman_asr_tpu_torch.models.state import RNNTState
-from caiman_asr_tpu_torch.ops.lstm import BN_MOMENTUM
+from caiman_asr_tpu_torch.ops.lstm import BN_MOMENTUM, batch_norm_group
+from caiman_asr_tpu_torch.parallel import mesh
 from caiman_asr_tpu_torch.ops.transducer_loss import LossModifiers, transducer_loss_from_fg
 from caiman_asr_tpu_torch.training.optimizer import Lamb, LambState
 from caiman_asr_tpu_torch.training.tree import Tree, tree_items, tree_map
@@ -162,10 +173,11 @@ def make_train_step(
     rsp: bool = False,
     pruned_range: int = 0,
     collect_layer_stats: bool = False,
+    group=None,
     device="cuda",
 ):
     """Build ``step(state, batch, generator, scalars, rnnt_state=None,
-    gates=None, pack_to=None)``.
+    gates=None, pack_to=None, noise_generator=None)``.
 
     ``scalars`` holds the host-scheduled ``delay_penalty`` and
     ``star_penalty``, and ``grad_noise_std`` with ``grad_noise``;
@@ -180,6 +192,10 @@ def make_train_step(
     ``(state, metrics, new_rnnt_state)``; after a skipped step the returned
     state is zero and the caller resets its controller. Runs on ``device``
     ("cuda" unless the caller asks for "cpu"), where the model must be.
+
+    ``group``: the process group of data-parallel ranks (None: one
+    process). The batch is then this rank's rows; ``noise_generator``, seeded
+    alike on every rank, draws the gradient noise (else ``generator``).
     """
     dev = _on_device(model, device)
     if pruned_range > 0:
@@ -189,13 +205,15 @@ def make_train_step(
         # the JAX package's own rule (the reference's constraint)
         raise NotImplementedError("random state passing is not supported with batch-norm LSTMs")
 
+    world = 1 if group is None else torch.distributed.get_world_size(group)
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor], generator,
              scalars: Dict[str, Any], rnnt_state: Optional[RNNTState] = None, gates=None,
-             pack_to: Optional[int] = None):
+             pack_to: Optional[int] = None, noise_generator=None):
         A, _, B, _ = batch["feats"].shape
         if rsp and (rnnt_state is None or gates is None):
             raise ValueError("random state passing needs rnnt_state and gates")
-        denom = float(A * B)
+        denom = float(A * B * world)
         mods = LossModifiers(
             delay_penalty=float(scalars["delay_penalty"]), eos_penalty=eos_penalty,
             eos_idx=eos_idx, star_penalty=float(scalars["star_penalty"]), star_idx=star_idx,
@@ -207,14 +225,17 @@ def make_train_step(
         bn_stats = list(model.bn_stats(state.params)) if has_bn else None
         rs = rnnt_state if rsp else None
         total = None
+        sync_bn = has_bn and group is not None
         for a in range(A):
             mb = {k: v[a] for k, v in batch.items()}
             bn_updates = [] if has_bn else None
-            loss, new_rs = _micro_loss(
-                model, state.params, mb, generator, mods, denom, blank_idx, compute_dtype,
-                pack_to=pack_to, rnnt_state=rs, gate=gate_t[a] if rsp else None,
-                bn_updates=bn_updates)
-            mb_grads = torch.autograd.grad(loss, [leaves[i] for i in wanted], allow_unused=True)
+            with batch_norm_group(group) if sync_bn else contextlib.nullcontext():
+                loss, new_rs = _micro_loss(
+                    model, state.params, mb, generator, mods, denom, blank_idx, compute_dtype,
+                    pack_to=pack_to, rnnt_state=rs, gate=gate_t[a] if rsp else None,
+                    bn_updates=bn_updates)
+                mb_grads = torch.autograd.grad(loss, [leaves[i] for i in wanted],
+                                               allow_unused=True)
             for i, g in zip(wanted, mb_grads):
                 if g is not None:
                     grads[i] = g.float() if grads[i] is None else grads[i] + g.float()
@@ -225,6 +246,15 @@ def make_train_step(
                 bn_stats = [((1 - BN_MOMENTUM) * m + BN_MOMENTUM * bm,
                              (1 - BN_MOMENTUM) * v + BN_MOMENTUM * bv)
                             for (m, v), (bm, bv) in zip(bn_stats, bn_updates)]
+        if group is not None:
+            # the global gradient and loss, before anything reads them
+            summed = mesh.all_reduce_flat(
+                [grads[i] if grads[i] is not None else torch.zeros_like(leaves[i],
+                                                                        dtype=torch.float32)
+                 for i in wanted] + [total.reshape(1)], group)
+            for i, g in zip(wanted, summed):
+                grads[i] = g
+            total = summed[-1].reshape(())
         good = bool(torch.isfinite(total))
         # every leaf gets a gradient, zero where the loss does not reach it
         # (the batch-norm running stats), then nan_to_num and the noise
@@ -232,7 +262,8 @@ def make_train_step(
                                                                                dtype=torch.float32)
                for path, g, leaf in zip(paths, grads, leaves)}
         if grad_noise:
-            g32 = add_grad_noise(g32, float(scalars["grad_noise_std"]), generator)
+            g32 = add_grad_noise(g32, float(scalars["grad_noise_std"]),
+                                 noise_generator if noise_generator is not None else generator)
         metrics = {}
         if collect_layer_stats:
             metrics["layer_stats"] = layer_stats_vec(state.params, _nested(g32))

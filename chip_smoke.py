@@ -145,7 +145,23 @@ Phases:
      the server built from the bundle and from --ckpt + --mel_stats_path
      (equal weights and statistics, identical streamed transcripts of the
      16 utterances); a 500-step synthetic_e2e whose mean loss over its last
-     20 steps falls below half that of its first 20.
+     20 steps falls below half that of its first 20;
+  16. training over several processes (python -m torch.distributed.run
+     --standalone --nproc_per_node 2 running this script's rank worker,
+     which calls train.main on parsed argv with --multihost, as python -m
+     caiman_asr_tpu_torch.train does; base-85M, A=2 x B=8 a rank, two
+     ranks on one card over gloo): (a) fp32 over phase 15's manifests with
+     nothing random, 4 steps, one validation: each step's loss within 1e-5
+     and gradient norm within 1e-4 of a one-process run at B=16 on the
+     same global batches; (b) bf16 on tar shards of those utterances
+     (data/make_webdataset), the base config's randomness, RSP and
+     packing, 4 steps; (c) a new launch resuming (b)'s step-2 checkpoint
+     to step 4, equal to (b) to the bit; in each run every rank's final params, EMA and
+     moments equal to the bit (SHA-256), K3a, K3b and the joint's kernels
+     launched on every step of every rank, and the dev WER and hypotheses
+     equal to a one-process validation of the run's step-4 checkpoint; ms
+     a step and the gradient all-reduce's ms a step per rank; with two
+     cards, (a) again over NCCL.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -3961,6 +3977,371 @@ def run_train_cli() -> dict:
             "mel_stats_ms": stats_ms, "utterances": work["utterances"], "card": card()}
 
 
+# ------------------------------------------------- training over processes
+# Phase 16: python -m torch.distributed.run --standalone --nproc_per_node 2
+# with --multihost, base-85M on the card, A=2 x MH_B utterances a rank (the
+# two ranks together phase 15's A=2 x 16). Each rank is this script run by
+# the launcher as a rank worker (--rank-worker SPEC): it calls train.main on
+# the parsed argv, as python -m caiman_asr_tpu_torch.train does, with
+# cli_probes around it and the gradient all-reduce timed, and writes what it
+# saw (per step ms and launches, the all-reduce's ms, the SHA-256 of its
+# final params, EMA and moments) for this process to read.
+MH_B = N_UTTS // 2
+MH_RANKS = 2
+MH_STEPS = 4
+MH_LOSS_RTOL, MH_GRAD_RTOL, MH_DEV_RTOL = 1e-5, 1e-4, 1e-5
+MH_TIMEOUT = 420          # seconds for one launch of the ranks
+# configs/base-8703sp.yaml with nothing random (run a): no subword sampling,
+# dither, speed perturbation, SpecAugment or dropout
+MH_PLAIN_EDITS = [("  sampling: 0.05", "  sampling: 0.0"),
+                  ("    dither: 0.00001", "    dither: 0.0"),
+                  ("  enc_dropout: 0.1", "  enc_dropout: 0.0"),
+                  ("  pred_dropout: 0.3", "  pred_dropout: 0.0"),
+                  ("  joint_dropout: 0.3", "  joint_dropout: 0.0")]
+
+
+def mh_plain_config(path: Path) -> Path:
+    """VAL_CONFIG with MH_PLAIN_EDITS made and its speed perturbation and
+    SpecAugment blocks taken out."""
+    text = (REPO / VAL_CONFIG).read_text()
+    for old, new in MH_PLAIN_EDITS:
+        if text.count(old) != 1:
+            raise AssertionError(f"{VAL_CONFIG}: {old!r} not found once")
+        text = text.replace(old, new)
+    lines, out, skip = text.splitlines(), [], None
+    for line in lines:
+        indent = len(line) - len(line.lstrip())
+        if skip is not None and line.strip() and indent <= skip:
+            skip = None
+        if skip is None and line.strip() in ("speed_perturbation:", "spec_augment:"):
+            skip = indent
+            continue
+        if skip is None:
+            out.append(line)
+    path.write_text("\n".join(out) + "\n")
+    return path
+
+
+def mh_argv(root: Path, out: Path, *, config: Path, steps: int, rank_batch: int,
+            tar: dict = None, bf16: bool = True, val_frequency: int = MH_STEPS,
+            save_frequency: int = MH_STEPS) -> list:
+    """train.main's argv: phase 15's workspace, ``rank_batch`` utterances a
+    microbatch (A=2), validation and checkpoints at MH_STEPS; with ``tar``
+    the shards in place of the manifests."""
+    argv = ["--model_config", str(config),
+            "--tokenizer_model", str(REPO / "build" / "smoke" / "tokenizer.json"),
+            "--dataset_dir", str(root), "--output_dir", str(out),
+            "--mel_stats_path", str(root / "mel_stats.npz"), "--norm_use_global_stats",
+            "--global_batch_size", str(2 * rank_batch), "--grad_accumulation_batches", "2",
+            "--rsp_delay", "0", "--training_steps", str(steps),
+            "--val_frequency", str(val_frequency), "--save_frequency", str(save_frequency),
+            "--log_frequency", "1", "--prediction_frequency", str(10 * MH_STEPS),
+            "--val_batch_size", str(rank_batch), "--skip_ngram", "--dump_preds",
+            "--dont_save_at_the_end"]
+    if tar:
+        argv += ["--read_from_tar", "--train_tar_files", *tar["train"],
+                 "--val_tar_files", *tar["val"]]
+    else:
+        argv += ["--train_manifests", "manifest.json", "manifest.json",
+                 "--val_manifests", "manifest.json"]
+    return argv + ([] if bf16 else ["--no_amp"])
+
+
+def state_sha256(state) -> str:
+    """SHA-256 of a TrainState's params, EMA and moments, leaf by leaf."""
+    import hashlib
+
+    from caiman_asr_tpu_torch.training.tree import tree_items
+
+    h = hashlib.sha256()
+    for tree in (state.params, state.ema_params, state.opt_state.mu, state.opt_state.nu):
+        for path, t in tree_items(tree):
+            h.update("/".join(path).encode())
+            h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_worker(spec_path: str) -> int:
+    """One rank of a phase-16 launch: train.main on the spec's argv, probed;
+    writes the rank's record beside the spec."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from caiman_asr_tpu_torch import train
+    from caiman_asr_tpu_torch.parallel import mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    args = train.train_arg_parser().parse_args(spec["argv"])
+    ar_ms = []
+    real_reduce = mesh.all_reduce_flat
+
+    def timed_reduce(tensors, group=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_reduce(tensors, group)
+        torch.cuda.synchronize()
+        ar_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    reset_counts()
+    with cli_probes() as probe, mock.patch.object(mesh, "all_reduce_flat", timed_reduce):
+        t0 = time.perf_counter()
+        state, best = train.main(args)
+        wall = time.perf_counter() - t0
+    record = {"rank": rank, "world": int(os.environ["WORLD_SIZE"]), "step": state.step,
+              "sha256": state_sha256(state), "steps": probe["steps"], "evals": probe["evals"],
+              "saves": probe["saves"], "all_reduce_ms": ar_ms, "counts": read_counts(),
+              "wall_s": wall, "best_wer": best, "device": str(torch.cuda.current_device()),
+              "card": torch.cuda.get_device_name(torch.cuda.current_device())}
+    Path(spec["record"] + f".rank{rank}.json").write_text(json.dumps(record))
+    return 0
+
+
+def launch_ranks(name: str, argv: list, work: Path, cards: str) -> dict:
+    """python -m torch.distributed.run --standalone --nproc_per_node 2 with
+    this script's rank worker on ``argv``, the cards ``cards``
+    (CUDA_VISIBLE_DEVICES); returns the ranks' records and the launcher's
+    output (its log under ``work``)."""
+    import os
+
+    spec = work / f"{name}.spec.json"
+    record = work / f"{name}.record"
+    spec.write_text(json.dumps({"argv": argv + ["--multihost"], "record": str(record)}))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=cards, OMP_NUM_THREADS="4",
+               PYTHONPATH=str(REPO))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(MH_RANKS), str(Path(__file__).resolve()), "--rank-worker",
+           str(spec)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          cwd=REPO, env=env, timeout=MH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    (work / f"{name}.log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {name} launch failed (rc {proc.returncode}):\n"
+                             + proc.stdout[-6000:])
+    recs = [json.loads(Path(f"{record}.rank{r}.json").read_text()) for r in range(MH_RANKS)]
+    backend = [ln for ln in proc.stdout.splitlines() if "torch.distributed: rank" in ln]
+    return {"ranks": recs, "backend_lines": backend, "wall_s": wall}
+
+
+def one_process_validation(argv: list, ckpt: Path):
+    """The EMA of ``ckpt`` validated in this process as train.main validates
+    (the same builders and evaluate call, fp32)."""
+    from caiman_asr_tpu_torch import train
+    from caiman_asr_tpu_torch.evaluate.core import evaluate
+    from caiman_asr_tpu_torch.export.checkpointer import apply_params, load_checkpoint
+    from caiman_asr_tpu_torch.models.config import load_config
+    from caiman_asr_tpu_torch.setup.builders import (
+        apply_input_overrides, build_data_source_loader, build_decoder,
+        build_feature_pipelines, build_model, build_tokenizer, load_mel_stats,
+        normalize_config_from)
+    from caiman_asr_tpu_torch.training.step import make_val_loss_step
+    from caiman_asr_tpu_torch.utils.user_tokens import user_token_idx
+
+    args = train.train_arg_parser().parse_args(argv)
+    cfg = apply_input_overrides(load_config(args.model_config, args.max_duration), args)
+    tok = build_tokenizer(cfg, args.tokenizer_model, sampling=0.0)
+    model, blank = build_model(cfg, tok, args, device="cuda")
+    model.eval()
+    _, ema, _, _ = load_checkpoint(ckpt)
+    apply_params(model.param_tree(), ema)
+    _, val_fp = build_feature_pipelines(cfg, load_mel_stats(args.mel_stats_path), device="cuda")
+    loader = build_data_source_loader(args, cfg, tok, args.val_batch_size, train=False)
+    decoder = build_decoder(model, blank, tok, args, cfg,
+                            eos_idx=user_token_idx("eos", cfg.user_tokens, tok))
+    return evaluate(model, decoder, loader, val_fp, tok,
+                    val_loss_fn=make_val_loss_step(model, blank, device="cuda"),
+                    standardize_wer=cfg.input_val.dataset.standardize_wer,
+                    normalize_config=normalize_config_from(cfg.input_val),
+                    charset=list(cfg.tokenizer.labels))
+
+
+def mh_preds(out: Path, step: int) -> tuple:
+    p = json.loads((out / "preds" / f"preds_step{step}.json").read_text())
+    return p["wer"], {x["fname"]: x["hyp"] for x in p["predictions"]}
+
+
+def check_ranks(name: str, run: dict, out: Path, argv: list) -> dict:
+    """The ranks of a launch: bit-equal final states, K3a, K3b and the
+    joint's kernels (in bf16 K5-store, K5-A, K5-B) on every step of every
+    rank, and the dev WER and hypotheses equal to a one-process validation
+    of the run's step-MH_STEPS checkpoint."""
+    import numpy as np
+    import torch
+
+    recs = run["ranks"]
+    shas = [r["sha256"] for r in recs]
+    if len(set(shas)) != 1 or any(r["step"] != MH_STEPS for r in recs):
+        raise AssertionError(f"{name}: the ranks' final states differ: {shas}, steps "
+                             f"{[r['step'] for r in recs]}")
+    per_step = [[s["launches"] for s in r["steps"]] for r in recs]
+    for r, steps in enumerate(per_step):
+        for i, launches in enumerate(steps):
+            missing = [k for k in MH_KERNELS + (() if "--no_amp" in argv else MH_K5)
+                       if not launches.get(k)]
+            if missing or not any(v for k, v in launches.items() if k.startswith("joint_")):
+                raise AssertionError(f"{name}: rank {r} step {i + 1} launched none of {missing}")
+    wer, hyps = mh_preds(out, MH_STEPS)
+    torch.cuda.empty_cache()
+    ref = one_process_validation(argv, out / "ckpts" / f"step{MH_STEPS}.npz")
+    torch.cuda.empty_cache()
+    ref_hyps = dict(zip(ref.fnames, ref.hyps))
+    dev = train_dev(out)
+    dev_err = abs(dev[MH_STEPS] - ref.loss) / abs(ref.loss)
+    same = wer == ref.wer and hyps == ref_hyps
+    steps_ms = [[s["ms"] for s in r["steps"]] for r in recs]
+    ar = [r["all_reduce_ms"] for r in recs]
+    log(f"  {name}: {run['backend_lines']}; ranks' final params, EMA and moments equal to the "
+        f"bit: {len(set(shas)) == 1} (SHA-256 {shas[0][:16]}...); dev WER {wer:.6f} over "
+        f"{len(hyps)} files, one-process validation of the step-{MH_STEPS} checkpoint "
+        f"{ref.wer:.6f}, hypotheses identical {hyps == ref_hyps}; dev loss {dev[MH_STEPS]:.6f} "
+        f"against {ref.loss:.6f} (relative {dev_err:.3g}, tol {MH_DEV_RTOL}); ms a step per "
+        f"rank {[[round(x, 1) for x in s] for s in steps_ms]} (steps 2-{MH_STEPS} median "
+        f"{float(np.median([x for s in steps_ms for x in s[1:]])):.1f}); gradient all-reduce "
+        f"ms a step per rank {[[round(x, 1) for x in a] for a in ar]}; launches a step, rank 0 "
+        f"{per_step[0][-1]}, rank 1 {per_step[1][-1]}; launch wall {run['wall_s']:.1f} s")
+    if not same or dev_err > MH_DEV_RTOL:
+        raise AssertionError(f"{name}: the ranks' validation differs from one process's")
+    return {"sha256": shas[0], "steps_ms": steps_ms, "all_reduce_ms": ar,
+            "median_ms": float(np.median([x for s in steps_ms for x in s[1:]])),
+            "all_reduce_median_ms": float(np.median([x for a in ar for x in a[1:]])),
+            "launches_a_step": per_step[0][-1], "launches_a_step_rank1": per_step[1][-1],
+            "counts": [r["counts"] for r in recs], "dev_wer": wer, "dev_loss": dev[MH_STEPS],
+            "one_process_wer": ref.wer, "one_process_loss": ref.loss,
+            "backend": run["backend_lines"], "wall_s": run["wall_s"],
+            "evals_ms": [[e["ms"] for e in r["evals"]] for r in recs]}
+
+
+def train_dev(out: Path) -> dict:
+    """{step: dev loss} of a run's validations."""
+    recs = {}
+    for f in sorted(out.glob("log_*.jsonl")):
+        for line in f.read_text().splitlines():
+            r = json.loads(line)
+            if r.get("subset") == "dev_ema" and "loss" in r:
+                recs[r["step"][1]] = r["loss"]
+    return recs
+
+
+# the kernels every train step of every rank launches, and in bf16 also the
+# bf16 slab's joint kernels (in fp32 some joint kernel)
+MH_KERNELS = LSTM_TRAIN_KERNELS
+MH_K5 = ("joint_fwd_store", "joint_bwd_dh", "joint_bwd_dw")
+
+
+def run_multihost() -> dict:
+    """Phase 16: two ranks of python -m torch.distributed.run ... --multihost
+    at base-85M on the card: (a) fp32 over manifests against one process at
+    B=16 on the same global batches; (b) bf16 on tar shards; (c) (b)'s
+    step-2 checkpoint resumed to 4, equal to the bit; (a) over NCCL on two
+    cards where there are two."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import train
+    from caiman_asr_tpu_torch.data.make_webdataset import write_shards
+    from caiman_asr_tpu_torch.data.manifest import load_manifests
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "smoke" / "train_cli"  # phase 15's workspace
+    work = REPO / "build" / "smoke" / "multihost"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    plain = mh_plain_config(work / "base-plain.yaml")
+    train_tars = write_shards(load_manifests([root / "manifest.json"] * 2), work / "train_tar",
+                              samples_per_shard=N_UTTS)
+    val_tars = write_shards(load_manifests([root / "manifest.json"]), work / "val_tar",
+                            samples_per_shard=N_UTTS)
+    tar = {"train": [str(p) for p in train_tars], "val": [str(p) for p in val_tars]}
+    log(f"  tar shards: {len(train_tars)} train ({2 * N_UTTS} samples), {len(val_tars)} dev "
+        f"({N_UTTS}), written by data/make_webdataset; {torch.cuda.device_count()} card(s)")
+
+    # (a) fp32 over manifests, against one process at B=16
+    out_a, out_1 = work / "a", work / "one"
+    argv_a = mh_argv(root, out_a, config=plain, steps=MH_STEPS, rank_batch=MH_B, bf16=False)
+    a = launch_ranks("a", argv_a, work, "0")
+    # (the one process's steps alone: its validation would be another model's)
+    argv_1 = mh_argv(root, out_1, config=plain, steps=MH_STEPS, rank_batch=MH_RANKS * MH_B,
+                     bf16=False, val_frequency=10 * MH_STEPS, save_frequency=10 * MH_STEPS)
+    torch.cuda.empty_cache()
+    reset_counts()
+    with cli_probes() as probe1:
+        train.main(train.train_arg_parser().parse_args(argv_1))
+    torch.cuda.empty_cache()
+    got, want = train_log(out_a), train_log(out_1)
+    if not sorted(got) == sorted(want) == list(range(1, MH_STEPS + 1)):
+        raise AssertionError(f"(a): steps {sorted(got)} against {sorted(want)}")
+    loss_err = max(abs(got[s][0] - want[s][0]) / abs(want[s][0]) for s in want)
+    gn_err = max(abs(got[s][1] - want[s][1]) / abs(want[s][1]) for s in want)
+    log(f"  (a) fp32 over manifests, two ranks at B={MH_B} against one process at "
+        f"B={MH_RANKS * MH_B}: losses {[got[s][0] for s in sorted(got)]} / "
+        f"{[want[s][0] for s in sorted(want)]} (largest relative difference {loss_err:.3g}, "
+        f"tol {MH_LOSS_RTOL}); gradient norms relative {gn_err:.3g} (tol {MH_GRAD_RTOL}); "
+        f"one process's ms a step {[round(s['ms'], 1) for s in probe1['steps']]}")
+    if loss_err > MH_LOSS_RTOL or gn_err > MH_GRAD_RTOL:
+        raise AssertionError("(a): the two ranks differ from one process")
+    res = {"a": check_ranks("(a) fp32, manifests", a, out_a, argv_a)}
+    res["a"].update(loss_rel=loss_err, grad_norm_rel=gn_err,
+                    one_process_ms=[s["ms"] for s in probe1["steps"]])
+
+    # (b) bf16 on tar shards, RSP and packing, the base config's randomness;
+    # its step-2 checkpoint is where (c) resumes
+    out_b, out_c = work / "b", work / "c"
+    cfg = REPO / VAL_CONFIG
+    argv_b = mh_argv(root, out_b, config=cfg, steps=MH_STEPS, rank_batch=MH_B, tar=tar,
+                     save_frequency=MH_STEPS // 2)
+    b = launch_ranks("b", argv_b, work, "0")
+    res["b"] = check_ranks("(b) bf16, tar shards", b, out_b, argv_b)
+
+    # (c) (b)'s first 2 steps resumed to 4 by a new launch: equal to the bit
+    argv_c = mh_argv(root, out_c, config=cfg, steps=MH_STEPS, rank_batch=MH_B, tar=tar) + [
+        "--resume", "--ckpt", str(out_b / "ckpts" / f"step{MH_STEPS // 2}.npz")]
+    c2 = launch_ranks("c", argv_c, work, "0")
+    log_b, log_c = train_log(out_b), train_log(out_c)
+    tail = range(MH_STEPS // 2 + 1, MH_STEPS + 1)
+    logs_equal = all(log_b[s] == log_c[s] for s in tail)
+    shas_equal = {r["sha256"] for r in b["ranks"] + c2["ranks"]}
+    dev_b, dev_c = train_dev(out_b), train_dev(out_c)
+    log(f"  (c) (b)'s step-{MH_STEPS // 2} checkpoint, --resume to {MH_STEPS} by a new launch: "
+        f"steps {list(tail)}'s "
+        f"losses and gradient norms equal to the bit {logs_equal} ({[log_b[s] for s in tail]} "
+        f"/ {[log_c[s] for s in tail]}); every rank's final state equal to (b)'s "
+        f"{len(shas_equal) == 1}; dev loss {dev_c.get(MH_STEPS)} against "
+        f"{dev_b.get(MH_STEPS)}; launch wall {c2['wall_s']:.1f} s")
+    if not logs_equal or len(shas_equal) != 1 or dev_b[MH_STEPS] != dev_c[MH_STEPS]:
+        raise AssertionError("(c): the resumed two-rank run differs from the uninterrupted one")
+    res["c"] = {"bit_equal": True, "wall_s": c2["wall_s"],
+                "resumed_steps_ms": [[s["ms"] for s in r["steps"]] for r in c2["ranks"]]}
+
+    # (a) over NCCL on two cards
+    if torch.cuda.device_count() >= 2:
+        out_n = work / "nccl"
+        argv_n = mh_argv(root, out_n, config=plain, steps=MH_STEPS, rank_batch=MH_B,
+                         bf16=False)
+        n = launch_ranks("nccl", argv_n, work, "0,1")
+        if not all("backend nccl" in ln for ln in n["backend_lines"]):
+            raise AssertionError(f"two cards: {n['backend_lines']}")
+        res["nccl"] = check_ranks("(a) over NCCL, two cards", n, out_n, argv_n)
+        got_n = train_log(out_n)
+        nccl_err = max(abs(got_n[s][0] - want[s][0]) / abs(want[s][0]) for s in want)
+        if nccl_err > MH_LOSS_RTOL:
+            raise AssertionError(f"NCCL: losses {nccl_err} from one process's")
+        res["nccl"]["loss_rel"] = nccl_err
+    else:
+        log("  nccl over two cards: not run (1 card)")
+        res["nccl"] = "not run (1 card)"
+    res["card"] = card()
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 16 took {res['wall_s']:.1f} s on {res['card']}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4159,6 +4540,14 @@ def main() -> int:
         f"{VAL_CONFIG}, bf16, A=2 x B={N_UTTS}, RSP, packing, SpecAugment, noise; resume, "
         "serving from the checkpoint, a short synthetic_e2e")
     cli = run_train_cli()
+    torch.cuda.empty_cache()
+
+    # 16. training over several processes
+    log("== training over processes: python -m torch.distributed.run --standalone "
+        f"--nproc_per_node {MH_RANKS} ... caiman_asr_tpu_torch.train --multihost, base-85M, "
+        f"A=2 x B={MH_B} a rank; two ranks on one card over gloo: a smoke reading, not a "
+        "scaling figure")
+    multihost = run_multihost()
 
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
@@ -4262,6 +4651,14 @@ def main() -> int:
                     f"phase 15: train.main, base-85M bf16, {CLI_STEPS} steps of A=2 x "
                     f"B={N_UTTS} with validation every 2 ({N_UTTS} utterances, batches of "
                     f"{VAL_BATCH}) and a train-sample decode at step {CLI_STEPS}")})
+        mh_counts = multihost["b"]["counts"]
+        if mh_counts[0].get(wrapper):  # phase 16's two-rank run (b)
+            kernels[-1].update({
+                "launches_multihost": [c[wrapper] for c in mh_counts],
+                "launches_multihost_per": (
+                    f"phase 16 (b): train.main --multihost on {MH_RANKS} ranks of one card, "
+                    f"each rank's count over {MH_STEPS} bf16 steps of A=2 x B={MH_B} on tar "
+                    f"shards and one validation of its {MH_B} dev utterances")})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -4334,6 +4731,7 @@ def main() -> int:
     log("default training summary: " + json.dumps(default))
     log("validation summary: " + json.dumps(validation))
     log("training CLI summary: " + json.dumps(cli))
+    log("multihost summary: " + json.dumps(multihost))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},
@@ -4348,4 +4746,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":  # a rank of phase 16
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())
