@@ -8,14 +8,15 @@ Run:  python -m caiman_asr_tpu_torch.data.generate_mel_stats \
 
 The log-mels are computed by the port's ``LogMelFrontend`` on the card
 (``main(argv, device="cpu")`` on the CPU), the sums kept in float64 on the
-host. The
-webdataset source (``--read_from_tar``) raises until it is ported
-(ROADMAP.md Queue 1 item 3).
+host. The audio comes from JSON manifests or, with ``--read_from_tar``,
+from webdataset tar or zip shards (``--tar_files``, beneath
+``--dataset_dir`` where relative).
 """
 
 from __future__ import annotations
 
 import argparse
+from itertools import islice
 
 import numpy as np
 import torch
@@ -72,7 +73,7 @@ def main(argv=None, *, device="cuda"):
     p.add_argument("--manifests", nargs="+", default=[])
     p.add_argument("--read_from_tar", action="store_true")
     p.add_argument("--tar_files", nargs="+", default=[],
-                   help="webdataset tar/zip shards (with --read_from_tar; not ported yet)")
+                   help="webdataset tar/zip shards (with --read_from_tar)")
     p.add_argument("--output_path", required=True)
     p.add_argument("--max_utts", type=int, default=None)
     p.add_argument("--batch_size", "--dump_mel_stats_batch_size", type=int,
@@ -85,18 +86,24 @@ def main(argv=None, *, device="cuda"):
     pipe = load_config(args.model_config).input_val  # no augmentation
     frontend = LogMelFrontend(pipe.logmel, device=device)
     if args.read_from_tar:
-        raise NotImplementedError(
-            "--read_from_tar (the webdataset reader) is not ported yet (ROADMAP.md Queue 1 "
-            "item 3)")
-    if not args.manifests:
-        raise SystemExit("pass --manifests")
-    utts = load_utterances(args.manifests, args.dataset_dir, pipe)
-    if args.max_utts:
-        utts = utts[: args.max_utts]
-    audio_iter = (read_audio(u.fname, pipe.logmel.sample_rate) for u in utts)
+        from caiman_asr_tpu_torch.data.webdataset import WebDatasetReader, shard_paths
+
+        reader = WebDatasetReader(shard_paths(args.dataset_dir, args.tar_files),
+                                  sample_rate=pipe.logmel.sample_rate)
+        samples = (a for a, _txt, _key in reader._samples(0))
+        audio_iter = islice(samples, args.max_utts) if args.max_utts else samples
+        n_desc = "tar shards"
+    elif args.manifests:
+        utts = load_utterances(args.manifests, args.dataset_dir, pipe)
+        if args.max_utts:
+            utts = utts[: args.max_utts]
+        audio_iter = (read_audio(u.fname, pipe.logmel.sample_rate) for u in utts)
+        n_desc = f"{len(utts)} utts"
+    else:
+        raise SystemExit("pass --manifests or --read_from_tar --tar_files")
     means, vars_ = compute_mel_stats(frontend, audio_iter, args.batch_size)
     np.savez(args.output_path, melmeans=means, melvars=vars_)
-    print(f"wrote {args.output_path}: {len(utts)} utts, "
+    print(f"wrote {args.output_path}: {n_desc}, "
           f"mean[0]={means[0]:.3f} var[0]={vars_[0]:.3f}")
 
 

@@ -1,7 +1,8 @@
 """Train a sentencepiece-compatible tokenizer from manifests (the port of
 ``caiman_asr_tpu/data/spm_train.py``; reference data/spm/spm_from_json.py +
-scripts/train_spm). The webdataset source (``--read_from_tar``) raises
-until it is ported (ROADMAP.md Queue 1 item 3).
+scripts/train_spm), from JSON manifests or, with ``--read_from_tar``, the
+transcripts of webdataset tar or zip shards (``--tar_files``, beneath
+``--dataset_dir`` where relative).
 
 Writes both a ``.json`` vocab (framework-native) and an SPM-compatible
 binary ``.model`` protobuf (data/tokenizer.py save_sentencepiece_model) so
@@ -27,11 +28,11 @@ CHARSET = list(" abcdefghijklmnopqrstuvwxyz'")
 
 
 def _load_texts(args) -> list:
-    """Transcripts from JSON manifests (webdataset shards raise)."""
+    """Transcripts from JSON manifests or webdataset shards."""
     if getattr(args, "read_from_tar", False):
-        raise NotImplementedError(
-            "--read_from_tar (the webdataset reader) is not ported yet (ROADMAP.md Queue 1 "
-            "item 3)")
+        from caiman_asr_tpu_torch.data.webdataset import read_shard_transcripts, shard_paths
+
+        return read_shard_transcripts(shard_paths(args.dataset_dir, args.tar_files))
     if not args.manifests:
         raise SystemExit("pass --manifests or --read_from_tar --tar_files")
     utts = load_manifests([f"{args.dataset_dir}/{m}" for m in args.manifests])
@@ -44,7 +45,7 @@ def main(argv=None):
                    nargs="+", default=[])
     p.add_argument("--read_from_tar", action="store_true")
     p.add_argument("--tar_files", nargs="+", default=[],
-                   help="webdataset tar/zip shards (with --read_from_tar; not ported yet)")
+                   help="webdataset tar/zip shards (with --read_from_tar)")
     p.add_argument("--dataset_dir", "--data_dir", dest="dataset_dir",
                    default=".")
     p.add_argument("--vocab_size", "--spm_size", dest="vocab_size",

@@ -225,6 +225,11 @@ class WebDatasetLoader:
             yield self._batch(group)
 
 
+def shard_paths(dataset_dir, names) -> List[str]:
+    """Shard names as paths, beneath ``dataset_dir`` where relative."""
+    return [str(Path(n) if Path(n).is_absolute() else Path(dataset_dir) / n) for n in names]
+
+
 def read_shard_transcripts(tar_files) -> list:
     """Every transcript of tar or zip shards, without decoding audio (for
     tokenizer and n-gram training)."""

@@ -191,24 +191,23 @@ def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, trai
     """The loader over JSON manifests (``--train_manifests`` with ``train``,
     else ``--val_manifests``), over tar or zip shards (``--read_from_tar``:
     ``--train_tar_files`` / ``--val_tar_files``, beneath ``--dataset_dir``
-    where relative) or, for validation with ``--val_from_dir``, a directory
+    where relative), for validation with ``--use_hugging_face`` over a
+    HuggingFace dataset (``--hugging_face_val_*``; training stays on the
+    other two) or, with ``--val_from_dir``, a directory
     of audio and ``{stem}.txt`` pairs, with the same utterance filters;
     ``--n_utterances_only`` keeps a seeded random subset. ``seed`` seeds the
     train loader's sampler, augmentation and noise, and the tar reader's
     shuffle. Each is this process's shard (``parallel/mesh.rank``, ``world``)."""
     from caiman_asr_tpu_torch.parallel import mesh
 
-    if getattr(args, "use_hugging_face", False):
-        raise NotImplementedError(
-            "--use_hugging_face (the HuggingFace loader) is not ported yet (ROADMAP.md "
-            "Queue 1 item 3)")
     pipe = cfg.input_train if train else cfg.input_val
     rank, world = mesh.rank(), mesh.world()
     if getattr(args, "read_from_tar", False):
-        from caiman_asr_tpu_torch.data.webdataset import WebDatasetLoader, WebDatasetReader
+        from caiman_asr_tpu_torch.data.webdataset import (WebDatasetLoader, WebDatasetReader,
+                                                          shard_paths)
 
-        tars = [t if Path(t).is_absolute() else str(Path(args.dataset_dir) / t)
-                for t in (args.train_tar_files if train else args.val_tar_files)]
+        tars = shard_paths(args.dataset_dir,
+                           args.train_tar_files if train else args.val_tar_files)
         # sharded over the ranks, where the JAX package has every host read
         # every sample (ROADMAP.md Queue 3)
         reader = WebDatasetReader(
@@ -218,6 +217,18 @@ def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, trai
         return WebDatasetLoader(reader, tokenizer, batch_size,
                                 normalize_config=normalize_config_from(pipe, cfg.user_tokens),
                                 drop_last=train)
+    if getattr(args, "use_hugging_face", False) and not train:
+        # validation only, as in the JAX package: training stays on manifests
+        # or tar shards
+        from caiman_asr_tpu_torch.data.hugging_face import HuggingFaceLoader, HuggingFaceReader
+
+        reader = HuggingFaceReader(
+            args.hugging_face_val_dataset, split=args.hugging_face_val_split,
+            config=args.hugging_face_val_config,
+            text_column=args.hugging_face_val_transcript_key,
+            sample_rate=pipe.logmel.sample_rate, shard_id=rank, num_shards=world)
+        return HuggingFaceLoader(reader, tokenizer, batch_size,
+                                 normalize_config=normalize_config_from(pipe))
     if not train and getattr(args, "val_from_dir", False):
         root = Path(args.dataset_dir)
         utts = utterances_from_dir(

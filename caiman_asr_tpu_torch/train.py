@@ -38,8 +38,9 @@ noise over several ranks from a generator without it), and the host
 loader's random streams ride the checkpoint (``meta["_host_rng"]``), so
 that ``--resume`` reproduces the uninterrupted run bit for bit. Not ported,
 each raising and naming its ``ROADMAP.md`` item: ``--model_parallel`` > 1,
-``--pruned_loss_range`` > 0, ``--use_hugging_face`` and a hub
-``--noise_dataset``.
+``--pruned_loss_range`` > 0 and a hub ``--noise_dataset``.
+``--use_hugging_face`` validates from a HuggingFace dataset, as in the JAX
+trainer; training reads manifests or tar shards all the same.
 """
 
 from __future__ import annotations
@@ -76,8 +77,6 @@ def _refuse_unported(args) -> None:
          "--model_parallel > 1 (parallel/vocab_parallel.py, make_train_step_tp)", 5),
         ((getattr(args, "pruned_loss_range", 0) or 0) > 0, "--pruned_loss_range > 0 "
          "(ops/pruned_loss.py)", 5),
-        (getattr(args, "use_hugging_face", False), "--use_hugging_face (the HuggingFace "
-         "loader)", 3),
     ]
     for refused_now, what, item in refused:
         if refused_now:

@@ -161,7 +161,24 @@ Phases:
      launched on every step of every rank, and the dev WER and hypotheses
      equal to a one-process validation of the run's step-4 checkpoint; ms
      a step and the gradient all-reduce's ms a step per rank; with two
-     cards, (a) again over NCCL.
+     cards, (a) again over NCCL;
+  17. latency measurement and the data and evaluation tools (the phase-14
+     workspace, phase 15's synthetic_e2e model, phase 16's shards): python
+     -m caiman_asr_tpu_torch.latency.generate_gt_ctm at base-85M, fp32, B=8,
+     with the kernels and under plain_path(): K1 10 a batch, the lattice
+     scores within 1e-4, the alignments equal or a tie's scores within 1e-4,
+     ms a batch split into the host's Viterbi and the rest; --segment_len 1
+     on the 16 utterances joined (81 s, two segments) giving the whole
+     utterance's CTM; val.py --dump_ctm --calculate_emission_latency --gt_ctm
+     on that CTM and measure_latency on the two CTMs, their mean and median
+     emission latency equal, for base-85M and the trained synthetic_e2e
+     model; val_multiple over two checkpoints x two manifests with
+     --calc_loss, each row's WER and hypotheses equal to a separate
+     val.validate run's and its loss within 1e-5, K1 and K2 counted;
+     torch_export then torch_import giving the .npz back to the bit, the .pt
+     loaded by the port transcribing phase 3's utterances to the same tokens;
+     spm_train and generate_mel_stats with --read_from_tar on the dev shards
+     equal to their runs on the manifest.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -4342,6 +4359,402 @@ def run_multihost() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 17
+# Latency measurement and the data and evaluation tools on the phase-14
+# workspace (base-85M from configs/base-8703sp.yaml, its port-written
+# checkpoint, the smoke tokenizer and mel statistics), phase 15's trained
+# synthetic_e2e model and phase 16's tar shards: python -m
+# caiman_asr_tpu_torch.latency.generate_gt_ctm (K1 in enc_pred, the dense
+# joint and its lattice scores on the card, the Viterbi on the host),
+# val.py --gt_ctm and measure_latency, val_multiple, the reference .pt
+# export and import, and --read_from_tar in spm_train and generate_mel_stats.
+LT_B = 8                  # generate_gt_ctm's default batch
+LT_SCORE_TOL = 1e-4       # lattice scores and path scores, kernels against the plain path
+LT_LOSS_RTOL = 1e-5       # a val_multiple row's loss against a separate val.validate
+LT_SHORT = 4              # utterances of val_multiple's second manifest
+
+
+@contextlib.contextmanager
+def align_probes():
+    """Within: per alignment batch of generate_gt_ctm, its wall ms between two
+    synchronises (``viterbi_alignment``: the encoder, the predictor, the dense
+    joint, the lattice scores and the Viterbi), the host Viterbi's ms, the
+    lattice scores (copied to the host) and the frames."""
+    import torch
+
+    from caiman_asr_tpu_torch.latency import forced_align as fa
+
+    probe = {"batches": []}
+    real_align, real_scores, real_viterbi = (fa.viterbi_alignment, fa.lattice_scores,
+                                             fa.viterbi_from_scores)
+
+    def current():
+        if not probe["batches"] or not probe["batches"][-1]["open"]:
+            probe["batches"].append({"scores": [], "host_ms": 0.0, "open": True})
+        return probe["batches"][-1]
+
+    def align(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = current()
+        out = real_align(*a, **kw)
+        torch.cuda.synchronize()
+        b.update(ms=1e3 * (time.perf_counter() - t0), open=False)
+        return out
+
+    def scores(*a, **kw):
+        null, emit = real_scores(*a, **kw)
+        lens = (torch.as_tensor(a[2]).cpu(), torch.as_tensor(a[5]).cpu())  # f_lens, token_lens
+        current()["scores"].append((null.cpu(), emit.cpu(), *lens))
+        return null, emit
+
+    def viterbi(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_viterbi(*a, **kw)
+        b = current()
+        b["host_ms"] += 1e3 * (time.perf_counter() - t0)
+        b["frames"] = out
+        return out
+
+    with contextlib.ExitStack() as patches:
+        for name, fn in (("viterbi_alignment", align), ("lattice_scores", scores),
+                         ("viterbi_from_scores", viterbi)):
+            patches.enter_context(mock.patch.object(fa, name, fn))
+        yield probe
+
+
+def gt_ctm_run(argv: list, plain: bool = False) -> dict:
+    """python -m caiman_asr_tpu_torch.latency.generate_gt_ctm on ``argv``, with
+    the kernels or under plain_path(): its probe, launches, wall s and CTM."""
+    import torch
+
+    from caiman_asr_tpu_torch.latency import generate_gt_ctm
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with align_probes() as probe, (plain_path() if plain else contextlib.nullcontext()):
+        generate_gt_ctm.main(argv)
+    wall = time.perf_counter() - t0
+    out = Path(argv[argv.index("--output_ctm") + 1])
+    torch.cuda.empty_cache()
+    return {"probe": probe, "counts": read_counts(), "wall_s": wall, "ctm": out.read_text()}
+
+
+def compare_alignments(got: dict, want: dict) -> dict:
+    """Two generate_gt_ctm runs of the same utterances: the largest lattice
+    score difference over every valid (t, u), the frames equal or, where a
+    tie flips them, the two paths' scores on ``want``'s lattice within
+    LT_SCORE_TOL."""
+    import numpy as np
+
+    from caiman_asr_tpu_torch.latency.forced_align import path_score
+
+    err, flipped, tie_err = 0.0, 0, 0.0
+    for bg, bw in zip(got["probe"]["batches"], want["probe"]["batches"], strict=True):
+        for (gn, ge, fl, tl), (wn, we, _, _) in zip(bg["scores"], bw["scores"], strict=True):
+            for b in range(gn.shape[0]):
+                T, U = int(fl[b]), int(tl[b])
+                err = max(err, float((gn[b, :T, : U + 1] - wn[b, :T, : U + 1]).abs().max()),
+                          float((ge[b, :T, :U] - we[b, :T, :U]).abs().max()) if U else 0.0)
+        for b, (fg, fw) in enumerate(zip(bg["frames"], bw["frames"], strict=True)):
+            if not np.array_equal(fg, fw):
+                flipped += 1
+                wn, we, fl, _ = bw["scores"][-1]
+                T = int(fl[b])
+                nb, eb = wn[b].double().numpy(), we[b].double().numpy()
+                tie_err = max(tie_err, abs(path_score(nb, eb, fg, T) - path_score(nb, eb, fw, T)))
+    return {"max_score_err": err, "utterances_flipped": flipped, "tie_score_err": tie_err}
+
+
+def write_long_utterance(root: Path, work: Path) -> str:
+    """The phase-14 utterances joined into one (81 s), with their transcripts
+    joined, as ``long.json`` beside them: past a minute, so that
+    generate_gt_ctm --segment_len 1 encodes it as two segments."""
+    import wave
+
+    import numpy as np
+
+    entries = json.loads((root / "manifest.json").read_text())
+    pcm = []
+    for e in entries:
+        with wave.open(str(root / e["files"][0]["fname"])) as w:
+            pcm.append(np.frombuffer(w.readframes(w.getnframes()), np.int16))
+    audio = np.concatenate(pcm)
+    with wave.open(str(work / "long.wav"), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes(audio.tobytes())
+    (work / "long.json").write_text(json.dumps([{
+        "transcript": " ".join(e["transcript"] for e in entries),
+        "files": [{"fname": str(work / "long.wav"), "duration": len(audio) / SR}],
+        "original_duration": len(audio) / SR}]))
+    return str(work / "long.json")
+
+
+def latency_chain(name: str, cfg: Path, ckpt: Path, data: Path, manifest: str, work: Path,
+                  extra: list) -> dict:
+    """generate_gt_ctm -> val.py --dump_ctm --calculate_emission_latency
+    --gt_ctm -> measure_latency on one model: measure_latency's mean and
+    median emission latency against val.py's own."""
+    from caiman_asr_tpu_torch import val
+    from caiman_asr_tpu_torch.latency import generate_gt_ctm, measure_latency
+    from caiman_asr_tpu_torch.models.config import load_config
+
+    c = load_config(cfg)
+    fw = (c.input_val.logmel.window_stride * c.input_val.splicing.frame_subsampling
+          * c.rnnt.enc_stack_time_factor)
+    gt = work / f"{name}_gt.ctm"
+    t0 = time.perf_counter()
+    generate_gt_ctm.main(["--model_config", str(cfg), "--ckpt", str(ckpt), "--dataset_dir",
+                          str(data), "--manifests", manifest, "--output_ctm", str(gt)] + extra)
+    gt_s = time.perf_counter() - t0
+    out = work / f"{name}_val"
+    res = val.validate(val.val_arg_parser().parse_args(
+        ["--model_config", str(cfg), "--ckpt", str(ckpt), "--dataset_dir", str(data),
+         "--val_manifests", manifest, "--output_dir", str(out), "--dump_ctm",
+         "--calculate_emission_latency", "--gt_ctm", str(gt), "--skip_ngram"] + extra))
+    metrics = measure_latency.main(measure_latency.parse_args(
+        ["--gt_ctm", str(gt), "--model_ctm", str(out / "model.ctm"), "--frame_width", str(fw)]))
+    lm = res.latency_metrics
+    agree = (lm["n"] == 0 and "mean-emission-latency" not in metrics) or (
+        abs(metrics["mean-emission-latency"] - lm["mean"]) <= 1e-9
+        and abs(metrics["median-emission-latency"] - lm["median"]) <= 1e-9)
+    log(f"  emission latency, {name}: ground truth {len(gt.read_text().splitlines())} words "
+        f"({gt_s:.2f} s), dev WER {res.wer:.4f}; val.py's latency {json.dumps(lm)}; "
+        f"measure_latency {json.dumps(metrics)}; mean and median equal: {agree}")
+    if not agree or not gt.read_text().strip():
+        raise AssertionError(f"{name}: measure_latency {metrics} against val.py's {lm}")
+    return {"val": lm, "measure_latency": metrics, "wer": res.wer, "gt_words":
+            len(gt.read_text().splitlines()), "gt_s": gt_s}
+
+
+def run_latency_tools() -> dict:
+    """Phase 17: the ground-truth CTM on the card (K1 counted, the lattice
+    scores and alignments against the plain path, --segment_len against the
+    whole utterance), emission latency end to end, val_multiple, the .pt
+    export and import, and --read_from_tar in spm_train and
+    generate_mel_stats."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import offline, val, val_multiple
+    from caiman_asr_tpu_torch.data import generate_mel_stats, spm_train
+    from caiman_asr_tpu_torch.export import torch_export, torch_import
+    from caiman_asr_tpu_torch.export.checkpointer import (flatten_named, load_checkpoint,
+                                                          save_checkpoint)
+    from caiman_asr_tpu_torch.models.config import load_config
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "smoke" / "val"  # phase 14's workspace
+    work = REPO / "build" / "smoke" / "latency"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg_path = REPO / VAL_CONFIG
+    cfg = load_config(cfg_path)
+    enc_layers = cfg.rnnt.enc_pre_rnn_layers + cfg.rnnt.enc_post_rnn_layers
+    per_batch = enc_layers + cfg.rnnt.pred_rnn_layers
+    tok = ["--tokenizer_model", str(REPO / "build" / "smoke" / "tokenizer.json")]
+    mel = ["--mel_stats_path", str(root / "mel_stats.npz")]
+    n_utts = len(json.loads((root / "manifest.json").read_text()))
+    batches = -(-n_utts // LT_B)
+    out = {"card": card()}
+
+    # (a) generate_gt_ctm, fp32, B=8: kernels and plain path
+    gt_argv = ["--model_config", str(cfg_path), "--ckpt", str(root / "ckpt.npz"),
+               "--dataset_dir", str(root), "--manifests", "manifest.json",
+               "--batch_size", str(LT_B)] + tok + mel
+    k = gt_ctm_run(gt_argv + ["--output_ctm", str(work / "gt.ctm")])
+    p = gt_ctm_run(gt_argv + ["--output_ctm", str(work / "gt_plain.ctm")], plain=True)
+    cmp = compare_alignments(k, p)
+    expect = {"lstm_recurrence": batches * per_batch}
+    counts = {n: v for n, v in k["counts"].items() if v}
+    bms = [b["ms"] for b in k["probe"]["batches"]]
+    hms = [b["host_ms"] for b in k["probe"]["batches"]]
+    log(f"  generate_gt_ctm, base-85M fp32, {n_utts} utterances in {batches} batches of "
+        f"{LT_B}: launches {counts} (expected {expect}: {enc_layers} K1 the encoder and "
+        f"{cfg.rnnt.pred_rnn_layers} the predictor a batch); lattice scores against the plain "
+        f"path's largest difference {cmp['max_score_err']:.3g} (tol {LT_SCORE_TOL}); "
+        f"alignments flipped {cmp['utterances_flipped']} (a tie's score difference "
+        f"{cmp['tie_score_err']:.3g}); CTM equal to the plain path's: {k['ctm'] == p['ctm']}; "
+        f"ms a batch {[round(x, 1) for x in bms]}, of it the host's Viterbi "
+        f"{[round(x, 1) for x in hms]}, the device's rest "
+        f"{[round(a - b, 1) for a, b in zip(bms, hms)]}; run {k['wall_s']:.2f} s "
+        f"(plain {p['wall_s']:.2f} s) on {card()}")
+    if counts != expect:
+        raise AssertionError(f"generate_gt_ctm launches {counts}, expected {expect}")
+    if (cmp["max_score_err"] > LT_SCORE_TOL or cmp["tie_score_err"] > LT_SCORE_TOL
+            or len(k["ctm"].splitlines()) != len(p["ctm"].splitlines())):
+        raise AssertionError(f"generate_gt_ctm against the plain path: {cmp}")
+    out["gt_ctm"] = {**cmp, "launches": counts, "batch_ms": bms, "host_viterbi_ms": hms,
+                     "device_ms": [a - b for a, b in zip(bms, hms)], "wall_s": k["wall_s"],
+                     "ctm_equal_plain": k["ctm"] == p["ctm"],
+                     "words": len(k["ctm"].splitlines())}
+
+    # --segment_len 1 on one 81 s utterance: two segments, the whole utterance's CTM
+    long = write_long_utterance(root, work)
+    long_argv = ["--model_config", str(cfg_path), "--ckpt", str(root / "ckpt.npz"),
+                 "--dataset_dir", str(work), "--manifests", long] + tok + mel
+    whole = gt_ctm_run(long_argv + ["--output_ctm", str(work / "long_whole.ctm")])
+    seg = gt_ctm_run(long_argv + ["--output_ctm", str(work / "long_seg.ctm"),
+                                  "--segment_len", "1"])
+    feat_s = cfg.input_val.logmel.window_stride * cfg.input_val.splicing.frame_subsampling
+    long_s = json.loads((work / "long.json").read_text())[0]["original_duration"]
+    n_seg = -(-int(long_s / feat_s) // int(round(60.0 / feat_s)))
+    seg_expect = {"lstm_recurrence": n_seg * enc_layers + cfg.rnnt.pred_rnn_layers}
+    seg_counts = {n: v for n, v in seg["counts"].items() if v}
+    seg_cmp = compare_alignments(seg, whole)
+    log(f"  --segment_len 1 on one {long_s:.2f} s utterance ({n_seg} segments carrying the "
+        f"LSTM state): CTM equal to the whole utterance's: {seg['ctm'] == whole['ctm']} "
+        f"({len(seg['ctm'].splitlines())} words); launches {seg_counts} (expected "
+        f"{seg_expect}), whole {dict((n, v) for n, v in whole['counts'].items() if v)}; "
+        f"{seg['wall_s']:.2f} s against {whole['wall_s']:.2f} s, host Viterbi "
+        f"{seg['probe']['batches'][0]['host_ms']:.1f} ms")
+    if seg["ctm"] != whole["ctm"] or seg_counts != seg_expect:
+        raise AssertionError(f"the segmented alignment differs from the whole: {seg_cmp}")
+    out["segment_len"] = {"ctm_equal": True, "segments": n_seg, "launches": seg_counts,
+                          "seconds": long_s, "wall_s": seg["wall_s"],
+                          "whole_wall_s": whole["wall_s"]}
+
+    # (b) emission latency end to end: the random base model, then the trained one
+    out["latency"] = {"base-85M": latency_chain(
+        "base", cfg_path, root / "ckpt.npz", root, "manifest.json", work, tok + mel)}
+    e2e = REPO / "build" / "smoke" / "e2e"
+    e2e_ckpt = e2e / "out" / "ckpts" / "best.npz"
+    if e2e_ckpt.exists():
+        out["latency"]["synthetic_e2e"] = latency_chain(
+            "synthetic_e2e", e2e / "cfg.yaml", e2e_ckpt, e2e, "dev.json", work,
+            ["--mel_stats_path", str(e2e / "mel_stats.npz")])
+    else:
+        log(f"  emission latency, synthetic_e2e: not run ({e2e_ckpt} not found)")
+    torch.cuda.empty_cache()
+
+    # (c) val_multiple: two checkpoints x two manifests, --calc_loss
+    entries = json.loads((root / "manifest.json").read_text())
+    (root / "short.json").write_text(json.dumps(entries[:LT_SHORT]))
+    ckpts = work / "ckpts"
+    ckpts.mkdir()
+    shutil.copy(root / "ckpt.npz", ckpts / "a.npz")
+    params, _, _, meta = load_checkpoint(root / "ckpt.npz")
+    save_checkpoint(ckpts / "b.npz", params, params, meta=meta)  # EMA = the raw weights
+    manifests = [(root, "manifest.json"), (root, "short.json")]
+    vm_argv = ["--model_config", str(cfg_path), "--ckpt_glob", str(ckpts / "*.npz"),
+               "--all_dataset_dirs", *[str(d) for d, _ in manifests],
+               "--all_val_manifests", *[m for _, m in manifests],
+               "--val_batch_size", str(VAL_BATCH), "--calc_loss", "--dump_preds",
+               "--skip_ngram", "--output_dir", str(work / "vm")] + tok + mel
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = val_multiple.main(vm_argv)
+    vm_s = time.perf_counter() - t0
+    vm_counts = {n: v for n, v in read_counts().items() if v}
+    jobs = [(c, d, m) for c in sorted(ckpts.glob("*.npz")) for d, m in manifests]
+    vm_batches = sum(-(-len(json.loads((Path(d) / m).read_text())) // VAL_BATCH)
+                     for _, d, m in jobs)
+    vm_expect = {"lstm_recurrence": vm_batches * (enc_layers + per_batch),
+                 "joint_fwd": vm_batches}
+    mismatched = []
+    for c, d, m in jobs:
+        label = f"{c}::{Path(d) / m}"
+        sub = work / "vm" / Path(m).with_suffix("").name / c.with_suffix("").name
+        one = val.validate(val.val_arg_parser().parse_args(
+            ["--model_config", str(cfg_path), "--ckpt", str(c), "--dataset_dir", str(d),
+             "--val_manifests", m, "--val_batch_size", str(VAL_BATCH), "--calc_loss",
+             "--skip_ngram", "--output_dir", str(work / "one" / c.stem / Path(m).stem)]
+            + tok + mel))
+        hyps = [x["hyp"] for x in json.loads(
+            (sub / "preds" / "preds_step0.json").read_text())["predictions"]]
+        row = rows[label]
+        if (row["wer"] != one.wer or hyps != one.hyps
+                or abs(row["loss"] - one.loss) > LT_LOSS_RTOL * abs(one.loss)):
+            mismatched.append((label, row, one.wer, one.loss))
+    log(f"  val_multiple, {len(jobs) // len(manifests)} checkpoints x {len(manifests)} manifests, --calc_loss: "
+        + "; ".join(f"{Path(l.split('::')[0]).name} {Path(l.split('::')[1]).name}: WER "
+                    f"{r['wer']:.4f}, loss {r['loss']:.4f}" for l, r in rows.items())
+        + f"; each row's WER and hypotheses equal a separate val.validate run's, its loss "
+        f"within {LT_LOSS_RTOL}: {not mismatched}; launches {vm_counts} (expected "
+        f"{vm_expect}); {vm_s:.2f} s, {1e3 * vm_s / len(jobs):.1f} ms a job on {card()}")
+    if mismatched or vm_counts != vm_expect or len(rows) != len(jobs):
+        raise AssertionError(f"val_multiple: {mismatched}, launches {vm_counts}")
+    out["val_multiple"] = {"rows": rows, "launches": vm_counts, "wall_s": vm_s,
+                           "ms_a_job": 1e3 * vm_s / len(jobs), "jobs": len(jobs)}
+    torch.cuda.empty_cache()
+
+    # (d) the reference .pt export and import, and the port transcribing from the .pt
+    pt, back = work / "base.pt", work / "back.npz"
+    t0 = time.perf_counter()
+    torch_export.main([str(root / "ckpt.npz"), str(pt)])
+    torch_import.main([str(pt), str(back)])
+    conv_s = time.perf_counter() - t0
+    a, b = load_checkpoint(root / "ckpt.npz"), load_checkpoint(back)
+    unequal = [f"{w}/{n}" for w, x, y in (("params", a[0], b[0]), ("ema", a[1], b[1]))
+               for n, v in flatten_named(x).items()
+               if not np.array_equal(v, flatten_named(y)[n])]
+    from caiman_asr_tpu_torch.export.checkpointer import apply_params
+    from caiman_asr_tpu_torch.setup import builders
+
+    tokenizer = builders.build_tokenizer(cfg, tok[1], sampling=0.0)
+    m_npz, _ = builders.build_model(cfg, tokenizer, device="cuda")
+    apply_params(m_npz.param_tree(), a[1])
+    m_pt, _ = builders.build_model(cfg, tokenizer, device="cuda")
+    info = torch_import.load_into(m_pt, str(pt))
+    from caiman_asr_tpu_torch.models.config import PipelineConfig
+    from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
+
+    audio, lens = synthetic_audio(SEED)  # phase 3's utterances, through its pipeline
+    audio, lens = torch.from_numpy(audio).cuda(), torch.from_numpy(lens).cuda()
+    pipe = PipelineConfig(logmel=LogMelConfig(dither=0.0))
+    toks = [tokens(offline.transcribe(m.eval(), audio, lens, device="cuda", pipeline=pipe))
+            for m in (m_npz, m_pt)]
+    log(f"  torch_export then torch_import of the base-85M checkpoint: {len(unequal)} leaves "
+        f"differ of the params' and EMA's (the .npz back to the bit: {not unequal}), "
+        f"{conv_s:.2f} s; the .pt's {info['weights']} loaded by the port transcribes the "
+        f"{N_UTTS} utterances to the same tokens as the .npz's EMA: {toks[0] == toks[1]} "
+        f"({sum(map(len, toks[0]))} tokens)")
+    if unequal or toks[0] != toks[1] or not any(toks[0]):
+        raise AssertionError(f"the .pt round trip: {unequal[:4]}, tokens equal "
+                             f"{toks[0] == toks[1]}")
+    out["pt"] = {"bit_equal": True, "same_tokens": True, "tokens": sum(map(len, toks[0])),
+                 "convert_s": conv_s}
+    del m_npz, m_pt
+    torch.cuda.empty_cache()
+
+    # (e) --read_from_tar on phase 16's dev shards against the same manifest
+    shards = sorted(str(p) for p in (REPO / "build" / "smoke" / "multihost" /
+                                     "val_tar").glob("*.tar"))
+    cli_root = REPO / "build" / "smoke" / "train_cli"  # the shards' utterances
+    t0 = time.perf_counter()
+    spm_train.main(["--read_from_tar", "--tar_files", *shards, "--vocab_size", "200",
+                    "--output_prefix", str(work / "spm_tar")])
+    spm_train.main(["--manifests", "manifest.json", "--dataset_dir", str(cli_root),
+                    "--vocab_size", "200", "--output_prefix", str(work / "spm_manifest")])
+    generate_mel_stats.main(["--model_config", str(cfg_path), "--read_from_tar",
+                             "--tar_files", *shards, "--output_path",
+                             str(work / "mel_tar.npz")])
+    generate_mel_stats.main(["--model_config", str(cfg_path), "--dataset_dir", str(cli_root),
+                             "--manifests", "manifest.json", "--output_path",
+                             str(work / "mel_manifest.npz")])
+    tar_s = time.perf_counter() - t0
+    spm_equal = all((work / f"spm_tar.{e}").read_bytes()
+                    == (work / f"spm_manifest.{e}").read_bytes() for e in ("json", "model"))
+    with np.load(work / "mel_tar.npz") as x, np.load(work / "mel_manifest.npz") as y:
+        mel_err = max(float(np.max(np.abs(x[n] - y[n]) / np.abs(y[n])))
+                      for n in ("melmeans", "melvars"))
+    log(f"  --read_from_tar on {len(shards)} dev shard(s) of phase 16 against the manifest of "
+        f"the same utterances: spm_train's vocab byte-equal {spm_equal}; generate_mel_stats' "
+        f"largest relative difference {mel_err:.3g}; {tar_s:.2f} s")
+    if not shards or not spm_equal or mel_err > 1e-6:
+        raise AssertionError(f"--read_from_tar: spm equal {spm_equal}, mel {mel_err}")
+    out["read_from_tar"] = {"spm_equal": True, "mel_rel_err": mel_err, "shards": len(shards)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 17 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4548,6 +4961,14 @@ def main() -> int:
         f"A=2 x B={MH_B} a rank; two ranks on one card over gloo: a smoke reading, not a "
         "scaling figure")
     multihost = run_multihost()
+    torch.cuda.empty_cache()
+
+    # 17. latency measurement and the data and evaluation tools
+    log("== latency and tools: generate_gt_ctm (base-85M fp32, B=8; --segment_len), val.py "
+        "--gt_ctm and measure_latency (base-85M, synthetic_e2e), val_multiple (2 checkpoints "
+        "x 2 manifests), the .pt export and import, --read_from_tar in spm_train and "
+        "generate_mel_stats")
+    latency = run_latency_tools()
 
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
@@ -4659,6 +5080,17 @@ def main() -> int:
                     f"phase 16 (b): train.main --multihost on {MH_RANKS} ranks of one card, "
                     f"each rank's count over {MH_STEPS} bf16 steps of A=2 x B={MH_B} on tar "
                     f"shards and one validation of its {MH_B} dev utterances")})
+        if wrapper in ("lstm_recurrence", "joint_fwd"):  # phase 17's tools
+            kernels[-1].update({
+                "launches_latency_tools": {
+                    tool: latency[key]["launches"].get(wrapper, 0)
+                    for tool, key in (("generate_gt_ctm", "gt_ctm"),
+                                      ("val_multiple", "val_multiple"))},
+                "launches_latency_tools_per": (
+                    f"phase 17: generate_gt_ctm, base-85M fp32, {N_UTTS} utterances in "
+                    f"batches of {LT_B} (K1: 10 a batch); val_multiple --calc_loss over "
+                    f"{latency['val_multiple']['jobs']} jobs (2 checkpoints x 2 manifests, "
+                    f"batches of {VAL_BATCH})")})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -4732,6 +5164,7 @@ def main() -> int:
     log("validation summary: " + json.dumps(validation))
     log("training CLI summary: " + json.dumps(cli))
     log("multihost summary: " + json.dumps(multihost))
+    log("latency tools summary: " + json.dumps(latency))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},

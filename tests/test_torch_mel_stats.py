@@ -70,10 +70,16 @@ def test_main_writes_what_jax_writes(dataset, tmp_path, n_filt, batch_size, max_
 
 
 def test_the_webdataset_source_raises(dataset, tmp_path):
+    """On a missing shard, as JAX's does (the shards themselves are read in
+    tests/test_torch_data_tools.py)."""
+    from caiman_asr_tpu.data.generate_mel_stats import main as jax_main
     from caiman_asr_tpu_torch.data.generate_mel_stats import main
 
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(CONFIG.format(n_filt=80))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--model_config", str(cfg), "--read_from_tar", "--tar_files", "x.tar",
-              "--output_path", str(tmp_path / "o.npz")], device="cpu")
+    argv = ["--model_config", str(cfg), "--read_from_tar", "--tar_files", "x.tar",
+            "--dataset_dir", str(tmp_path), "--output_path", str(tmp_path / "o.npz")]
+    with pytest.raises(FileNotFoundError):
+        main(argv, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        jax_main(argv)

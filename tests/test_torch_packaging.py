@@ -21,7 +21,8 @@ PORT = REPO / "caiman_asr_tpu_torch"
 RUNTIME_FILES = ("ops/csrc/*.cu", "ops/csrc/*.cuh", "native/src/*.cpp",
                  "data/text/english.json", "export/schemas/*.json")
 SCRIPTS = {"caiman-torch-train": "caiman_asr_tpu_torch.train:main",
-           "caiman-torch-val": "caiman_asr_tpu_torch.val:validate"}
+           "caiman-torch-val": "caiman_asr_tpu_torch.val:validate",
+           "caiman-torch-val-multiple": "caiman_asr_tpu_torch.val_multiple:main"}
 
 
 def _runtime_files():

@@ -368,7 +368,7 @@ train.main(Namespace(**json.loads(open({str(spec)!r}).read())), device="cpu")
 
 
 @pytest.mark.parametrize("flag, value", [
-    ("model_parallel", 2), ("pruned_loss_range", 4), ("use_hugging_face", True),
+    ("model_parallel", 2), ("pruned_loss_range", 4),
     ("noise_dataset", "Myrtle/CAIMAN-ASR-BackgroundNoise")])
 def test_what_is_not_ported_raises_and_names_the_roadmap(workspace, tmp_path, flag, value):
     args = augmented_args(workspace, tmp_path, **{flag: value})
