@@ -63,7 +63,9 @@ def build_device_tables(
     score 0, state unchanged.
     """
     if not hasattr(lm, "probs"):
-        raise TypeError("build_device_tables needs an NGramLM with explicit n-gram dicts")
+        # a kenlm binary scorer holds hashed keys only; materialize the
+        # explicit n-gram dicts first (raises with guidance if too large)
+        lm = lm.to_ngram_lm()
     K = len(pieces)
     order = lm.order
 

@@ -7,10 +7,9 @@ match the reference's ``lm_score_scale = 1/log10(e)`` conversion
 (kenlm_ngram.py:19-31). Tokens are sentencepiece *pieces* (the LM is built
 over tokenized text, lm/prep_kenlm_data.py).
 
-Supports .arpa text files and a fast .npz cache (``NGramLM.save_binary``)
-standing in for kenlm's .binary format. Reading kenlm's own binary format
-(the JAX package's ``lm/kenlm_binary.py``) is not ported: ``NGramLM.load``
-raises ``NotImplementedError`` on such a file.
+Supports .arpa text files, a fast .npz cache (``NGramLM.save_binary``) and
+kenlm's own .binary files (PROBING and the trie family, read by
+``lm/kenlm_binary.py`` and ``lm/kenlm_trie.py``).
 """
 
 from __future__ import annotations
@@ -70,19 +69,22 @@ class NGramLM(NgramScorerMixin):
 
     @classmethod
     def load(cls, path: str | Path):
-        """Load .arpa text or our .npz cache (any suffix). The format is
+        """Load .arpa text, our .npz cache (any suffix), or a kenlm
+        ``.binary`` (reference lm/kenlm_ngram.py:10-48). The format is
         sniffed from magic bytes, not the suffix: a reference deployment's
         'ngram.binary' is kenlm wire format, while save_binary() writes an
-        npz under the same conventional name. A kenlm binary raises
-        ``NotImplementedError`` (its reader, ``lm/kenlm_binary.py`` in the
-        JAX package, is not ported)."""
+        npz under the same conventional name. A kenlm binary returns a
+        :class:`~caiman_asr_tpu_torch.lm.kenlm_binary.KenLMBinaryLM` (or the
+        trie's scorer) with the same ``score``/``initial_state``
+        interface; an unknown model type, an unsupported version or a file
+        without vocabulary strings raises ``ValueError``."""
         path = Path(path)
         with open(path, "rb") as fh:
             head = fh.read(len(cls._KENLM_MAGIC))
         if head.startswith(cls._KENLM_MAGIC):
-            raise NotImplementedError(
-                f"{path} is a kenlm binary: its reader (lm/kenlm_binary.py) is not "
-                "ported; pass the ARPA file or an npz written by NGramLM.save_binary")
+            from caiman_asr_tpu_torch.lm.kenlm_binary import parse_kenlm_binary
+
+            return parse_kenlm_binary(path)
         if head.startswith(b"PK"):  # zip container = numpy savez
             return cls._load_npz(path)
         return cls._load_arpa(path)

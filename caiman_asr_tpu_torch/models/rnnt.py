@@ -115,6 +115,10 @@ class RNNT(nn.Module):
         dev = resolve_device(device)
         cfg = config
         self.cfg = cfg
+        if cfg.quantize:
+            from caiman_asr_tpu_torch.ops import quantize
+
+            quantize.prepare(dev)
         self.n_classes = n_classes
         self.encoder = nn.ModuleDict({
             "pre_rnn": LSTMStack(cfg.in_feats, cfg.enc_n_hid, cfg.enc_pre_rnn_layers,

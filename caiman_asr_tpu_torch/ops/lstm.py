@@ -10,7 +10,20 @@ package's parameter tree with tensors for leaves.
 matmul, rounds it to the compute dtype, and hands the sequential part to
 ``ops/lstm_kernel.recurrence``: the Hopper kernels for CUDA tensors (K1, or
 under a gradient K3a forward and K3b backward), their plain versions for CPU
-tensors. h and c are carried in fp32. ``run_lstm`` with ``train=True`` adds
+tensors. h and c are carried in fp32.
+
+``quantize=True`` (a config's ``quantize: true``, evaluation only: ``run_lstm``
+ignores it under ``train``) emulates the FPGA's arithmetic at the
+reference's quantization points as the JAX package does
+(``caiman_asr_tpu/ops/lstm.py:122-252, :393-445``): weights brain-float then
+block-floating-point along the contraction axis, activations the same along
+the feature axis (blocks of 8, the whole axis where 8 does not divide it),
+the sum ``((xU + hV) + b_ih) + b_hh`` in fp32 with each bias brain-float
+rounded, and the gates, cell and hidden state brain-float after each step.
+It runs as a plain scan in fp32 whatever the input dtype, and so launches
+no K1, as the JAX package's gate bypasses its Pallas kernel
+(``caiman_asr_tpu/ops/lstm.py:215``). Its products must be true fp32: with
+TF32 matmuls enabled it raises. ``run_lstm`` with ``train=True`` adds
 the training-time dropouts and normalises with batch statistics; under
 ``batch_norm_group`` (the train step over several processes) those are the
 statistics of the global batch.
@@ -74,14 +87,32 @@ def hard_tanh(z: torch.Tensor) -> torch.Tensor:
 
 
 def gate_math(
-    gates: torch.Tensor, c: torch.Tensor, hard: bool
+    gates: torch.Tensor, c: torch.Tensor, hard: bool, quantize: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused LSTM gate computation. gates: [..., 4H] fp32; c: [..., H] fp32.
-    Returns (h_new, c_new) in fp32."""
+    Returns (h_new, c_new) in fp32.
+
+    quantize=True emulates the FPGA's brainfloat arithmetic at the
+    reference's exact points (legacy.py:259-293: gates bf16 after the sum,
+    each gate bf16 after its activation, cell and hidden bf16)."""
     H = c.shape[-1]
-    i, f, g, o = (gates[..., k * H:(k + 1) * H] for k in range(4))
     sig = hard_sigmoid if hard else torch.sigmoid
     tnh = hard_tanh if hard else torch.tanh
+    if quantize:
+        from caiman_asr_tpu_torch.ops.quantize import brain_float_quantize as bf16q
+        from caiman_asr_tpu_torch.ops.quantize import xla_tanh
+
+        if not hard:  # the activations as XLA computes them
+            sig = lambda z: 1.0 / (1.0 + torch.exp(-z))  # noqa: E731
+            tnh = xla_tanh
+        gates = bf16q(gates)
+        i, f, g, o = (gates[..., k * H:(k + 1) * H] for k in range(4))
+        i, f, g, o = bf16q(sig(i)), bf16q(sig(f)), bf16q(tnh(g)), bf16q(sig(o))
+        # XLA fuses f * c + i * g into fma(f, c, i * g): one rounding
+        c_new = bf16q((f.double() * c.double() + (i * g)).float())
+        h_new = bf16q(o * tnh(c_new))
+        return h_new, c_new
+    i, f, g, o = (gates[..., k * H:(k + 1) * H] for k in range(4))
     c_new = sig(f) * c + sig(i) * tnh(g)
     h_new = sig(o) * tnh(c_new)
     return h_new, c_new
@@ -117,6 +148,94 @@ def dot_f32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w_t.to(x.dtype)).float()
 
 
+def _bfp_weights(w_t: torch.Tensor) -> torch.Tensor:
+    """FPGA weight quantization of a transposed weight [in, 4H]: brainfloat
+    then block-floating-point with a shared exponent per 8 consecutive
+    elements of the contraction axis (reference legacy.py:251-252 +
+    quantize.py BfpQuantizer(dim=0, 8))."""
+    from caiman_asr_tpu_torch.ops.quantize import bfp_quantize, brain_float_quantize
+
+    return bfp_quantize(brain_float_quantize(w_t), man_bits=8, axis=0, block=8)
+
+
+def _bfp_acts(x: torch.Tensor) -> torch.Tensor:
+    """FPGA activation quantization along the feature axis (reference
+    legacy.py:264-265 + BfpQuantizer(dim=1, 8))."""
+    from caiman_asr_tpu_torch.ops.quantize import bfp_quantize, brain_float_quantize
+
+    return bfp_quantize(brain_float_quantize(x), man_bits=8, axis=-1, block=8)
+
+
+_QUANTIZED_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def _quantize_layer(p: Params, dtype) -> tuple:
+    """(w_ih_t, w_hh_t, b_ih, b_hh) of one layer as the quantized path uses
+    them: the weights cast to the compute dtype first, as the JAX package
+    does, then quantized in fp32; each bias brain-float rounded."""
+    from caiman_asr_tpu_torch.ops.quantize import brain_float_quantize
+
+    return (_bfp_weights(p["w_ih"].to(dtype).float().t()),
+            _bfp_weights(p["w_hh"].to(dtype).float().t()),
+            brain_float_quantize(p["b_ih"].float()), brain_float_quantize(p["b_hh"].float()))
+
+
+def _quantized_weights(p: Params, dtype) -> tuple:
+    """One layer's quantized weights for ``dtype``, quantized once and kept
+    on its ``w_ih`` (``._quantized``) beside the versions of the four
+    tensors they came from. Weights written in place since (a checkpoint
+    applied after ``eval()``) are requantized here into the same tensors,
+    so a CUDA graph that read them reads the new values; under a capture
+    the copy is read as it is, and a stale one raises. The decoders'
+    first step runs eagerly, before any replay, and so refreshes it."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "the quantized LSTM needs true fp32 products: TF32 matmuls are enabled "
+            "(torch.backends.cuda.matmul.allow_tf32 / set_float32_matmul_precision)")
+    w = p["w_ih"]
+    versions = tuple(p[k]._version for k in _QUANTIZED_KEYS)
+    kept = getattr(w, "_quantized", None)
+    got = None if kept is None else kept.get(dtype)
+    if got is not None and got[0] == versions and got[1][0].device == w.device:
+        return got[1]
+    if w.is_cuda and torch.cuda.is_current_stream_capturing():
+        if got is not None:
+            raise RuntimeError("the LSTM weights changed after they were quantized: run the "
+                               "model eagerly once before capturing a graph")
+        return _quantize_layer(p, dtype)  # a tree never run eagerly: quantized in the graph
+    # plain tensors without a gradient, whatever the caller's mode: constants
+    # to autograd, and refreshable in place in or out of inference mode
+    with torch.inference_mode(False), torch.no_grad():
+        fresh = _quantize_layer(p, dtype)
+        if got is not None and got[1][0].device == w.device:
+            for old, new in zip(got[1], fresh):
+                old.copy_(new)
+            fresh = got[1]
+    if kept is None:
+        kept = w._quantized = {}
+    kept[dtype] = (versions, fresh)
+    return fresh
+
+
+def _run_quantized_layer(params: Params, x: torch.Tensor, h0: torch.Tensor,
+                         c0: torch.Tensor, hard: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The quantized scan (``caiman_asr_tpu/ops/lstm.py:224-252``); returns
+    fp32 (ys, cs) [T, B, H]."""
+    T, B, _ = x.shape
+    w_ih_t, w_hh_t, bi, bh = _quantized_weights(params, x.dtype)
+    gates_x = (_bfp_acts(x.float()).reshape(T * B, -1) @ w_ih_t).reshape(T, B, -1)
+    h, c = h0.float(), c0.float()
+    ys, cs = [], []
+    for t in range(T):
+        # the reference sums ((xU + hV) + bih) + bhh in that order
+        # (legacy.py:272-275), so that the bf16 rounding matches
+        gates = gates_x[t] + _bfp_acts(h) @ w_hh_t + bi + bh
+        h, c = gate_math(gates, c, hard, True)
+        ys.append(h)
+        cs.append(c)
+    return torch.stack(ys), torch.stack(cs)
+
+
 def run_lstm_layer(
     params: Params,
     x: torch.Tensor,
@@ -128,12 +247,12 @@ def run_lstm_layer(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run one LSTM layer over x [T, B, I] from (h0, c0) [B, H].
 
-    Returns (ys, cs): every hidden and cell state, each [T, B, H] in x.dtype.
-    Differentiable: under a gradient the recurrence goes through
-    ``lstm_kernel.LSTMRecurrence``.
+    Returns (ys, cs): every hidden and cell state, each [T, B, H] in x.dtype
+    (in fp32 with ``quantize``, as in the JAX package). Differentiable: under
+    a gradient the recurrence goes through ``lstm_kernel.LSTMRecurrence``.
     """
     if quantize:
-        raise NotImplementedError("the quantized (FPGA arithmetic) LSTM is not ported yet")
+        return _run_quantized_layer(params, x, h0, c0, hard)
     # imported here: lstm_kernel imports gate_math from this module
     from caiman_asr_tpu_torch.ops import lstm_kernel
 
@@ -254,20 +373,24 @@ def lstm_step(
     quantize: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One frame through the whole stack: x [B, I], h and c [L, B, H].
-    Returns (y [B, H], h_new, c_new [L, B, H])."""
-    if quantize:
-        raise NotImplementedError("the quantized (FPGA arithmetic) LSTM is not ported yet")
+    Returns (y [B, H], h_new, c_new [L, B, H]). With ``quantize``, the
+    quantized step (``caiman_asr_tpu/ops/lstm.py:393-445``): the scan's
+    arithmetic one frame at a time, its output cast back to x's dtype."""
     hs, cs = [], []
     out = x
     for i in range(h.shape[0]):
         p = params[f"layer_{i}"]
         dtype = out.dtype
-        gates = (
-            dot_f32(out, p["w_ih"].t())
-            + dot_f32(h[i].to(dtype), p["w_hh"].t())
-            + (p["b_ih"] + p["b_hh"]).float()
-        )
-        h_new, c_new = gate_math(gates, c[i].float(), hard)
+        if quantize:
+            w_ih_t, w_hh_t, bi, bh = _quantized_weights(p, dtype)
+            gates = _bfp_acts(out.float()) @ w_ih_t + _bfp_acts(h[i].float()) @ w_hh_t + bi + bh
+        else:
+            gates = (
+                dot_f32(out, p["w_ih"].t())
+                + dot_f32(h[i].to(dtype), p["w_hh"].t())
+                + (p["b_ih"] + p["b_hh"]).float()
+            )
+        h_new, c_new = gate_math(gates, c[i].float(), hard, quantize)
         out = h_new.to(dtype)
         hs.append(out)
         cs.append(c_new.to(dtype))

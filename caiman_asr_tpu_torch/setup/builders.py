@@ -323,10 +323,6 @@ def build_decoder(model, blank_idx, tokenizer, args, cfg: Optional[Config] = Non
     if name == "greedy":
         return offline_decoder(model, "greedy", max_symbols_per_step=args.max_symbols_per_step,
                                temperature=args.temperature, **common)
-    if name == "beam" and (args.beam_parallel_procs > 1 or args.beam_parallel_procs == -1):
-        raise NotImplementedError(
-            "--beam_parallel_procs > 1 (decoding/parallel.py) is not ported yet (ROADMAP.md "
-            "Queue 1 item 4)")
 
     ngram_lm = None
     ngram_path = args.ngram_path or (cfg.ngram.ngram_path if cfg else None)

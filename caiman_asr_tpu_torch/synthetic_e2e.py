@@ -12,10 +12,13 @@ kernels, LAMB and the EMA to decoding and WER, on a task it can learn. At
 Run: python -m caiman_asr_tpu_torch.synthetic_e2e --workdir build/synthetic_e2e \\
        --steps 3000
 
+``--compare_decoders`` then trains a 3-gram over the train transcripts
+(``lm/train_ngram.py``) and tables the dev WER of greedy, the fast beam
+(width 4), the fast beam with the LM fused at scale 0.3 and the host beam
+with it; LM fusion must not hurt the fast beam.
+
 It runs on the card (``run(..., device="cpu")`` on the CPU). Not ported:
-``--pruned`` (the pruned loss, ROADMAP.md Queue 1 item 5) and
-``--compare_decoders`` (it trains an n-gram with ``lm/train_ngram.py``,
-ROADMAP.md Queue 1 item 4); both raise.
+``--pruned`` (the pruned loss, ROADMAP.md Queue 1 item 5); it raises.
 """
 
 from __future__ import annotations
@@ -190,6 +193,44 @@ def run(workdir, steps: int = 3000, lr: float = 2e-3, seed: int = 1, *,
             "steps": steps, "losses": losses}
 
 
+# the decoder comparison of the JAX script (scripts/synthetic_e2e.py:180-234)
+LM_SCALE = "0.3"
+COMPARE = (
+    ("greedy", ["--decoder", "greedy"]),
+    ("fast_beam-4", ["--decoder", "fast_beam", "--beam_width", "4"]),
+    ("fast_beam-4+lm", ["--decoder", "fast_beam", "--beam_width", "4", "--ngram_path", "{lm}",
+                        "--ngram_scale_factor", LM_SCALE]),
+    ("host_beam-4+lm", ["--decoder", "beam", "--beam_width", "4", "--ngram_path", "{lm}",
+                        "--ngram_scale_factor", LM_SCALE]),
+)
+
+
+def compare_decoders(workdir, *, device="cuda") -> dict:
+    """Train a 3-gram on the train transcripts of a ``run`` workdir and
+    return the dev WER of each decoder of ``COMPARE`` on its best
+    checkpoint, with the seconds each validation took."""
+    from caiman_asr_tpu_torch.lm.train_ngram import main as ngram_main
+    from caiman_asr_tpu_torch.val import val_arg_parser, validate
+
+    root = Path(workdir)
+    ngram_main(["--manifests", "train.json", "--dataset_dir", str(root),
+                "--tokenizer_model", str(root / "tok.json"), "--order", "3",
+                "--output_dir", str(root / "ngram")])
+    lm = str(root / "ngram" / "ngram.arpa")
+    table, seconds = {}, {}
+    for name, extra in COMPARE:
+        va = val_arg_parser().parse_args([
+            "--model_config", str(root / "cfg.yaml"), "--dataset_dir", str(root),
+            "--val_manifests", "dev.json", "--output_dir", str(root / f"valout_{name}"),
+            "--ckpt", str(root / "out" / "ckpts" / "best.npz"),
+            "--mel_stats_path", str(root / "mel_stats.npz"),
+        ] + [a.format(lm=lm) for a in extra] + (["--cpu"] if str(device) == "cpu" else []))
+        t0 = time.perf_counter()
+        table[name] = validate(va).wer
+        seconds[name] = time.perf_counter() - t0
+    return {"wer": table, "seconds": seconds}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--workdir", default="build/synthetic_e2e")
@@ -200,20 +241,25 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=1,
                    help="training seed (init + data order) for repeat runs")
     p.add_argument("--compare_decoders", action="store_true",
-                   help="greedy, beams and n-gram fusion tabled (not ported yet: raises)")
+                   help="train a 3-gram on the train transcripts and table the dev WER of "
+                        "greedy, fast beam, fast beam + LM and host beam + LM")
     args = p.parse_args(argv)
     if args.pruned:
         raise NotImplementedError("--pruned: the pruned loss is not ported yet (ROADMAP.md "
                                   "Queue 1 item 5)")
-    if args.compare_decoders:
-        raise NotImplementedError("--compare_decoders needs lm/train_ngram.py, not ported yet "
-                                  "(ROADMAP.md Queue 1 item 4)")
     out = run(args.workdir, args.steps, args.lr, args.seed)
     print(f"\nfinal: greedy-best dev WER {out['greedy_best_wer']:.2%}, "
           f"beam-4 dev WER {out['beam_wer']:.2%}, training {out['train_s']:.1f} s "
           f"({1e3 * out['train_s'] / args.steps:.1f} ms a step with validation)")
     if args.steps >= WER_BAR_STEPS:
         assert out["beam_wer"] < WER_BAR, "synthetic task failed to learn"
+    if args.compare_decoders:
+        cmp = compare_decoders(args.workdir)
+        print("\ndecoder comparison (dev WER):")
+        for name, wer in cmp["wer"].items():
+            print(f"  {name:16s} {wer:.2%}  ({cmp['seconds'][name]:.1f} s)")
+        assert cmp["wer"]["fast_beam-4+lm"] <= cmp["wer"]["fast_beam-4"] + 1e-9, (
+            "LM fusion must not hurt on in-domain synthetic text")
 
 
 if __name__ == "__main__":

@@ -66,13 +66,78 @@ class _NthBatchLoader:
         return getattr(self._loader, name)
 
 
+def parallel_decoder_kwargs(args) -> dict:
+    """The host beam's kwargs that reach the workers of
+    ``--beam_parallel_procs``, the JAX package's to the letter
+    (``caiman_asr_tpu/val.py:142-150``): the width, the pruning thresholds
+    and the temperature, 1.4 where the flag keeps its default of 1.0. No
+    n-gram, keywords, EOS strategy or symbol caps reach the workers: they
+    decode with the beam's own defaults for those."""
+    return dict(
+        beam_width=args.beam_width,
+        temperature=args.temperature if args.temperature != 1.0 else 1.4,
+        beam_prune_score_thresh=args.beam_prune_score_thresh,
+        beam_prune_topk_thresh=args.beam_prune_topk_thresh,
+    )
+
+
+def _evaluate(args, cfg, model, decoder, loader, val_fp, tokenizer, blank_idx, eos_idx,
+              out_dir, logger, device):
+    """``evaluate`` with the state resets, the offline endpointing and the
+    latency settings that the flags and the config give."""
+    from caiman_asr_tpu_torch.evaluate.core import evaluate
+    from caiman_asr_tpu_torch.evaluate.state_resets import StateResetsConfig
+    from caiman_asr_tpu_torch.evaluate.trim import EOSTrimConfig
+    from caiman_asr_tpu_torch.setup.builders import normalize_config_from
+    from caiman_asr_tpu_torch.training.step import make_val_loss_step
+
+    state_resets = None
+    if args.sr_segment and args.sr_segment > 0:
+        frame_duration = (cfg.input_val.logmel.window_stride
+                          * cfg.input_val.splicing.frame_subsampling)
+        state_resets = StateResetsConfig.from_seconds(
+            args.sr_segment, args.sr_overlap, frame_duration, cfg.rnnt.enc_stack_time_factor)
+
+    # offline endpointing: cut hyps where a live system would have
+    # terminated and record Silence/EOS/Never per utterance
+    eos_trim = None
+    if eos_idx is not None and eos_idx >= 0:
+        eos_trim = EOSTrimConfig(eos_idx=eos_idx,
+                                 eos_is_terminal=getattr(args, "eos_is_terminal", False),
+                                 blank_idx=blank_idx)
+    pre_enc_width = cfg.input_val.logmel.window_stride * cfg.input_val.splicing.frame_stacking
+    result = evaluate(
+        model,
+        decoder,
+        loader,
+        val_fp,
+        tokenizer,
+        val_loss_fn=make_val_loss_step(model, blank_idx, device=device) if args.calc_loss
+        else None,
+        standardize_wer=cfg.input_val.dataset.standardize_wer,
+        normalize_config=normalize_config_from(cfg.input_val),
+        charset=list(cfg.tokenizer.labels),
+        dump_preds_dir=(out_dir / "preds") if args.dump_preds else None,
+        norm_ratio=0.0 if getattr(args, "norm_over_utterance", False) else 1.0,
+        subset="dev",
+        logger=logger,
+        state_resets=state_resets,
+        ctm_path=str(out_dir / "model.ctm") if args.dump_ctm else None,
+        gt_ctm_path=args.gt_ctm,
+        frame_width=(cfg.input_val.logmel.window_stride
+                     * cfg.input_val.splicing.frame_subsampling
+                     * cfg.rnnt.enc_stack_time_factor),
+        eos_vad_threshold=getattr(args, "eos_vad_threshold", float("inf")),
+        eos_trim=eos_trim,
+        pre_enc_width=pre_enc_width,
+    )
+    return result
+
+
 def validate(args=None):
     """Evaluate ``args.ckpt`` on the validation set; returns the
     ``EvalResult``."""
     from caiman_asr_tpu_torch.device import resolve_device
-    from caiman_asr_tpu_torch.evaluate.core import evaluate
-    from caiman_asr_tpu_torch.evaluate.state_resets import StateResetsConfig
-    from caiman_asr_tpu_torch.evaluate.trim import EOSTrimConfig
     from caiman_asr_tpu_torch.export.checkpointer import apply_params, load_checkpoint
     from caiman_asr_tpu_torch.log import init_log
     from caiman_asr_tpu_torch.models.config import load_config
@@ -84,9 +149,7 @@ def validate(args=None):
         build_model,
         build_tokenizer,
         load_mel_stats,
-        normalize_config_from,
     )
-    from caiman_asr_tpu_torch.training.step import make_val_loss_step
     from caiman_asr_tpu_torch.utils.user_tokens import get_user_token
 
     if args is None:
@@ -129,48 +192,22 @@ def validate(args=None):
     except ValueError as e:
         print(f"WARNING: eos token disabled: {e}")
         eos_idx = None
-    decoder = build_decoder(model, blank_idx, tokenizer, args, cfg, eos_idx=eos_idx)
+    if args.decoder == "beam" and (args.beam_parallel_procs > 1 or args.beam_parallel_procs == -1):
+        from caiman_asr_tpu_torch.decoding.parallel import ParallelDecoder
 
-    state_resets = None
-    if args.sr_segment and args.sr_segment > 0:
-        frame_duration = (cfg.input_val.logmel.window_stride
-                          * cfg.input_val.splicing.frame_subsampling)
-        state_resets = StateResetsConfig.from_seconds(
-            args.sr_segment, args.sr_overlap, frame_duration, cfg.rnnt.enc_stack_time_factor)
-
-    # offline endpointing: cut hyps where a live system would have
-    # terminated and record Silence/EOS/Never per utterance
-    eos_trim = None
-    if eos_idx is not None and eos_idx >= 0:
-        eos_trim = EOSTrimConfig(eos_idx=eos_idx,
-                                 eos_is_terminal=getattr(args, "eos_is_terminal", False),
-                                 blank_idx=blank_idx)
-    pre_enc_width = cfg.input_val.logmel.window_stride * cfg.input_val.splicing.frame_stacking
-    result = evaluate(
-        model,
-        decoder,
-        loader,
-        val_fp,
-        tokenizer,
-        val_loss_fn=make_val_loss_step(model, blank_idx, device=device) if args.calc_loss
-        else None,
-        standardize_wer=cfg.input_val.dataset.standardize_wer,
-        normalize_config=normalize_config_from(cfg.input_val),
-        charset=list(cfg.tokenizer.labels),
-        dump_preds_dir=(out_dir / "preds") if args.dump_preds else None,
-        norm_ratio=0.0 if getattr(args, "norm_over_utterance", False) else 1.0,
-        subset="dev",
-        logger=logger,
-        state_resets=state_resets,
-        ctm_path=str(out_dir / "model.ctm") if args.dump_ctm else None,
-        gt_ctm_path=args.gt_ctm,
-        frame_width=(cfg.input_val.logmel.window_stride
-                     * cfg.input_val.splicing.frame_subsampling
-                     * cfg.rnnt.enc_stack_time_factor),
-        eos_vad_threshold=getattr(args, "eos_vad_threshold", float("inf")),
-        eos_trim=eos_trim,
-        pre_enc_width=pre_enc_width,
-    )
+        decoder = ParallelDecoder(
+            model, args.model_config, args.tokenizer_model, args.ckpt,
+            decoder_kwargs=parallel_decoder_kwargs(args), nprocs=args.beam_parallel_procs,
+            min_batch_per_proc=args.beam_min_decode_batch_size_per_proc,
+        )
+    else:
+        decoder = build_decoder(model, blank_idx, tokenizer, args, cfg, eos_idx=eos_idx)
+    try:
+        result = _evaluate(args, cfg, model, decoder, loader, val_fp, tokenizer, blank_idx,
+                           eos_idx, out_dir, logger, device)
+    finally:
+        if hasattr(decoder, "close"):
+            decoder.close()
     if args.wer_breakdown:
         from caiman_asr_tpu_torch.evaluate.wer_breakdown import print_wer_breakdown
 

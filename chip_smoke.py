@@ -178,7 +178,26 @@ Phases:
      torch_export then torch_import giving the .npz back to the bit, the .pt
      loaded by the port transcribing phase 3's utterances to the same tokens;
      spm_train and generate_mel_stats with --read_from_tar on the dev shards
-     equal to their runs on the manifest.
+     equal to their runs on the manifest;
+  18. the rest of inference (phase 14's workspace, phase 15's synthetic_e2e
+     model): (a) a 3-gram by train_ngram over phase 14's transcripts in the
+     smoke tokenizer's pieces, written as a kenlm PROBING and a TRIE binary:
+     every n-gram's score equal across the three files (the binaries' to
+     each other, the ARPA's within 1e-6), the device tables equal, and
+     val.py's fp32 fast beam (W=4, E=8) fused from each file giving
+     identical hypotheses, K1 8 a batch; (b) val.py --decoder beam
+     --beam_parallel_procs 2 on the two shortest utterances, its tokens
+     equal to the one-process host beam with the workers' kwargs on the
+     CPU, K1 the parent's 8; (c) sweep_scale_factor over three scales on
+     the synthetic_e2e model with a 3-gram from its train transcripts, scale
+     0 equal to a beam run without the LM; (d) base-85M with quantize: true
+     validated greedy on the two shortest utterances: no K1, each layer
+     quantized once; its LSTM output on the card bit-equal to the CPU's (a
+     share stated, the rest within one brain-float ulp), its encoder output
+     within the stated tolerance of the CPU's and far from the unquantized
+     model's on the same weights, the greedy tokens equal to the CPU's; a bf16
+     serving engine's tick captured as a CUDA graph whose replays equal its
+     eager ticks bit for bit.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -193,6 +212,7 @@ import difflib
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -4755,6 +4775,471 @@ def run_latency_tools() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+# The rest of inference: the n-gram tools, the kenlm formats, the beam over
+# worker processes, the scale sweep and the FPGA arithmetic (quantize: true),
+# on phase 14's workspace and checkpoint and phase 15's synthetic_e2e model.
+LM_ORDER = 3
+LM_BEAM_MSYM = 8          # the fast beam's expansion trips (the beams' own default)
+LM_SCALE = "0.5"          # the fusion scale of (a)
+LM_SCORE_TOL = 1e-6       # a binary stores log10 in fp32: its scores against the ARPA's
+PAR_PROCS = 2             # --beam_parallel_procs
+PAR_UTTS = 2              # the shortest utterances: the host beam on a random base-85M is slow,
+                          # and so is the quantized encoder and greedy loop on the CPU
+SWEEP_SCALES = ("0.0", "0.3", "0.6")
+# The quantized encoder on the card against the CPU, on the PAR_UTTS
+# shortest utterances. Its LSTM output lies on the brain-float grid: another
+# order of the fp32 sums breaks a tie the other way now and then, one
+# brain-float ulp, carried into later frames (on an H100: 99.9933% of the
+# entries bit-equal, the rest 1 ulp apart). f = joint_enc(LSTM output) in
+# fp32 adds its own order of sums (that run: max 3.825e-06, mean 1.34e-07;
+# the limits are about 5x and 7x).
+QUANT_LSTM_EQUAL_SHARE = 0.999       # of the LSTM output's entries, bit-equal
+QUANT_LSTM_MAX_ULPS = 1              # brain-float ulps, the rest
+QUANT_F_MAX_TOL, QUANT_F_MEAN_TOL = 2e-5, 1e-6
+# The unquantized model on the same weights: its f apart by a mean of
+# 1.161e-04 in that run (the random model's small activations), so an
+# encoder that skipped the quantizers would read ~1e-7 here
+QUANT_VS_PLAIN_MIN_MEAN = 2e-5
+QUANT_GRAPH_B = 64         # the quantized serving engine's lanes
+
+
+def quantized_lstm_output(model, feats, feat_lens):
+    """The quantized encoder's LSTM output [B, T', H] before ``joint_enc``:
+    the calls of ``RNNT._encode`` (pre_rnn, stack-time, post_rnn) up to it."""
+    from caiman_asr_tpu_torch.ops.features import stack_time
+    from caiman_asr_tpu_torch.ops.lstm import run_lstm
+
+    p, cfg = model.param_tree(), model.cfg
+    kw = dict(hard=cfg.hard_activations, quantize=True)
+    out, _, _ = run_lstm(p["encoder"]["pre_rnn"], feats, **kw)
+    out, _ = stack_time(out, feat_lens, cfg.enc_stack_time_factor)
+    out, _, _ = run_lstm(p["encoder"]["post_rnn"], out, **kw)
+    return out.transpose(0, 1)
+
+
+def lm_formats(root: Path, work: Path) -> dict:
+    """(a)'s LM: a 3-gram over phase 14's transcripts tokenised by the smoke
+    tokenizer (train_ngram's estimate and writer; the transcripts' digits
+    are the pieces, so main's normalisation to the letters would drop them),
+    then written as a PROBING and a TRIE binary. Returns the three paths and
+    the checks of their scores."""
+    from caiman_asr_tpu_torch.data.tokenizer import Tokenizer
+    from caiman_asr_tpu_torch.lm import kenlm_binary, kenlm_trie, train_ngram
+    from caiman_asr_tpu_torch.lm.ngram import NGramLM
+
+    tok = Tokenizer(list(" abcdefghijklmnopqrstuvwxyz'"),
+                    REPO / "build" / "smoke" / "tokenizer.json")
+    texts = [e["transcript"] for e in json.loads((root / "manifest.json").read_text())]
+    sentences = [[tok.id_to_piece(i) for i in tok.tokenize(t)] for t in texts]
+    t0 = time.perf_counter()
+    arpa = train_ngram.train_ngram_from_sentences(sentences, LM_ORDER, work / "ngram")
+    train_s = time.perf_counter() - t0
+    lm = NGramLM.load(arpa)
+    paths = {"arpa": arpa, "probing": work / "probing.binary", "trie": work / "trie.binary"}
+    kenlm_binary.write_kenlm_binary(lm, paths["probing"])
+    kenlm_trie.write_kenlm_trie(lm, paths["trie"])
+    loaded = {name: NGramLM.load(p) for name, p in paths.items()}
+    dense = {name: (x if hasattr(x, "probs") else x.to_ngram_lm()) for name, x in loaded.items()}
+    if type(loaded["probing"]).__name__ != "KenLMBinaryLM":
+        raise AssertionError(f"the PROBING file loaded as {type(loaded['probing'])}")
+    keys = set(lm.probs)
+    errs = {}
+    for name in ("probing", "trie"):
+        d = dense[name]
+        if set(d.probs) != keys:
+            raise AssertionError(f"the {name} binary holds other n-grams than the ARPA")
+        # a backoff of 0 is no backoff: the binaries keep none, the ARPA may list it
+        errs[name] = max(max(abs(d.probs[k] - lm.probs[k]) for k in keys),
+                         max((abs(d.backoffs.get(k, 0.0) - lm.backoffs.get(k, 0.0))
+                              for k in set(lm.backoffs) | set(d.backoffs)), default=0.0))
+    pb, tb = dense["probing"], dense["trie"]
+    errs["probing_vs_trie"] = max(
+        max(abs(pb.probs[k] - tb.probs[k]) for k in keys),
+        max((abs(pb.backoffs.get(k, 0.0) - tb.backoffs.get(k, 0.0))
+             for k in set(pb.backoffs) | set(tb.backoffs)), default=0.0))
+    # the scorer the host beam uses, on every listed n-gram's context
+    score_err = 0.0
+    for ng in list(keys)[:2000]:
+        ctx, w = ng[:-1], ng[-1]
+        want = lm.score(w, ctx)[0]
+        for name in ("probing", "trie"):
+            score_err = max(score_err, abs(loaded[name].score(w, ctx)[0] - want))
+    log(f"  3-gram over {len(sentences)} transcripts ({sum(map(len, sentences))} pieces) in "
+        f"{train_s * 1e3:.1f} ms: {len(keys)} n-grams; PROBING {paths['probing'].stat().st_size} "
+        f"and TRIE {paths['trie'].stat().st_size} bytes beside the ARPA's "
+        f"{arpa.stat().st_size}; every n-gram in all three, scores apart by at most {errs} "
+        f"(tol {LM_SCORE_TOL}: fp32 log10 on disk); conditional scores within "
+        f"{score_err:.3g}")
+    if max(errs.values()) > LM_SCORE_TOL or score_err > LM_SCORE_TOL:
+        raise AssertionError(f"the kenlm binaries' scores: {errs}, {score_err}")
+    return {"paths": paths, "dense": dense, "ngrams": len(keys), "score_err": errs,
+            "conditional_err": score_err,
+            "bytes": {n: p.stat().st_size for n, p in paths.items()}}
+
+
+def run_lm_tools() -> dict:
+    """Phase 18: (a) train_ngram, the kenlm binaries and fusion from each
+    file; (b) val.py --beam_parallel_procs against the one-process host
+    beam; (c) sweep_scale_factor on the synthetic_e2e model; (d) the
+    quantized base-85M validated greedy, against the CPU, and its serving
+    tick as a CUDA graph."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import offline, val
+    from caiman_asr_tpu_torch.data.tokenizer import piece_table
+    from caiman_asr_tpu_torch.decoding import parallel
+    from caiman_asr_tpu_torch.decoding.beam import RNNTBeamDecoder
+    from caiman_asr_tpu_torch.export.checkpointer import apply_params, load_checkpoint
+    from caiman_asr_tpu_torch.lm import sweep_scale_factor, train_ngram
+    from caiman_asr_tpu_torch.lm.device_table import build_device_tables
+    from caiman_asr_tpu_torch.models.config import load_config
+    from caiman_asr_tpu_torch.ops import lstm as lstm_ops
+    from caiman_asr_tpu_torch.serving.engine import StreamingEngine
+    from caiman_asr_tpu_torch.setup import builders
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "smoke" / "val"  # phase 14's workspace
+    work = REPO / "build" / "smoke" / "lm_tools"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg_path = REPO / VAL_CONFIG
+    cfg = load_config(cfg_path)
+    enc_layers = cfg.rnnt.enc_pre_rnn_layers + cfg.rnnt.enc_post_rnn_layers
+    tok_path = REPO / "build" / "smoke" / "tokenizer.json"
+    base = ["--model_config", str(cfg_path), "--tokenizer_model", str(tok_path),
+            "--ckpt", str(root / "ckpt.npz"), "--dataset_dir", str(root),
+            "--mel_stats_path", str(root / "mel_stats.npz"), "--val_batch_size", str(VAL_BATCH)]
+    entries = json.loads((root / "manifest.json").read_text())
+    batches = -(-len(entries) // VAL_BATCH)
+    out = {"card": card()}
+
+    def validate(argv, name):
+        args = val.val_arg_parser().parse_args(argv + ["--output_dir", str(work / name)])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = val.validate(args)
+        torch.cuda.synchronize()
+        return res, {n: v for n, v in read_counts().items() if v}, time.perf_counter() - t0
+
+    # (a) the n-gram, its kenlm binaries, fusion from each file
+    t_a = time.perf_counter()
+    fmt = lm_formats(root, work)
+    n_classes = MODELS["base-85M"][1]
+    pieces = piece_table(builders.build_tokenizer(cfg, str(tok_path), sampling=0.0), n_classes)
+    tables = {n: build_device_tables(d, pieces, skip_ids=[n_classes - 1])
+              for n, d in fmt["dense"].items()}
+    tab_equal = all(np.array_equal(tables["arpa"].next_state, t.next_state)
+                    for t in tables.values())
+    tab_err = max(float(np.abs(tables[a].score - tables[b].score).max())
+                  for a, b in (("probing", "arpa"), ("trie", "arpa"), ("probing", "trie")))
+    log(f"  device tables: {tables['arpa'].n_states} states x {n_classes} columns; transitions "
+        f"equal: {tab_equal}, scores apart by at most {tab_err:.3g} across the three")
+    if not tab_equal or tab_err > LM_SCORE_TOL:
+        raise AssertionError("the device tables differ between the LM's files")
+    fused = {}
+    beam = ["--decoder", "fast_beam", "--beam_width", "4", "--max_symbols_per_step",
+            str(LM_BEAM_MSYM), "--val_manifests", "manifest.json"]
+    for name, path in list(fmt["paths"].items()) + [("none", None)]:
+        lm_flags = (["--ngram_path", str(path), "--ngram_scale_factor", LM_SCALE] if path
+                    else ["--skip_ngram"])
+        fused[name] = validate(base + beam + lm_flags, f"fast_beam_{name}")
+    hyps = {n: r[0].hyps for n, r in fused.items()}
+    k1 = {n: r[1].get("lstm_recurrence", 0) for n, r in fused.items()}
+    want_k1 = batches * enc_layers
+    changed = sum(a != b for a, b in zip(hyps["arpa"], hyps["none"]))
+    log(f"  fast beam (W=4, E={LM_BEAM_MSYM}), fp32, fusion at {LM_SCALE} from the ARPA, the "
+        f"PROBING and the TRIE binary: hypotheses identical: "
+        f"{hyps['arpa'] == hyps['probing'] == hyps['trie']} ({sum(map(bool, hyps['arpa']))} "
+        f"non-empty, WER {fused['arpa'][0].wer:.6f}); fusion changes {changed} of "
+        f"{len(entries)} hypotheses against no LM; K1 {k1} (predicted {want_k1} a run: "
+        f"{enc_layers} a batch of {batches}); "
+        + ", ".join(f"{n} {r[2]:.2f} s" for n, r in fused.items()))
+    if not hyps["arpa"] == hyps["probing"] == hyps["trie"]:
+        raise AssertionError("fusion from the kenlm binaries differs from the ARPA's")
+    if any(v != want_k1 for v in k1.values()) or any(
+            set(r[1]) - {"lstm_recurrence"} for r in fused.values()):
+        raise AssertionError(f"the fused validations' launches: {[r[1] for r in fused.values()]}")
+    out["a"] = {**{k: v for k, v in fmt.items() if k not in ("paths", "dense")},
+                "states": tables["arpa"].n_states, "tables_equal": tab_equal,
+                "table_err": tab_err, "hyps_identical": True, "changed_by_fusion": changed,
+                "wer": {n: r[0].wer for n, r in fused.items()}, "k1": k1,
+                "wall_s": {n: r[2] for n, r in fused.items()},
+                "seconds": time.perf_counter() - t_a}
+
+    # (b) the beam over worker processes against the one-process host beam
+    t_b = time.perf_counter()
+    shortest = sorted(range(len(entries)),
+                      key=lambda i: entries[i]["files"][0]["duration"])[:PAR_UTTS]
+    (work / "par.json").write_text(json.dumps([  # the audio where phase 14 wrote it
+        dict(entries[i], files=[dict(f, fname=str(root / f["fname"]))
+                                for f in entries[i]["files"]]) for i in sorted(shortest)]))
+    captured = []
+    orig = parallel.ParallelDecoder.decode_encs
+
+    def capture(self, encs, enc_lens):
+        res = orig(self, encs, enc_lens)
+        captured.append((encs, enc_lens, res, self.nprocs))
+        return res
+
+    par_argv = base + ["--decoder", "beam", "--beam_width", "4",
+                       "--val_manifests", str(work / "par.json"),
+                       "--beam_parallel_procs", str(PAR_PROCS),
+                       "--beam_min_decode_batch_size_per_proc", "1"]
+    with mock.patch.object(parallel.ParallelDecoder, "decode_encs", capture):
+        pres, pcounts, pwall = validate(par_argv, "parallel")
+    if len(captured) != 1:
+        raise AssertionError(f"the parallel decoder decoded {len(captured)} batches, not one")
+    encs, enc_lens, par_resp, nprocs = captured[0]
+    # the one-process host beam with the kwargs the workers got, on the
+    # card's encoder outputs, on the CPU as the workers run it
+    args = val.val_arg_parser().parse_args(par_argv)
+    pcfg = load_config(cfg_path)
+    ptok = builders.build_tokenizer(pcfg, str(tok_path))
+    cpu_model, blank = builders.build_model(pcfg, ptok, device="cpu")
+    cpu_model.eval()
+    loaded, ema, _, _ = load_checkpoint(root / "ckpt.npz")
+    apply_params(cpu_model.param_tree(), ema if ema is not None else loaded)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+    try:
+        t0 = time.perf_counter()
+        ref = RNNTBeamDecoder(cpu_model, blank, ptok, **val.parallel_decoder_kwargs(args)
+                              ).decode_encs(encs, enc_lens)
+        ref_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    got_toks, ref_toks = tokens(par_resp), tokens(ref)
+    frames = [int(x) for x in enc_lens]
+    syms = sum(map(len, ref_toks))
+    log(f"  val.py --decoder beam --beam_parallel_procs {PAR_PROCS} on the {PAR_UTTS} shortest "
+        f"utterances ({frames} encoder frames): {pwall:.2f} s, WER {pres.wer:.6f}, K1 "
+        f"{pcounts.get('lstm_recurrence', 0)} (predicted {enc_layers}: the parent's encoder; "
+        f"the workers run on the CPU); the one-process host beam on the CPU with the workers' "
+        f"kwargs {val.parallel_decoder_kwargs(args)} in {ref_s:.2f} s: tokens identical "
+        f"{got_toks == ref_toks} ({syms} symbols, {syms / max(1, sum(frames)):.2f} a frame)")
+    if got_toks != ref_toks:
+        raise AssertionError("the worker beam differs from the one-process host beam")
+    if pcounts != {"lstm_recurrence": enc_layers}:
+        raise AssertionError(f"the parallel validation's launches: {pcounts}")
+    out["b"] = {"utterances": PAR_UTTS, "frames": frames, "wall_s": pwall, "ref_s": ref_s,
+                "wer": pres.wer, "launches": pcounts, "tokens_identical": True,
+                "symbols": syms, "seconds": time.perf_counter() - t_b}
+    del cpu_model
+
+    # (c) the scale sweep on phase 15's synthetic_e2e model
+    t_c = time.perf_counter()
+    e2e = REPO / "build" / "smoke" / "e2e"
+    train_ngram.main(["--manifests", "train.json", "--dataset_dir", str(e2e),
+                      "--tokenizer_model", str(e2e / "tok.json"), "--order", str(LM_ORDER),
+                      "--output_dir", str(work / "e2e_ngram")])
+    e2e_argv = ["--model_config", str(e2e / "cfg.yaml"), "--dataset_dir", str(e2e),
+                "--val_manifests", "dev.json", "--ckpt", str(e2e / "out" / "ckpts" / "best.npz"),
+                "--mel_stats_path", str(e2e / "mel_stats.npz"), "--beam_width", "4"]
+    torch.cuda.synchronize()
+    reset_counts()
+    sweep = sweep_scale_factor.main(e2e_argv + [
+        "--output_dir", str(work / "sweep"), "--ngram_path",
+        str(work / "e2e_ngram" / "ngram.arpa"), "--scales", *SWEEP_SCALES])
+    torch.cuda.synchronize()
+    scounts = {n: v for n, v in read_counts().items() if v}
+    no_lm, _, _ = validate(e2e_argv + ["--decoder", "beam", "--skip_ngram"], "sweep_no_lm")
+    log(f"  sweep_scale_factor on the {E2E_STEPS}-step synthetic_e2e model, host beam W=4: "
+        + ", ".join(f"scale {r['scale']}: WER {r['wer']:.6f}" for r in sweep)
+        + f"; without the LM {no_lm.wer:.6f}; launches {scounts} "
+        f"({time.perf_counter() - t_c:.2f} s)")
+    if [r["scale"] for r in sweep] != [float(s) for s in SWEEP_SCALES] or not all(
+            np.isfinite(r["wer"]) for r in sweep) or sweep[0]["wer"] != no_lm.wer:
+        raise AssertionError(f"the sweep: {sweep}, without the LM {no_lm.wer}")
+    out["c"] = {"results": sweep, "no_lm_wer": no_lm.wer, "launches": scounts,
+                "seconds": time.perf_counter() - t_c}
+
+    # (d) the quantized base-85M: greedy validation, the CPU, the serving tick
+    t_d = time.perf_counter()
+    qcfg_path = work / "base-quantized.yaml"
+    text = cfg_path.read_text()
+    if text.count("\n  quantize: false") != 1:
+        raise AssertionError(f"{cfg_path} does not set rnnt.quantize once")
+    qcfg_path.write_text(text.replace("\n  quantize: false", "\n  quantize: true"))
+    qcfg = load_config(qcfg_path)
+    if not qcfg.rnnt.quantize:
+        raise AssertionError("the quantized config does not reach the model")
+    qbase = [a if a != str(cfg_path) else str(qcfg_path) for a in base]
+    # (b)'s shortest utterances: all 16 took 47-79 s on an H100 (the greedy
+    # loop's quantizers, 3.0-4.7 ms an iteration in its graphs), which
+    # brought the script near its 1,200 s
+    greedy = ["--val_manifests", str(work / "par.json"), "--skip_ngram"]
+    # each layer's weights are quantized once after the load, whatever
+    # runs them after: the encoder's scan, the greedy loop's graphs
+    lstm_layers = enc_layers + cfg.rnnt.pred_rnn_layers
+    quantized_layers = []
+    real_quantize = lstm_ops._quantize_layer
+
+    def counted(p, dtype):
+        quantized_layers.append(dtype)
+        return real_quantize(p, dtype)
+
+    with val_probes(cfg.rnnt.enc_stack_time_factor) as qprobe, mock.patch.object(
+            lstm_ops, "_quantize_layer", counted):
+        qres, qcounts, qwall = validate(qbase + greedy, "quantized")
+    fres, fcounts, fwall = validate(base + greedy, "unquantized")
+    same_f = sum(a == b for a, b in zip(qres.hyps, fres.hyps))
+    qdec = qprobe["decode"]
+    log(f"  quantize: true, greedy, {PAR_UTTS} utterances: {qwall:.2f} s (unquantized "
+        f"{fwall:.2f} s), the decoder (encoder and greedy loop) "
+        f"{sum(d['ms'] for d in qdec) / 1e3:.2f} s over {len(qdec)} batches, "
+        f"{sum(d['symbols'] for d in qdec)} symbols; WER {qres.wer:.6f} (unquantized "
+        f"{fres.wer:.6f}), {sum(map(bool, qres.hyps))} non-empty; launches {qcounts} "
+        f"(predicted none: the quantized scan bypasses K1), unquantized {fcounts}; layers "
+        f"quantized {len(quantized_layers)} (the model's {lstm_layers}, once each); "
+        f"hypotheses equal to the unquantized run's {same_f}/{PAR_UTTS}")
+    if qcounts or not any(qres.hyps) or len(qres.hyps) != PAR_UTTS:
+        raise AssertionError(f"the quantized validation launched {qcounts}")
+    if quantized_layers != [torch.float32] * lstm_layers:
+        raise AssertionError(f"the validation quantized {quantized_layers}, not each of "
+                             f"{lstm_layers} layers once")
+    # the encoder and greedy on the card against the CPU, (b)'s shortest
+    # utterances; and the unquantized model on the card, on the same weights
+    qtok = builders.build_tokenizer(qcfg, str(tok_path), sampling=0.0)
+    models = {}
+    for name, c in (("card", qcfg), ("cpu", qcfg), ("plain", cfg)):
+        m, blank = builders.build_model(c, qtok, device="cpu" if name == "cpu" else "cuda")
+        m.eval()
+        apply_params(m.param_tree(), ema if ema is not None else loaded)
+        models[name] = m
+    _, fp = builders.build_feature_pipelines(qcfg, builders.load_mel_stats(
+        str(root / "mel_stats.npz")), device="cuda")
+    sel = json.loads((work / "par.json").read_text())[:PAR_UTTS]
+    from caiman_asr_tpu_torch.data.audio import read_audio
+
+    waves = [read_audio(root / e["files"][0]["fname"], SR) for e in sel]
+    lens = np.array([len(w) for w in waves])
+    audio = np.zeros((len(waves), int(lens.max())), np.float32)
+    for i, w in enumerate(waves):
+        audio[i, :len(w)] = w
+    with torch.inference_mode():
+        feats, feat_lens = fp(torch.from_numpy(audio).cuda(), torch.from_numpy(lens).cuda(),
+                              dataset_to_utt_ratio=1.0)
+        enc, lstm_out, toks, decs = {}, {}, {}, {}
+        for name, m in models.items():
+            dev = "cpu" if name == "cpu" else "cuda"
+            f, fl, _ = m.encode(feats.to(dev), feat_lens.to(dev))
+            enc[name] = (f.float().cpu(), fl.cpu())
+            dec = decs[name] = (offline.build_decoder(m, "greedy", tokenizer=qtok), f, fl)
+            if name == "plain":
+                continue
+            lstm_out[name] = quantized_lstm_output(m, feats.to(dev), feat_lens.to(dev)).cpu()
+            toks[name] = [list(t[:int(n)]) for t, n in zip(*[np.asarray(x) for x in
+                                                            dec[0].decode_encs(f, fl)[0::3]])]
+        # the card's greedy loop, quantized and not, its graphs captured by
+        # a first call: ms an iteration
+        decs["plain"][0].decode_encs(*decs["plain"][1:])
+        loop_ms = {}
+        for name in ("card", "plain"):
+            dec, f, fl = decs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.decode_encs(f, fl)
+            torch.cuda.synchronize()
+            loop_ms[name] = (1e3 * (time.perf_counter() - t0), dec.last_run["iters"],
+                             dec.last_run["graph"])
+    valid = torch.arange(enc["cpu"][0].shape[1])[None, :] < enc["cpu"][1][:, None]
+    d = (enc["card"][0] - enc["cpu"][0]).abs()[valid]
+    d_plain = (enc["plain"][0] - enc["card"][0]).abs()[valid]
+    hq, hc = lstm_out["card"][valid].view(torch.int32), lstm_out["cpu"][valid].view(torch.int32)
+    h_equal = float((hq == hc).float().mean())
+    # on the brain-float grid, the top 16 bits are the brain-float's: their
+    # distance counts ulps where the signs agree (else 2^15 or more)
+    h_ulps = int(((hq >> 16) - (hc >> 16)).abs().max())
+    same_cpu = sum(a == b for a, b in zip(toks["card"], toks["cpu"]))
+    log(f"  the quantized encoder on the card against the CPU ({PAR_UTTS} utterances, "
+        f"{int(valid.sum())} frames): LSTM output {h_equal:.6f} of entries bit-equal (limit "
+        f"{QUANT_LSTM_EQUAL_SHARE}), the rest within {h_ulps} brain-float ulps (limit "
+        f"{QUANT_LSTM_MAX_ULPS}); "
+        f"f max |diff| {float(d.max()):.4g}, mean {float(d.mean()):.4g} (limits "
+        f"{QUANT_F_MAX_TOL} / {QUANT_F_MEAN_TOL}), entries equal "
+        f"{float((d == 0).float().mean()):.4f}; the unquantized model's f on the same weights "
+        f"apart by mean {float(d_plain.mean()):.4g}, max {float(d_plain.max()):.4g} (at least "
+        f"{QUANT_VS_PLAIN_MIN_MEAN}); greedy tokens equal to the CPU's {same_cpu}/{len(sel)} "
+        f"({sum(map(len, toks['cpu']))} tokens on the CPU); the card's greedy loop, its "
+        f"graphs captured: quantized {loop_ms['card'][0]:.1f} ms for {loop_ms['card'][1]} "
+        f"iterations ({loop_ms['card'][0] / max(1, loop_ms['card'][1]):.3f} ms each, graph "
+        f"{loop_ms['card'][2]}), unquantized {loop_ms['plain'][0]:.1f} ms for "
+        f"{loop_ms['plain'][1]} ({loop_ms['plain'][0] / max(1, loop_ms['plain'][1]):.3f} ms)")
+    if not (h_equal >= QUANT_LSTM_EQUAL_SHARE and h_ulps <= QUANT_LSTM_MAX_ULPS
+            and float(d.max()) <= QUANT_F_MAX_TOL and float(d.mean()) <= QUANT_F_MEAN_TOL
+            and torch.equal(enc["card"][1], enc["cpu"][1])):
+        raise AssertionError("the quantized encoder on the card differs from the CPU's")
+    if not float(d_plain.mean()) >= QUANT_VS_PLAIN_MIN_MEAN:
+        raise AssertionError("the quantized encoder on the card equals the unquantized one")
+    if same_cpu != len(sel):
+        raise AssertionError(f"quantized greedy on the card: {same_cpu}/{len(sel)} "
+                             "hypotheses equal to the CPU's")
+    # a bf16 serving engine with the quantized model, streaming the same
+    # utterances (cut to whole 60 ms chunks): the graph against eager
+    from caiman_asr_tpu_torch import bench_serving
+
+    mel_stats = builders.load_mel_stats(str(root / "mel_stats.npz"))
+    slens = lens // 960 * 960
+    streamed = {}
+    for graph in (True, False):
+        eng = StreamingEngine(models["card"], blank, bench_serving.bench_tokenizer(n_classes),
+                              mel_stats, max_streams=QUANT_GRAPH_B, max_symbols_per_step=4,
+                              dtype=torch.bfloat16, device="cuda", cuda_graph=graph)
+        reset_counts()
+        streamed[graph] = _stream_tokens(eng, audio, slens)
+        streamed[graph, "packed"] = eng._native_ser.packed
+        streamed[graph, "k1"] = read_counts()["lstm_recurrence"]
+        streamed[graph, "state"] = [t.clone() for hc in eng.enc_state for t in hc] + list(
+            eng.dec_state)
+        streamed[graph, "captured"] = eng._graph is not None
+        eng.close()
+    equal = streamed[True] == streamed[False] and len(streamed[True, "packed"]) == len(
+        streamed[False, "packed"]) and all(
+        np.array_equal(a, b) and np.array_equal(aa, ba)
+        for (a, aa), (b, ba) in zip(streamed[True, "packed"], streamed[False, "packed"])) and all(
+        torch.equal(a, b) for a, b in zip(streamed[True, "state"], streamed[False, "state"]))
+    emitted = sum(map(len, streamed[True]))
+    log(f"  quantized bf16 engine, B={QUANT_GRAPH_B}: tick captured as a CUDA graph "
+        f"{streamed[True, 'captured']}; {len(streamed[True, 'packed'])} graph replays "
+        f"streaming the {len(sel)} utterances against eager ticks, tokens, packed outputs and "
+        f"state bit-equal: {equal} ({emitted} symbols); K1 counted {streamed[True, 'k1']} / "
+        f"{streamed[False, 'k1']}")
+    if not (equal and streamed[True, "captured"]) or streamed[True, "k1"] or streamed[
+            False, "k1"]:
+        raise AssertionError("the quantized engine's graph replays differ from its eager ticks")
+    del models
+    torch.cuda.empty_cache()
+    out["d"] = {"wer": qres.wer, "unquantized_wer": fres.wer, "launches": qcounts,
+                "hyps_equal_unquantized": same_f, "utterances": PAR_UTTS,
+                "wall_s": qwall, "unquantized_wall_s": fwall,
+                "lstm_equal_share": h_equal, "lstm_max_bf_ulps": h_ulps,
+                "layers_quantized": len(quantized_layers),
+                "decoder_s": sum(d["ms"] for d in qdec) / 1e3,
+                "symbols": sum(d["symbols"] for d in qdec),
+                "loop_ms": {n: {"ms": v[0], "iters": v[1], "graph": v[2]}
+                            for n, v in loop_ms.items()},
+                "enc_max_abs_err": float(d.max()), "enc_mean_abs_err": float(d.mean()),
+                "enc_equal_share": float((d == 0).float().mean()),
+                "plain_mean_abs_diff": float(d_plain.mean()),
+                "plain_max_abs_diff": float(d_plain.max()),
+                "cpu_utterances": len(sel), "hyps_equal_cpu": same_cpu,
+                "graph_equal_eager": equal, "streamed_symbols": emitted,
+                "seconds": time.perf_counter() - t_d}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = {"lstm_recurrence": sum(out["a"]["k1"].values())
+                       + out["b"]["launches"].get("lstm_recurrence", 0)
+                       + out["c"]["launches"].get("lstm_recurrence", 0)}
+    log(f"  phase 18 took {out['seconds']:.1f} s: (a) {out['a']['seconds']:.1f}, (b) "
+        f"{out['b']['seconds']:.1f}, (c) {out['c']['seconds']:.1f}, (d) "
+        f"{out['d']['seconds']:.1f} on {card()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4969,6 +5454,13 @@ def main() -> int:
         "x 2 manifests), the .pt export and import, --read_from_tar in spm_train and "
         "generate_mel_stats")
     latency = run_latency_tools()
+    torch.cuda.empty_cache()
+
+    # 18. the rest of inference
+    log("== the rest of inference: train_ngram and the kenlm binaries (fusion from each), "
+        f"val.py --beam_parallel_procs {PAR_PROCS}, sweep_scale_factor, quantize: true "
+        "(greedy validation, the CPU, the serving tick's CUDA graph)")
+    lm_tools = run_lm_tools()
 
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
@@ -5091,6 +5583,22 @@ def main() -> int:
                     f"batches of {LT_B} (K1: 10 a batch); val_multiple --calc_loss over "
                     f"{latency['val_multiple']['jobs']} jobs (2 checkpoints x 2 manifests, "
                     f"batches of {VAL_BATCH})")})
+        if wrapper == "lstm_recurrence":  # phase 18's tools
+            kernels[-1].update({
+                "launches_lm_tools": {"fused_fast_beam": lm_tools["a"]["k1"],
+                                      "parallel_beam": lm_tools["b"]["launches"].get(
+                                          "lstm_recurrence", 0),
+                                      "sweep": lm_tools["c"]["launches"].get(
+                                          "lstm_recurrence", 0),
+                                      "quantized": lm_tools["d"]["launches"].get(
+                                          "lstm_recurrence", 0)},
+                "launches_lm_tools_per": (
+                    f"phase 18: the fp32 fast beam (W=4) over {N_UTTS} utterances in batches "
+                    f"of {VAL_BATCH} with no LM and with fusion from the ARPA, the PROBING and "
+                    f"the TRIE file (K1 8 a batch); val.py --beam_parallel_procs {PAR_PROCS} on "
+                    f"{PAR_UTTS} utterances (the parent's encoder, 8); sweep_scale_factor over "
+                    f"{len(SWEEP_SCALES)} scales on the synthetic_e2e model; quantize: true "
+                    "greedy validation (none: the quantized scan bypasses K1)")})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -5165,6 +5673,7 @@ def main() -> int:
     log("training CLI summary: " + json.dumps(cli))
     log("multihost summary: " + json.dumps(multihost))
     log("latency tools summary: " + json.dumps(latency))
+    log("lm tools summary: " + json.dumps(lm_tools, default=str))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},

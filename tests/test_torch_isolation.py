@@ -46,6 +46,11 @@ for name in ("train", "args.train", "data.noise", "data.generate_mel_stats", "da
              "data.tokenizer", "export.checkpoint_averaging", "export.model_schema",
              "export.serving_bundle", "log.profiling", "synthetic_e2e", "serving.server"):
     assert "caiman_asr_tpu_torch." + name in names, name
+# the rest of inference: the n-gram tools, the kenlm formats, the worker
+# beam, the FPGA arithmetic
+for name in ("lm.train_ngram", "lm.kenlm_binary", "lm.kenlm_trie", "lm.sweep_scale_factor",
+             "decoding.parallel", "ops.quantize"):
+    assert "caiman_asr_tpu_torch." + name in names, name
 from caiman_asr_tpu_torch.models.config import load_config
 assert load_config("configs/base-8703sp.yaml").rnnt.enc_n_hid == 1024
 """

@@ -98,9 +98,12 @@ def test_binary_roundtrip_and_find(arpa, tmp_path):
 
 
 def test_kenlm_binary_is_refused(tmp_path):
+    """A kenlm binary is read by lm/kenlm_binary.py now; one with the magic
+    but no version-5 header is refused with ValueError, never parsed as
+    ARPA (tests/test_torch_kenlm.py covers the readers)."""
     p = tmp_path / "ngram.binary"
     p.write_bytes(NGramLM._KENLM_MAGIC + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="kenlm_binary"):
+    with pytest.raises(ValueError, match="unsupported kenlm binary header"):
         NGramLM.load(p)
 
 

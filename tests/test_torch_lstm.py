@@ -7,6 +7,8 @@ Tolerances: fp32 2e-5, as the JAX package's own Pallas-vs-scan test; bf16
 once where the port rounds the product and then the biased sum.
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,7 +131,16 @@ def test_cpu_tensors_take_the_plain_version(layer):
 
 
 def test_quantize_is_not_ported(layer):
+    """The quantized layer is ported (tests/test_torch_quantize.py holds it
+    against JAX in full): on this layer it agrees with JAX's to the bit or
+    within a few fp32 ulps, and runs without the recurrence kernel."""
+    from tests.test_torch_quantize import close_in_bf_steps
+
     params, x, h0, c0 = layer
-    with pytest.raises(NotImplementedError):
-        run_lstm_layer(to_torch(params), torch.from_numpy(x), torch.from_numpy(h0),
-                       torch.from_numpy(c0), quantize=True)
+    want = jax_run_lstm_layer(params, jnp.asarray(x), jnp.asarray(h0), jnp.asarray(c0),
+                              quantize=True)
+    with mock.patch.object(lstm_kernel, "recurrence", side_effect=AssertionError("K1")):
+        got = run_lstm_layer(to_torch(params), torch.from_numpy(x), torch.from_numpy(h0),
+                             torch.from_numpy(c0), quantize=True)
+    for g, w in zip(got, want):
+        assert close_in_bf_steps(g.numpy(), w, "quantized layer") == 0

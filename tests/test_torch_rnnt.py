@@ -4,6 +4,7 @@ the port's config loader against the JAX one. Tolerance 2e-5 absolute
 (fp32; LSTM and Linear sums in another order)."""
 
 import dataclasses
+from unittest import mock
 from pathlib import Path
 
 import jax
@@ -123,10 +124,22 @@ def test_pred_step_and_joint(models):
 
 
 def test_quantized_model_is_not_ported():
-    kw = dict(TINY, quantize=True)
-    tm = RNNT(RNNTModelConfig(**kw), K, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.encode(torch.zeros(4, 1, 12), torch.tensor([4]))
+    """A ``quantize: true`` model is ported: it encodes through the
+    quantized scan in fp32, never through the recurrence kernel, and differs
+    from the plain model on the same weights (tests/test_torch_quantize.py
+    holds it against JAX)."""
+    from caiman_asr_tpu_torch.ops import lstm_kernel
+
+    tm = RNNT(RNNTModelConfig(**dict(TINY, quantize=True)), K, device="cpu")
+    tm.init_weights(torch.Generator().manual_seed(0))
+    plain = RNNT(RNNTModelConfig(**TINY), K, device="cpu")
+    plain.load_state_dict(tm.state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 2, 12)).astype(np.float32))
+    lens = torch.tensor([8, 6])
+    with mock.patch.object(lstm_kernel, "recurrence", side_effect=AssertionError("K1")):
+        enc, enc_lens, _ = tm.encode(x, lens)
+    assert enc.dtype == torch.float32 and torch.isfinite(enc).all()
+    assert not torch.equal(enc, plain.encode(x, lens)[0])
 
 
 def test_init_weights_is_seeded():
