@@ -193,13 +193,13 @@ def evaluate(
     # word-level timestamps, the CTM and emission latency against ground truth
     result.word_timestamps = group_timestamps(
         pieces_list, [[user_perceived_time(t) for t in ts] for ts in tss], hyps, terminations)
-    if mesh.world() > 1:
-        # each rank's shard, then the whole set alike on every rank; only
-        # rank 0 logs and writes the predictions and the CTM
+    if mesh.data_world() > 1:
+        # each data rank's shard, then the whole set alike on every rank
         result = aggregate_eval_results(result, loss_count)
         hyps, refs, fnames = result.hyps, result.refs, result.fnames
-        if mesh.rank() != 0:
-            logger, dump_preds_dir, ctm_path = None, None, None
+    if mesh.rank() != 0:
+        # only rank 0 logs and writes the predictions and the CTM
+        logger, dump_preds_dir, ctm_path = None, None, None
     if ctm_path is not None:
         last_emit = dump_ctm(fnames, result.word_timestamps, ctm_path, frame_width)
         if gt_ctm_path is not None:

@@ -6,7 +6,9 @@ combine the shards over ``torch.distributed``. Every one returns the same
 value on every rank (all-reduce and all-gather, not a gather to rank 0), so
 what depends on the result (``--die_if_wer_bad``, the best-checkpoint
 choice, the skipped-step alarm) takes the same branch everywhere. With one
-process they return their input.
+process they return their input. Under model parallelism the ranks of a
+model group evaluate the same rows (``parallel/mesh.data_rank``), so the
+shards are combined over the data group: one rank a vocab shard.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def sync_wer_across_processes(scores, num_words) -> float:
 def gather_objects(obj) -> List:
     """One picklable object a process, gathered to every process in process
     order."""
-    return mesh.all_gather_objects(obj)
+    return mesh.all_gather_objects(obj, data_only=True)
 
 
 def aggregate_eval_results(result, loss_count: float = 0.0):
@@ -40,7 +42,7 @@ def aggregate_eval_results(result, loss_count: float = 0.0):
     WER from the summed scores and words, the loss weighted by each
     process's count of utterances, the per-utterance lists concatenated in
     process order."""
-    if mesh.world() == 1:
+    if mesh.data_world() == 1:
         return result
     ls = result.loss if result.loss is not None else 0.0
     scores, num_words, loss_sum, count_sum = mesh.all_reduce_floats(

@@ -3,7 +3,10 @@
 The tree arrives as nested dicts of numpy arrays (``np.asarray`` over the
 JAX leaves), so nothing here imports JAX. Names follow the reference torch
 model; layouts are the same on both sides (LSTM ``[4H, in]`` with gates
-i, f, g, o; Linear ``[out, in]``), so the mapping is renaming only.
+i, f, g, o; Linear ``[out, in]``), so the mapping is renaming only. The
+pruned loss's training-only heads (``simple_am``, ``simple_lm``) are no
+module parameters: a train state carries them in its tree, the model's
+``state_dict`` leaves them out.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "runnin
 _LINEARS = {"joint_enc": "joint_enc", "joint_pred": "joint_pred", "joint_fc": "joint_net.2"}
 _TREE = {"encoder": {"pre_rnn", "post_rnn"}, "prediction": {"embed", "dec_rnn"},
          **{k: None for k in _LINEARS}}
+TRAIN_ONLY = ("simple_am", "simple_lm")  # the pruned loss's heads
 
 
 def _t(a) -> torch.Tensor:
@@ -29,8 +33,8 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX RNN-T parameter tree -> the port's ``state_dict``.
 
     Raises on a leaf this mapping does not know, so nothing is dropped
-    silently."""
-    unknown = sorted(set(params) - set(_TREE)) + sorted(
+    silently; the pruned loss's heads (``TRAIN_ONLY``) are left out."""
+    unknown = sorted(set(params) - set(_TREE) - set(TRAIN_ONLY)) + sorted(
         f"{top}/{k}" for top, subs in _TREE.items() if subs
         for k in set(params[top]) - subs
     )
@@ -94,7 +98,9 @@ def train_state_from_jax(model: torch.nn.Module, params: Mapping, ema_params: Ma
     (numpy trees of the parameters' layout, as the caller takes them from
     the optax state) become fp32 tensors on the model's device; ``count``
     and ``sched_count`` are the Adam and schedule counts; ``step`` the taken
-    steps (default: ``count``)."""
+    steps (default: ``count``). The pruned loss's heads, where ``params``
+    holds them, join the state's tree (fp32, requiring gradients) with their
+    EMA and moments."""
     from caiman_asr_tpu_torch.training.optimizer import LambState
     from caiman_asr_tpu_torch.training.step import TrainState
     from caiman_asr_tpu_torch.training.tree import tree_map
@@ -102,6 +108,10 @@ def train_state_from_jax(model: torch.nn.Module, params: Mapping, ema_params: Ma
     load_jax_params(model, params)
     tree = model.param_tree()
     dev = next(model.parameters()).device
+    for top in TRAIN_ONLY:
+        if top in params:
+            tree[top] = {k: _t(v).to(dev, torch.float32).requires_grad_()
+                         for k, v in params[top].items()}
 
     def like(src: Mapping):
         return tree_map(lambda p, a: _t(a).to(dev, torch.float32).reshape(p.shape), tree,

@@ -18,9 +18,17 @@
   lattice positions, ``pack_to`` rows (``_packed_joint_scores``); a cap
   below the valid count makes both score tensors -inf, so the loss is not
   finite and the train step skips.
+- ``model_group`` (the JAX package's ``vocab_axis``): ``w_fc`` / ``b_fc``
+  are this rank's contiguous shard of the vocabulary and both the dense and
+  the packed route go through the vocab-parallel joint
+  (``parallel/vocab_parallel.vp_joint_lse``), as ``_joint_lse`` routes it
+  in the JAX package.
 
-Not ported yet: ``vocab_axis`` (the vocab-parallel joint), which raises,
-and the T-chunked dense route.
+The pruned loss (``ops/pruned_loss.py``) reuses the lattice pieces here:
+``_masked_scores``, ``_lattice_alpha_beta``, ``_row_update_fwd`` /
+``_row_update_bwd``, ``_penalised_scores``, ``rnnt_lattice``,
+``_joint_dropout`` and ``_joint_lse``. Not ported: the T-chunked dense
+route, which the fused route replaces on every device.
 """
 
 from __future__ import annotations
@@ -216,25 +224,43 @@ class JointDropout(torch.autograd.Function):
         return torch.where(out != 0, ct / (1.0 - ctx.rate), 0.0).to(ct.dtype), None, None
 
 
+def _joint_dropout(generator: Optional[torch.Generator], h, rate: float):
+    """Joint dropout at ``rate`` drawn from ``generator`` (h unchanged at
+    rate 0)."""
+    if rate <= 0.0:
+        return h
+    if generator is None:
+        raise ValueError("joint dropout requires a generator")
+    return JointDropout.apply(h, rate, generator)
+
+
+def _joint_lse(h, w_t, b, lab_flat, blank_idx: int, model_group=None):
+    """The fused joint + LSE of one process, or under ``model_group`` the
+    vocab-parallel one: ``w_t`` [Hj, K] / ``b`` the local vocab shard and
+    ``blank_idx`` / ``lab_flat`` global ids (``transducer_loss.py:389-401``)."""
+    if model_group is not None:
+        from caiman_asr_tpu_torch.parallel.vocab_parallel import vp_joint_lse
+
+        return vp_joint_lse(h, w_t, b, lab_flat, blank_idx, model_group)
+    return joint_kernel.fused_joint_lse(h, w_t, b, lab_flat, blank_idx)
+
+
 def _fused_joint_scores(f, g, w_fc, b_fc, labels, blank_idx: int,
                         generator: Optional[torch.Generator] = None,
-                        dropout_rate: float = 0.0):
+                        dropout_rate: float = 0.0, model_group=None):
     """(lp_blank, lp_label) [B, T, U+1] without the logits slab."""
     B, T, H = f.shape
     U1 = g.shape[1]
     h = torch.relu(f[:, :, None, :] + g[:, None, :, :]).reshape(B * T * U1, H)
-    if dropout_rate > 0.0:
-        if generator is None:
-            raise ValueError("joint dropout requires a generator")
-        h = JointDropout.apply(h, dropout_rate, generator)
+    h = _joint_dropout(generator, h, dropout_rate)
     lab_flat = _lab_padded(labels)[:, None, :].expand(B, T, U1).reshape(-1)
-    lp_b, lp_l = joint_kernel.fused_joint_lse(h, w_fc.t(), b_fc, lab_flat, blank_idx)
+    lp_b, lp_l = _joint_lse(h, w_fc.t(), b_fc, lab_flat, blank_idx, model_group)
     return lp_b.reshape(B, T, U1), lp_l.reshape(B, T, U1)
 
 
 def _packed_joint_scores(f, g, w_fc, b_fc, labels, t_lens, u_lens, blank_idx: int,
                          pack_to: int, generator: Optional[torch.Generator] = None,
-                         dropout_rate: float = 0.0):
+                         dropout_rate: float = 0.0, model_group=None):
     """(lp_blank, lp_label) [B, T, U+1] with the joint run over ``pack_to``
     rows, the valid positions in (b, t, u) order
     (``caiman_asr_tpu/ops/transducer_loss.py:426-493``).
@@ -262,13 +288,9 @@ def _packed_joint_scores(f, g, w_fc, b_fc, labels, t_lens, u_lens, blank_idx: in
     valid = slots < off[B]
     g_rows = b_i * U1 + u_i
     h = torch.relu(f.reshape(B * T, H)[b_i * T + t_i] + g.reshape(B * U1, H)[g_rows])
-    if dropout_rate > 0.0:
-        if generator is None:
-            raise ValueError("joint dropout requires a generator")
-        h = JointDropout.apply(h, dropout_rate, generator)
+    h = _joint_dropout(generator, h, dropout_rate)
     lab_flat = _lab_padded(labels).reshape(B * U1)[g_rows]
-    lp_b, lp_l = joint_kernel.fused_joint_lse(h, w_fc.t().to(h.dtype), b_fc, lab_flat,
-                                              blank_idx)
+    lp_b, lp_l = _joint_lse(h, w_fc.t().to(h.dtype), b_fc, lab_flat, blank_idx, model_group)
     flat = torch.where(valid, (b_i * T + t_i) * U1 + u_i, N)
     overflow = off[B] > pack_to
 
@@ -293,7 +315,7 @@ def transducer_loss_from_fg(
     generator: Optional[torch.Generator] = None,
     dropout_rate: float = 0.0,
     pack_to: Optional[int] = None,
-    vocab_axis: Optional[str] = None,
+    model_group=None,
 ) -> torch.Tensor:
     """Fused joint + transducer loss, per sample [B].
 
@@ -302,14 +324,15 @@ def transducer_loss_from_fg(
     ``dropout_rate`` > 0 applies joint dropout drawn from ``generator``.
     ``pack_to`` runs the joint over that many rows, the valid lattice
     positions (``training/pack.pack_cap``), instead of all B * T * (U+1).
+    ``model_group``: a ``torch.distributed`` group over which the vocabulary
+    is sharded; ``w_fc`` / ``b_fc`` are then this rank's rows of it.
     """
-    if vocab_axis is not None:
-        raise NotImplementedError("the vocab-parallel joint (vocab_axis) is not ported yet")
     if pack_to is not None:
         lp_blank, lp_label = _packed_joint_scores(f, g, w_fc, b_fc, labels, t_lens, u_lens,
-                                                  blank_idx, pack_to, generator, dropout_rate)
+                                                  blank_idx, pack_to, generator, dropout_rate,
+                                                  model_group)
     else:
         lp_blank, lp_label = _fused_joint_scores(f, g, w_fc, b_fc, labels, blank_idx,
-                                                 generator, dropout_rate)
+                                                 generator, dropout_rate, model_group)
     null, emit = _penalised_scores(lp_blank, lp_label, labels, t_lens, mods)
     return rnnt_lattice(null, emit, t_lens, u_lens)

@@ -16,6 +16,15 @@ array to lay out. Their work is done by the sampler's shard, by the train
 step's all-reduce (``training/step.py``) and, for batch-norm statistics, by
 ``AllReduceSum`` (``ops/lstm.py``).
 
+Model parallelism (``--model_parallel M``, ``init_model_parallel``) splits
+the world into (data x model) as the JAX trainer reshapes its devices
+(``caiman_asr_tpu/train.py:225-230``): rank = data_i * M + model_j. The M
+ranks of a model group share their rows and hold one vocab shard each of
+the joint's last layer and the pruned loss's heads
+(``parallel/vocab_parallel.py``); the ranks of a data group hold the same
+shard and sum their gradients. Where the world is not a multiple of M the
+layout is refused (the JAX trainer drops devices silently there).
+
 The backend follows one rule, printed by ``init_multihost``:
 
 - ``gloo`` on the CPU;
@@ -37,6 +46,9 @@ import torch.distributed as dist
 # set by init_multihost: the backend, this rank's device and the device on
 # which the small host-value collectives run (the card's for NCCL)
 _STATE: Dict[str, object] = {"backend": None, "device": None, "host_device": None}
+# set by init_model_parallel: M and this rank's two groups (None where a
+# group would hold one rank)
+_LAYOUT: Dict[str, object] = {"model_parallel": 1, "model_group": None, "data_group": None}
 
 
 def backend_rule(device_type: str, local_world: int, n_cards: int) -> Tuple[str, str]:
@@ -129,6 +141,64 @@ def shutdown() -> None:
     if is_initialized():
         dist.destroy_process_group()
     _STATE.update(backend=None, device=None, host_device=None)
+    _LAYOUT.update(model_parallel=1, model_group=None, data_group=None)
+
+
+def init_model_parallel(m: int) -> Tuple[int, int]:
+    """Split the world into (data x model) with ``m`` ranks a model group:
+    rank = data_i * m + model_j. Every rank makes every group, in one order.
+    Returns (data rank, model rank). Raises where the world is not a
+    multiple of ``m``."""
+    m, w, r = int(m), world(), rank()
+    if m < 1 or w % m:
+        raise ValueError(f"--model_parallel {m} needs a world that is a multiple of it; "
+                         f"the world is {w} process(es)")
+    model_g = data_g = None
+    if m > 1:
+        for i in range(w // m):
+            g = dist.new_group(list(range(i * m, (i + 1) * m)))
+            if r // m == i:
+                model_g = g
+    if w // m > 1:
+        for j in range(m):
+            g = dist.new_group(list(range(j, w, m)))
+            if r % m == j:
+                data_g = g
+    _LAYOUT.update(model_parallel=m, model_group=model_g, data_group=data_g)
+    return r // m, r % m
+
+
+def model_parallel() -> int:
+    return int(_LAYOUT["model_parallel"])
+
+
+def model_group():
+    """This rank's model group (the ranks that share its rows and split the
+    vocabulary), None without model parallelism."""
+    return _LAYOUT["model_group"]
+
+
+def model_rank() -> int:
+    return rank() % model_parallel()
+
+
+def data_rank() -> int:
+    """The shard of the data this rank loads: its rank without model
+    parallelism."""
+    return rank() // model_parallel()
+
+
+def data_world() -> int:
+    return world() // model_parallel()
+
+
+def data_group():
+    """The group over which gradients and evaluations are summed: the ranks
+    that hold one vocab shard (the default group without model parallelism);
+    None where it would hold one rank."""
+    if model_parallel() == 1:
+        return group()
+    return _LAYOUT["data_group"]
 
 
 def _host_device() -> torch.device:
@@ -159,20 +229,24 @@ def all_reduce_ints(values: Sequence[int], op: str = "max") -> List[int]:
 
 
 def all_reduce_floats(values: Sequence[float]) -> List[float]:
-    """``values`` summed over the ranks in float64."""
-    if world() == 1:
+    """``values`` summed in float64 over this rank's data group (one rank a
+    vocab shard), so that the ranks of a model group, which hold the same
+    rows, count them once; over every rank without model parallelism."""
+    if data_world() == 1:
         return [float(v) for v in values]
     t = torch.tensor([float(v) for v in values], dtype=torch.float64, device=_host_device())
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=data_group())
     return [float(v) for v in t.tolist()]
 
 
-def all_gather_objects(obj) -> list:
-    """One picklable object a rank, gathered to every rank in rank order."""
-    if world() == 1:
+def all_gather_objects(obj, data_only: bool = False) -> list:
+    """One picklable object a rank, gathered to every rank in rank order;
+    with ``data_only`` one a data rank, from this rank's data group."""
+    n = data_world() if data_only else world()
+    if n == 1:
         return [obj]
-    out = [None] * world()
-    dist.all_gather_object(out, obj)
+    out = [None] * n
+    dist.all_gather_object(out, obj, group=data_group() if data_only else None)
     return out
 
 
@@ -228,5 +302,45 @@ class AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         g = grad.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class PsumKeepCt(torch.autograd.Function):
+    """``y = sum over group(x)`` whose backward keeps the cotangent
+    (dL/dx = dL/dy), for tensors the ranks of a model group go on to use
+    alike: each rank's loss is the whole loss, so its cotangent is already
+    the whole one (JAX's ``_psum_keep_ct``, ``ops/pruned_loss.py:82-97``).
+    One all-reduce over the inputs flattened in their order."""
+
+    @staticmethod
+    def forward(ctx, group, *xs: torch.Tensor):
+        flat = torch.cat([x.reshape(-1).float() for x in xs])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        out, at = [], 0
+        for x in xs:
+            out.append(flat[at:at + x.numel()].view(x.shape).to(x.dtype))
+            at += x.numel()
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, *cts)
+
+
+class IdentPsumCt(torch.autograd.Function):
+    """``y = x`` for a tensor the ranks of a model group hold alike, whose
+    backward sums the cotangent over the group: each rank's cotangent is the
+    part that flows through its own vocab shard (JAX's ``_ident_psum_ct``,
+    ``ops/pruned_loss.py:100-111``)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        g = ct.contiguous().clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
         return g, None

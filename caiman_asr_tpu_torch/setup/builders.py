@@ -7,7 +7,9 @@ decoders themselves are built in one place, ``offline.build_decoder``;
 
 Over several processes (``parallel/mesh.py``) every loader is this rank's
 shard: the manifest samplers' ``batch[rank::world]`` of each global batch,
-the tar reader's every ``world``-th sample pair. The HuggingFace source and
+the tar reader's every ``world``-th sample pair, rank and world being the
+data rank and the data world (under ``--model_parallel`` the ranks of a
+model group load the same rows). The HuggingFace source and
 parallel beam decoding raise, naming the ``ROADMAP.md`` item that will port
 them.
 """
@@ -197,11 +199,12 @@ def build_data_source_loader(args, cfg: Config, tokenizer, batch_size: int, trai
     of audio and ``{stem}.txt`` pairs, with the same utterance filters;
     ``--n_utterances_only`` keeps a seeded random subset. ``seed`` seeds the
     train loader's sampler, augmentation and noise, and the tar reader's
-    shuffle. Each is this process's shard (``parallel/mesh.rank``, ``world``)."""
+    shuffle. Each is this process's shard (``parallel/mesh.data_rank``,
+    ``data_world``: the ranks of a model group load the same rows)."""
     from caiman_asr_tpu_torch.parallel import mesh
 
     pipe = cfg.input_train if train else cfg.input_val
-    rank, world = mesh.rank(), mesh.world()
+    rank, world = mesh.data_rank(), mesh.data_world()
     if getattr(args, "read_from_tar", False):
         from caiman_asr_tpu_torch.data.webdataset import (WebDatasetLoader, WebDatasetReader,
                                                           shard_paths)

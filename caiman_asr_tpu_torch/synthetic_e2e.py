@@ -17,8 +17,11 @@ Run: python -m caiman_asr_tpu_torch.synthetic_e2e --workdir build/synthetic_e2e 
 (width 4), the fast beam with the LM fused at scale 0.3 and the host beam
 with it; LM fusion must not hurt the fast beam.
 
-It runs on the card (``run(..., device="cpu")`` on the CPU). Not ported:
-``--pruned`` (the pruned loss, ROADMAP.md Queue 1 item 5); it raises.
+``--pruned S`` trains on the pruned two-stage loss with band width S
+(``--pruned_loss_range S``) instead of the dense loss: the quality check of
+that mode.
+
+It runs on the card (``run(..., device="cpu")`` on the CPU).
 """
 
 from __future__ import annotations
@@ -139,7 +142,7 @@ def prepare(root: Path, *, device="cuda") -> Path:
 
 
 def train_argv(root: Path, cfg: Path, steps: int, lr: float, seed: int,
-               log_frequency: int = 200) -> list:
+               log_frequency: int = 200, pruned: int = 0) -> list:
     """The JAX script's training flags."""
     return [
         "--model_config", str(cfg), "--dataset_dir", str(root),
@@ -157,21 +160,22 @@ def train_argv(root: Path, cfg: Path, steps: int, lr: float, seed: int,
         "--norm_ramp_start_step", "200",
         "--norm_ramp_end_step", str(max(steps // 3, 400)),
         "--seed", str(seed),
-    ]
+    ] + (["--pruned_loss_range", str(pruned)] if pruned else [])
 
 
 def run(workdir, steps: int = 3000, lr: float = 2e-3, seed: int = 1, *,
-        log_frequency: int = 200, device="cuda") -> dict:
-    """Prepare, train and validate; returns the greedy best and fast-beam
-    dev WERs, the wall seconds of training and the logged train losses by
-    step."""
+        log_frequency: int = 200, pruned: int = 0, device="cuda") -> dict:
+    """Prepare, train (on the pruned loss of band width ``pruned`` where it
+    is > 0) and validate; returns the greedy best and fast-beam dev WERs, the
+    wall seconds of training and the logged train losses by step."""
     from caiman_asr_tpu_torch.args.train import train_arg_parser
     from caiman_asr_tpu_torch.train import main as train_main
     from caiman_asr_tpu_torch.val import val_arg_parser, validate
 
     root = Path(workdir)
     cfg = prepare(root, device=device)
-    targs = train_arg_parser().parse_args(train_argv(root, cfg, steps, lr, seed, log_frequency))
+    targs = train_arg_parser().parse_args(train_argv(root, cfg, steps, lr, seed, log_frequency,
+                                                     pruned))
     t0 = time.perf_counter()
     _, best_wer = train_main(targs, device=device)
     train_s = time.perf_counter() - t0
@@ -237,17 +241,15 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=3000)
     p.add_argument("--lr", type=float, default=2e-3)
     p.add_argument("--pruned", type=int, default=0, metavar="S",
-                   help="the pruned loss (not ported yet: raises)")
+                   help="train on the pruned two-stage loss of band width S instead of the "
+                        "dense loss: the quality check of --pruned_loss_range")
     p.add_argument("--seed", type=int, default=1,
                    help="training seed (init + data order) for repeat runs")
     p.add_argument("--compare_decoders", action="store_true",
                    help="train a 3-gram on the train transcripts and table the dev WER of "
                         "greedy, fast beam, fast beam + LM and host beam + LM")
     args = p.parse_args(argv)
-    if args.pruned:
-        raise NotImplementedError("--pruned: the pruned loss is not ported yet (ROADMAP.md "
-                                  "Queue 1 item 5)")
-    out = run(args.workdir, args.steps, args.lr, args.seed)
+    out = run(args.workdir, args.steps, args.lr, args.seed, pruned=args.pruned)
     print(f"\nfinal: greedy-best dev WER {out['greedy_best_wer']:.2%}, "
           f"beam-4 dev WER {out['beam_wer']:.2%}, training {out['train_s']:.1f} s "
           f"({1e3 * out['train_s'] / args.steps:.1f} ms a step with validation)")

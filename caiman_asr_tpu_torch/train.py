@@ -29,18 +29,35 @@ writes checkpoints, logs, the train sample and serving bundles, and each
 checkpoint holds every rank's host random streams and the carried RSP
 state in the global batch's row order.
 
+``--pruned_loss_range S`` trains on the pruned two-stage loss
+(``ops/pruned_loss.py``, ``--simple_loss_scale``); the state then holds its
+heads, which the checkpoints carry, and packing is off (the band bounds the
+joint), as in the JAX trainer.
+
+``--model_parallel M`` splits the processes into (data x model) groups
+(``parallel/mesh.init_model_parallel``): the M ranks of a model group load
+the same rows and each holds one vocab shard of the joint's last layer (and
+of the pruned loss's heads), the step running the vocab-parallel joint
+(``training/step.make_train_step_tp``); ``--global_batch_size`` is then a
+data rank's. On one card: ``python -m torch.distributed.run
+--nproc_per_node M -m caiman_asr_tpu_torch.train --model_parallel M ...``.
+Checkpoints hold the whole tensors (rank 0 writes what the model group
+gathers), so either package, and any layout, resumes them. A world that is
+not a multiple of M, a vocabulary or a batch that does not divide, random
+state passing and batch-norm models are refused.
+
 It runs on the card and raises without one; ``main(args, device="cpu")``
 runs on the CPU. Random streams are derived, never chained: the features
 of microbatch ``a`` of step ``s`` draw from a generator seeded by
 ``(seed, s * (A + 1) + a)``, the step's dropout and gradient noise from
-``(seed, s * (A + 1) + A)`` (on rank r > 0 with r folded in; the gradient
-noise over several ranks from a generator without it), and the host
-loader's random streams ride the checkpoint (``meta["_host_rng"]``), so
-that ``--resume`` reproduces the uninterrupted run bit for bit. Not ported,
-each raising and naming its ``ROADMAP.md`` item: ``--model_parallel`` > 1,
-``--pruned_loss_range`` > 0 and a hub ``--noise_dataset``.
-``--use_hugging_face`` validates from a HuggingFace dataset, as in the JAX
-trainer; training reads manifests or tar shards all the same.
+``(seed, s * (A + 1) + A)`` (on data rank r > 0 with r folded in, so that a
+model group draws alike; the gradient noise over several ranks from a
+generator without it), and the host loader's random streams ride the
+checkpoint (``meta["_host_rng"]``), so that ``--resume`` reproduces the
+uninterrupted run bit for bit. Not ported, raising and naming its
+``ROADMAP.md`` item: a hub ``--noise_dataset``. ``--use_hugging_face``
+validates from a HuggingFace dataset, as in the JAX trainer; training reads
+manifests or tar shards all the same.
 """
 
 from __future__ import annotations
@@ -68,20 +85,6 @@ SKIP_WINDOW = 100  # the skipped-step alarm's window; all skipped in it aborts
 # extra words of a derived seed: a rank's own streams, and the gradient
 # noise that every rank draws alike
 RANK_TAG, NOISE_TAG = 0x72616E6B, 0x6E6F6973
-
-
-def _refuse_unported(args) -> None:
-    """Raise for the JAX trainer's options the port does not have yet."""
-    refused = [
-        (getattr(args, "model_parallel", 1) not in (None, 0, 1),
-         "--model_parallel > 1 (parallel/vocab_parallel.py, make_train_step_tp)", 5),
-        ((getattr(args, "pruned_loss_range", 0) or 0) > 0, "--pruned_loss_range > 0 "
-         "(ops/pruned_loss.py)", 5),
-    ]
-    for refused_now, what, item in refused:
-        if refused_now:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item "
-                                      f"{item})")
 
 
 def derived_seed(seed: int, index: int, *more: int) -> int:
@@ -204,23 +207,37 @@ def main(args=None, *, device="cuda"):
         rsp_delay_default,
         zero_rnnt_state,
     )
+    from caiman_asr_tpu_torch.parallel.vocab_parallel import gather_tree
     from caiman_asr_tpu_torch.training.step import (
+        gather_state,
         init_train_state,
         make_train_step,
+        make_train_step_tp,
         make_val_loss_step,
+        shard_state,
     )
     from caiman_asr_tpu_torch.utils.user_tokens import user_token_idx
 
     if args is None:
         args = train_arg_parser().parse_args()
-    _refuse_unported(args)
     joined = False
     if ((getattr(args, "multihost", False) or "WORLD_SIZE" in os.environ)
             and not mesh.is_initialized()):
         mesh.init_multihost(args.coordinator_address, args.num_hosts, args.host_id,
                             device=device)
         joined = True
-    rank, world, group = mesh.rank(), mesh.world(), mesh.group()
+    mp = max(int(getattr(args, "model_parallel", 1) or 1), 1)
+    pruned_range = int(getattr(args, "pruned_loss_range", 0) or 0)
+    if mp > 1:
+        if args.global_batch_size % args.grad_accumulation_batches:
+            raise ValueError(f"--model_parallel: a data rank's --global_batch_size "
+                             f"{args.global_batch_size} does not divide into "
+                             f"--grad_accumulation_batches {args.grad_accumulation_batches}")
+        mesh.init_model_parallel(mp)  # raises where the world is no multiple of mp
+    rank, world = mesh.rank(), mesh.world()
+    # the gradients' group (one rank a vocab shard), the vocab shards' group
+    group, model_group = mesh.data_group(), mesh.model_group()
+    data_rank = mesh.data_rank()
     lead = rank == 0  # the one rank that writes
     dev = mesh.device() or resolve_device(device)
     out_dir = Path(args.output_dir)
@@ -239,13 +256,17 @@ def main(args=None, *, device="cuda"):
     # the subword sampling's stream seeded, so that a run repeats itself
     tokenizer = build_tokenizer(cfg, args.tokenizer_model, seed=args.seed)
     model, blank_idx = build_model(cfg, tokenizer, args, device=dev)
+    if model.n_classes % mp:
+        raise ValueError(f"--model_parallel {mp} must divide the {model.n_classes} classes "
+                         "(equal vocab shards)")
     model.init_weights(torch.Generator(device=dev).manual_seed(args.seed))
     optimizer = Lamb(OptimizerConfig(
         lr=args.lr, min_lr=args.min_lr, weight_decay=args.weight_decay,
         clip_norm=args.clip_norm, beta1=args.beta1, beta2=args.beta2,
         warmup_steps=args.warmup_steps, hold_steps=args.hold_steps,
         half_life_steps=args.half_life_steps, ema=args.ema), model.param_lr_factors())
-    state = init_train_state(model, optimizer, device=dev)
+    state = init_train_state(model, optimizer, device=dev, pruned_loss=pruned_range > 0,
+                             seed=args.seed)
 
     # ------------------------------------------------------------ resume
     ckptr = Checkpointer(out_dir / "ckpts")
@@ -274,6 +295,9 @@ def main(args=None, *, device="cuda"):
         mesh.broadcast_tree([t for tree in (state.params, state.ema_params,
                                             state.opt_state.mu, state.opt_state.nu)
                              for _, t in tree_items(tree)])
+    if model_group is not None:
+        # the whole state, drawn or resumed alike everywhere, cut into shards
+        state = shard_state(state, mesh.model_rank(), mp)
 
     # -------------------------------------------------------------- data
     mel_stats = load_mel_stats(args.mel_stats_path)
@@ -315,12 +339,18 @@ def main(args=None, *, device="cuda"):
     eos_idx = user_token_idx("eos", cfg.user_tokens, val_tokenizer)
     star_idx = user_token_idx("star", cfg.user_tokens, val_tokenizer)
     rsp_on = is_rsp_on(args.rsp_seq_len_freq)
-    train_step = make_train_step(
-        model, optimizer, blank_idx, ema_decay=args.ema, eos_idx=eos_idx, star_idx=star_idx,
-        eos_penalty=args.eos_penalty, grad_noise=cfg.grad_noise.noise_level > 0, rsp=rsp_on,
+    step_kw = dict(
+        ema_decay=args.ema, eos_idx=eos_idx, star_idx=star_idx, eos_penalty=args.eos_penalty,
+        grad_noise=cfg.grad_noise.noise_level > 0, rsp=rsp_on,
         compute_dtype=None if args.no_amp else torch.bfloat16,
-        collect_layer_stats=getattr(args, "log_layer_stats", False), group=group,
+        collect_layer_stats=getattr(args, "log_layer_stats", False),
+        pruned_range=pruned_range, simple_loss_scale=getattr(args, "simple_loss_scale", 0.5),
         device=dev)
+    if model_group is not None:
+        train_step = make_train_step_tp(model, optimizer, blank_idx, data_group=group,
+                                        model_group=model_group, **step_kw)
+    else:
+        train_step = make_train_step(model, optimizer, blank_idx, group=group, **step_kw)
     rsp_ctl, rnnt_state = None, None
     if rsp_on:
         delay = (args.rsp_delay if args.rsp_delay is not None
@@ -460,8 +490,9 @@ def main(args=None, *, device="cuda"):
             streams = mesh.all_gather_objects(host_rng)
             streams = streams if all(x is not None for x in streams) else None
         path = None
+        whole = gather_state(state, model_group)  # a collective under --model_parallel
         if lead:
-            path = ckptr.save(state.params, state.ema_params, state.opt_state, epoch, step,
+            path = ckptr.save(whole.params, whole.ema_params, whole.opt_state, epoch, step,
                               best_wer, meta=_ckpt_meta(
                                   cfg, mel_ramp, step, streams,
                                   None if by_steps else position),
@@ -488,7 +519,8 @@ def main(args=None, *, device="cuda"):
             if noise_snr_sched is not None:
                 noise_snr_sched.adjust_snrs(step)
             ratio = mel_ramp.ratio(step) if mel_ramp else 0.0
-            gen = derived_generator(rng_seed, step * (accum + 1) + len(micro_group), dev, rank)
+            gen = derived_generator(rng_seed, step * (accum + 1) + len(micro_group), dev,
+                                    data_rank)
             with timers.phase("feat_proc"):
                 feats, feat_lens = train_fp(torch.from_numpy(batch.audio).to(dev),
                                             torch.from_numpy(batch.audio_lens).to(dev), gen,
@@ -516,7 +548,8 @@ def main(args=None, *, device="cuda"):
             stacked = stack_microbatches(micro_group, T, U)
             position = [epoch, position[1] + accum]
             pack_to = None
-            if not getattr(args, "no_lattice_packing", False):
+            # the pruned loss's band bounds the joint: no packing (JAX train.py:481-483)
+            if pruned_range == 0 and not getattr(args, "no_lattice_packing", False):
                 enc_t = -(-stacked["feats"].shape[1] // model.cfg.enc_stack_time_factor)
                 dense_n = stacked["feats"].shape[2] * enc_t * (stacked["txt"].shape[2] + 1)
                 pack_to = pack_cap(max(micro_nvalid), dense_n)
@@ -527,9 +560,9 @@ def main(args=None, *, device="cuda"):
                 "star_penalty": star_sched.step(step, hints={"wer": last_wer}),
                 "grad_noise_std": noise_sched.std(step) if noise_sched else 0.0,
             }
-            gen = derived_generator(rng_seed, step * (accum + 1) + accum, dev, rank)
+            gen = derived_generator(rng_seed, step * (accum + 1) + accum, dev, data_rank)
             noise_gen = None
-            if group is not None:  # the same noise on every rank
+            if world > 1:  # the same noise on every rank
                 noise_gen = torch.Generator(device=dev).manual_seed(
                     derived_seed(rng_seed, step * (accum + 1) + accum, NOISE_TAG))
             with timers.phase("fwd_bwd"):
@@ -598,13 +631,16 @@ def main(args=None, *, device="cuda"):
                 t_log, audio_secs_since_log, utts_since_log = time.time(), 0.0, 0
                 durs_since_log = []
 
+            if step % args.prediction_frequency == 0:
+                whole = gather_tree(state.params, model_group)  # a collective
             if step % args.prediction_frequency == 0 and lead:
-                copy_tree(eval_params, state.params)
+                copy_tree(eval_params, whole)
                 _log_train_sample(logger, decoder, batch, train_fp, val_tokenizer,
                                   normalize_config_from(cfg.input_train), epoch, step, dev)
 
             if val_loader is not None and step % args.val_frequency == 0:
-                copy_tree(eval_params, state.ema_params)
+                # the EMA with its vocab shards gathered
+                copy_tree(eval_params, gather_tree(state.ema_params, model_group))
                 result = evaluate(
                     eval_model, decoder, val_loader, val_fp, val_tokenizer,
                     val_loss_fn=None if args.skip_val_loss else val_loss_step,

@@ -21,15 +21,24 @@ batch-norm running stats, which the train step folds from the batch
 The update is written in place, under ``torch.no_grad``, into the
 parameter, EMA and moment tensors it is given (the JAX version returns new
 trees); the counts are Python ints in a new state.
+
+Under model parallelism (``sharded`` paths and a model ``group``) some
+leaves are this rank's vocab shard of a whole tensor. The JAX step takes
+LAMB's norms on the whole tensors (GSPMD, ``step.py:590-593``); here the
+global norm sums the squares of the replicated leaves once and adds the
+sharded leaves' sums all-reduced over the group, and each sharded leaf's
+trust ratio uses ``||p||`` and ``||u||`` all-reduced likewise (one
+all-reduce for all of them), so that every rank takes the unsharded step.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, FrozenSet, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from caiman_asr_tpu_torch.training.lr import lr_schedule
 from caiman_asr_tpu_torch.training.tree import Tree, tree_items, tree_map
@@ -80,20 +89,29 @@ class Lamb:
                grads: Dict[Tuple[str, ...], Optional[torch.Tensor]], good: bool,
                ema_decay: float,
                overwrite: Optional[Dict[Tuple[str, ...], torch.Tensor]] = None,
+               sharded: FrozenSet[Tuple[str, ...]] = frozenset(), group=None,
                ) -> Tuple[LambState, torch.Tensor]:
         """One step. ``grads`` maps each parameter's tree path to its
         gradient (None: no gradient, counted as zeros). Writes params, EMA
         and moments in place when ``good``; a leaf whose path is in
         ``overwrite`` takes that value in place of its update, before the
-        EMA. Returns (new state, the global gradient norm before the
-        clip)."""
+        EMA. ``sharded``: the paths whose leaves are this rank's shard over
+        the model ``group``. Returns (new state, the global gradient norm
+        before the clip)."""
         overwrite = overwrite or {}
+        sharded = frozenset(sharded) if group is not None else frozenset()
         cfg = self.cfg
         f32 = np.float32
         paths = [path for path, _ in tree_items(params)]
         g32 = {path: None if grads.get(path) is None
                else torch.nan_to_num(grads[path].float()) for path in paths}
-        sq = [torch.sum(g * g) for g in g32.values() if g is not None]
+        sq = [torch.sum(g * g) for path, g in g32.items()
+              if g is not None and path not in sharded]
+        sq_sh = [torch.sum(g * g) for path, g in g32.items() if g is not None and path in sharded]
+        if sq_sh:
+            part = torch.stack(sq_sh).sum()
+            dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+            sq.append(part)
         grad_norm = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
         if not good:
             return state, grad_norm
@@ -109,16 +127,37 @@ class Lamb:
             for name, tree in (("p", params), ("e", ema_params), ("m", state.mu),
                                ("v", state.nu))
         }
-        for path in paths:
-            p, e, m, v = (leaves[n][path] for n in "pemv")
+
+        def direction(path):
+            """The leaf's fp32 value and LAMB direction u, its moments
+            updated in place."""
+            p, m, v = leaves["p"][path], leaves["m"][path], leaves["v"][path]
             g = g32[path]
             gc = (g if g is not None else torch.zeros_like(m)) * clip_s
             m.mul_(cfg.beta1).add_((1.0 - cfg.beta1) * gc)
             v.mul_(cfg.beta2).add_((1.0 - cfg.beta2) * (gc * gc))
             p32 = p.float()
-            u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p32
-            pn = torch.linalg.vector_norm(p32)
-            un = torch.linalg.vector_norm(u)
+            return p32, (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p32
+
+        # the sharded leaves first: their norms over the whole tensors
+        shard_dirs, norms = {}, {}
+        for path in paths:
+            if path in sharded:
+                shard_dirs[path] = direction(path)
+        if shard_dirs:
+            sq_pu = torch.stack([torch.stack([torch.sum(p32 * p32), torch.sum(u * u)])
+                                 for p32, u in shard_dirs.values()])
+            dist.all_reduce(sq_pu, op=dist.ReduceOp.SUM, group=group)
+            norms = dict(zip(shard_dirs, torch.sqrt(sq_pu)))
+        for path in paths:
+            p, e = leaves["p"][path], leaves["e"][path]
+            if path in shard_dirs:
+                p32, u = shard_dirs.pop(path)
+                pn, un = norms[path]
+            else:
+                p32, u = direction(path)
+                pn = torch.linalg.vector_norm(p32)
+                un = torch.linalg.vector_norm(u)
             trust = torch.where((pn == 0.0) | (un == 0.0), torch.ones_like(pn), pn / un)
             factor = self.lr_factors.get(path[0], 1.0)
             p_new = (p32 + (-lr * factor * trust) * u).to(p.dtype)

@@ -32,15 +32,25 @@
   batch-norm normalises with the global batch's statistics
   (``ops/lstm.batch_norm_group``).
 
+- The pruned loss (``pruned_range`` > 0, ``ops/pruned_loss.py``): the
+  state's tree then holds the training-only heads ``simple_am`` /
+  ``simple_lm`` (``init_train_state(..., pruned_loss=True)``) and the loss
+  is ``simple_loss_scale * simple + pruned``; packing is not used (the band
+  bounds the joint's rows), random state passing is.
+- The tensor-parallel step (``make_train_step_tp``, ``--model_parallel``):
+  ``joint_fc`` and the heads are this rank's vocab shard over a model group
+  (``parallel/vocab_parallel.py``), everything else is replicated; the
+  gradients are summed over the data group only, LAMB takes its norms over
+  the whole tensors (``training/optimizer.py``), and the caller draws the
+  dropout from a generator seeded by the data rank, alike on every rank of
+  a model group.
+
 Batch layout (accumulation-major, time-major)::
 
   feats      [A, T, B, F]   float
   feat_lens  [A, B]         int
   txt        [A, B, U]      int
   txt_lens   [A, B]         int
-
-Not ported yet, each raising when asked: the pruned loss and the
-tensor-parallel step.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from caiman_asr_tpu_torch.device import resolve_device
@@ -55,6 +66,11 @@ from caiman_asr_tpu_torch.log.layer_stats import layer_stats_vec
 from caiman_asr_tpu_torch.models.state import RNNTState
 from caiman_asr_tpu_torch.ops.lstm import BN_MOMENTUM, batch_norm_group
 from caiman_asr_tpu_torch.parallel import mesh
+from caiman_asr_tpu_torch.parallel.vocab_parallel import gather_tree, shard_tree, sharded_paths
+from caiman_asr_tpu_torch.ops.pruned_loss import (
+    init_simple_params,
+    pruned_transducer_loss_from_fg,
+)
 from caiman_asr_tpu_torch.ops.transducer_loss import LossModifiers, transducer_loss_from_fg
 from caiman_asr_tpu_torch.training.optimizer import Lamb, LambState
 from caiman_asr_tpu_torch.training.tree import Tree, tree_items, tree_map
@@ -77,13 +93,45 @@ def _on_device(model, device) -> torch.device:
     return dev
 
 
-def init_train_state(model, optimizer: Lamb, *, device="cuda") -> TrainState:
+SIMPLE_SEED_TAG = 0x51  # the JAX step's fold_in for the heads' key
+
+
+def init_train_state(model, optimizer: Lamb, *, device="cuda", pruned_loss: bool = False,
+                     seed: int = 0) -> TrainState:
     """A fresh state around ``model``'s current weights (drawn by
-    ``RNNT.init_weights`` or loaded): EMA equal to them, zero moments."""
-    _on_device(model, device)
+    ``RNNT.init_weights`` or loaded): EMA equal to them, zero moments. With
+    ``pruned_loss`` the tree also holds the pruned loss's heads, drawn from
+    a generator seeded by (``seed``, 0x51) (JAX ``step.py:57-69``)."""
+    dev = _on_device(model, device)
     params = model.param_tree()
+    if pruned_loss:
+        gen = torch.Generator(device=dev).manual_seed(
+            int(np.random.SeedSequence([seed, SIMPLE_SEED_TAG]).generate_state(1)[0]))
+        params = {**params, **init_simple_params(gen, model.cfg.joint_n_hid, model.n_classes)}
     ema = tree_map(lambda p: p.detach().clone(), params)
     return TrainState(params, ema, optimizer.init(params), 0)
+
+
+def shard_state(state: TrainState, rank: int, m: int) -> TrainState:
+    """The state of model rank ``rank`` of ``m``: its vocab shard of the
+    sharded leaves (``parallel/vocab_parallel.VOCAB_SHARDED``) of the
+    parameters, the EMA and both moments, new tensors; the rest shared."""
+    cut = lambda tree: shard_tree(tree, rank, m)
+    opt = state.opt_state
+    return TrainState(cut(state.params), cut(state.ema_params),
+                      opt._replace(mu=cut(opt.mu), nu=cut(opt.nu)), state.step)
+
+
+def gather_state(state: TrainState, model_group) -> TrainState:
+    """The whole state from every model rank's shards (a collective, one a
+    sharded leaf), as a checkpoint holds it; ``state`` itself without a
+    model group."""
+    if model_group is None:
+        return state
+    whole = lambda tree: gather_tree(tree, model_group)
+    opt = state.opt_state
+    return TrainState(whole(state.params), whole(state.ema_params),
+                      opt._replace(mu=whole(opt.mu), nu=whole(opt.nu)), state.step)
 
 
 def _cast_compute(params: Tree, feats: torch.Tensor, compute_dtype):
@@ -108,22 +156,33 @@ def map_state(fn, *states: RNNTState) -> RNNTState:
 def _micro_loss(model, params: Tree, mb: Dict[str, torch.Tensor], generator,
                 mods: LossModifiers, denom: float, blank_idx: int, compute_dtype=None, *,
                 pack_to: Optional[int] = None, rnnt_state: Optional[RNNTState] = None,
-                gate: Optional[torch.Tensor] = None, bn_updates: Optional[list] = None):
+                gate: Optional[torch.Tensor] = None, bn_updates: Optional[list] = None,
+                pruned_range: int = 0, simple_scale: float = 0.5, model_group=None):
     """(normalised loss, new streaming state) of one microbatch (feats
     [T, B, F]). With ``rnnt_state`` (random state passing) the microbatch
     starts from it, gated by ``gate`` (a 0-d 0/1 tensor) for every sample,
-    and the new state comes back detached in the carry's dtypes."""
+    and the new state comes back detached in the carry's dtypes (JAX's
+    ``_micro_loss_rsp``). ``pruned_range`` > 0 takes the pruned loss, which
+    ignores ``pack_to`` (JAX ``step.py:127-141``); ``model_group`` the
+    vocab-parallel joint."""
     p, feats = _cast_compute(params, mb["feats"], compute_dtype)
     B = feats.shape[1]
     (f, f_lens), (g, _), new_state = model.enc_pred(
         feats, mb["feat_lens"], mb["txt"], mb["txt_lens"], rnnt_state,
         state_gate=None if gate is None else gate.expand(B), params=p, train=True,
         generator=generator, bn_updates=bn_updates)
-    per_utt = transducer_loss_from_fg(
-        f, g, p["joint_fc"]["w"], p["joint_fc"]["b"], mb["txt"], f_lens, mb["txt_lens"],
-        blank_idx, mods, generator=generator, dropout_rate=model.cfg.joint_dropout,
-        pack_to=pack_to,
-    )
+    if pruned_range > 0:
+        per_utt = pruned_transducer_loss_from_fg(
+            f, g, p["joint_fc"]["w"], p["joint_fc"]["b"],
+            {"simple_am": p["simple_am"], "simple_lm": p["simple_lm"]}, mb["txt"], f_lens,
+            mb["txt_lens"], blank_idx, mods, prune_range=pruned_range, simple_scale=simple_scale,
+            generator=generator, dropout_rate=model.cfg.joint_dropout, model_group=model_group)
+    else:
+        per_utt = transducer_loss_from_fg(
+            f, g, p["joint_fc"]["w"], p["joint_fc"]["b"], mb["txt"], f_lens, mb["txt_lens"],
+            blank_idx, mods, generator=generator, dropout_rate=model.cfg.joint_dropout,
+            pack_to=pack_to, model_group=model_group,
+        )
     if rnnt_state is not None:
         new_state = map_state(lambda n, o: n.detach().to(o.dtype), new_state, rnnt_state)
     return per_utt.sum() / denom, new_state
@@ -172,8 +231,10 @@ def make_train_step(
     grad_noise: bool = False,
     rsp: bool = False,
     pruned_range: int = 0,
+    simple_loss_scale: float = 0.5,
     collect_layer_stats: bool = False,
     group=None,
+    model_group=None,
     device="cuda",
 ):
     """Build ``step(state, batch, generator, scalars, rnnt_state=None,
@@ -196,10 +257,11 @@ def make_train_step(
     ``group``: the process group of data-parallel ranks (None: one
     process). The batch is then this rank's rows; ``noise_generator``, seeded
     alike on every rank, draws the gradient noise (else ``generator``).
+    ``pruned_range`` > 0: the pruned loss with band width ``pruned_range``
+    and ``simple_loss_scale``; the state must hold the heads.
+    ``model_group``: see ``make_train_step_tp``.
     """
     dev = _on_device(model, device)
-    if pruned_range > 0:
-        raise NotImplementedError("the pruned loss is not ported yet")
     has_bn = model.has_batch_norm
     if rsp and has_bn:
         # the JAX package's own rule (the reference's constraint)
@@ -213,6 +275,9 @@ def make_train_step(
         A, _, B, _ = batch["feats"].shape
         if rsp and (rnnt_state is None or gates is None):
             raise ValueError("random state passing needs rnnt_state and gates")
+        if pruned_range > 0 and "simple_am" not in state.params:
+            raise ValueError("the pruned loss needs the simple heads in the state: "
+                             "init_train_state(..., pruned_loss=True)")
         denom = float(A * B * world)
         mods = LossModifiers(
             delay_penalty=float(scalars["delay_penalty"]), eos_penalty=eos_penalty,
@@ -233,7 +298,8 @@ def make_train_step(
                 loss, new_rs = _micro_loss(
                     model, state.params, mb, generator, mods, denom, blank_idx, compute_dtype,
                     pack_to=pack_to, rnnt_state=rs, gate=gate_t[a] if rsp else None,
-                    bn_updates=bn_updates)
+                    bn_updates=bn_updates, pruned_range=pruned_range,
+                    simple_scale=simple_loss_scale, model_group=model_group)
                 mb_grads = torch.autograd.grad(loss, [leaves[i] for i in wanted],
                                                allow_unused=True)
             for i, g in zip(wanted, mb_grads):
@@ -266,14 +332,17 @@ def make_train_step(
                                  noise_generator if noise_generator is not None else generator)
         metrics = {}
         if collect_layer_stats:
-            metrics["layer_stats"] = layer_stats_vec(state.params, _nested(g32))
+            # on the whole tensors, as the JAX step's GSPMD takes them
+            metrics["layer_stats"] = layer_stats_vec(gather_tree(state.params, model_group),
+                                                     gather_tree(_nested(g32), model_group))
         overwrite = None
         if has_bn:
             overwrite = {path: stat for pair_paths, pair in zip(
                 model.bn_stat_paths(state.params), bn_stats) for path, stat in zip(pair_paths,
                                                                                    pair)}
         opt_state, grad_norm = optimizer.update(
-            state.params, state.ema_params, state.opt_state, g32, good, ema_decay, overwrite)
+            state.params, state.ema_params, state.opt_state, g32, good, ema_decay, overwrite,
+            sharded=sharded_paths(state.params), group=model_group)
         new = TrainState(state.params, state.ema_params, opt_state, state.step + int(good))
         metrics = {"loss": total, "grad_norm": grad_norm, "skipped": int(not good), **metrics}
         if rsp:
@@ -282,6 +351,31 @@ def make_train_step(
         return new, metrics
 
     return step
+
+
+def make_train_step_tp(model, optimizer: Lamb, blank_idx: int, *, data_group, model_group,
+                       rsp: bool = False, **kw):
+    """The tensor-parallel train step (JAX ``make_train_step_tp``,
+    ``step.py:568-660``) over a (data x model) layout
+    (``parallel/mesh.init_model_parallel``): ``state.params`` holds this
+    rank's vocab shard of ``joint_fc`` (and of the pruned loss's heads), cut
+    by ``parallel/vocab_parallel.shard_tree``; the dense, packed and pruned
+    losses run the vocab-parallel joint over ``model_group``; the gradients
+    are summed over ``data_group`` only (None: one data rank); LAMB's norms
+    are over the whole tensors. The replicated leaves stay alike on every
+    rank. ``generator`` must draw alike on every rank of a model group (the
+    JAX step folds in the data index only), ``noise_generator`` alike on
+    every rank. Batch-norm models and random state passing raise, as in the
+    JAX package. Otherwise ``make_train_step``'s arguments."""
+    if model.has_batch_norm:
+        raise NotImplementedError("the tensor-parallel step does not support batch-norm LSTMs")
+    if rsp:
+        raise NotImplementedError("the tensor-parallel step does not support random state "
+                                  "passing (data-parallel only)")
+    if model_group is None:
+        raise ValueError("the tensor-parallel step needs a model group")
+    return make_train_step(model, optimizer, blank_idx, group=data_group,
+                           model_group=model_group, **kw)
 
 
 def make_val_loss_step(model, blank_idx: int, *, device="cuda"):

@@ -144,7 +144,7 @@ Phases:
      MB and save ms; the step-4 checkpoint through create_serving_bundle,
      the server built from the bundle and from --ckpt + --mel_stats_path
      (equal weights and statistics, identical streamed transcripts of the
-     16 utterances); a 500-step synthetic_e2e whose mean loss over its last
+     16 utterances); a 300-step synthetic_e2e whose mean loss over its last
      20 steps falls below half that of its first 20;
   16. training over several processes (python -m torch.distributed.run
      --standalone --nproc_per_node 2 running this script's rank worker,
@@ -191,13 +191,39 @@ Phases:
      CPU, K1 the parent's 8; (c) sweep_scale_factor over three scales on
      the synthetic_e2e model with a 3-gram from its train transcripts, scale
      0 equal to a beam run without the LM; (d) base-85M with quantize: true
-     validated greedy on the two shortest utterances: no K1, each layer
+     validated greedy on the shortest utterance: no K1, each layer
      quantized once; its LSTM output on the card bit-equal to the CPU's (a
      share stated, the rest within one brain-float ulp), its encoder output
      within the stated tolerance of the CPU's and far from the unquantized
      model's on the same weights, the greedy tokens equal to the CPU's; a bf16
      serving engine's tick captured as a CUDA graph whose replays equal its
-     eager ticks bit for bit.
+     eager ticks bit for bit;
+  19. the pruned loss and the model-parallel train step (base-85M's widths):
+     (a) the pruned loss at phase 4's batch (bf16, B=16, band 5): its kernels
+     (K5-store, K5-A, K5-B on the banded rows) against the plain path, loss
+     1e-5, fp32 gradients 1e-3 and bf16 gradients one bf16 ulp (2^-7 of the
+     largest magnitude: both paths round their fp32 sums to bf16), and both
+     paths' gradients against the same inputs in fp32 end to end, the
+     kernels' no farther from it than the plain path's + 1e-3; the full band
+     against the dense loss; one
+     pruned train step against one dense step, warm and in turns, and the
+     pruned loss's stages (the simple stage, the posteriors and ranges, the
+     banded joint, the banded lattice) against the dense loss's; (b) and (c)
+     in one python -m torch.distributed.run launch of two ranks on one card
+     (gloo), this script's --rank-worker: (b) the vocab-parallel joint on two
+     shards of 4,352 classes at 16,384 rows, its slab over 2,048 columns of
+     each, so that K2, K5-store, K5-A, K5-B, K4-A and K4-B all launch on
+     every rank, against one process's fused_joint_lse and against its plain
+     version (lp 1e-5, db 1e-3, dh and dW one bf16 ulp) and against the
+     fp32 reference (no farther than one process's + 1e-3), timed; (c)
+     train.main --model_parallel 2 three times in those ranks, A=2 x B=8,
+     2 steps each: fp32 with nothing random, each step's loss within 1e-5
+     and gradient norm within 1e-4 of one process's, its validation (the
+     EMA's vocab shards gathered) equal in WER and hypotheses to one
+     process's of its checkpoint; bf16 packed; the pruned loss, whose
+     checkpoint (whole arrays) one process resumes for a step; (d)
+     synthetic_e2e --pruned 4 for phase 15's 300 steps, its loss falling
+     below half.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -425,7 +451,14 @@ def loop_runs():
         yield runs
 
 
+_T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's header (``== ...``) with the seconds since
+    the script started."""
+    if msg.startswith("== "):
+        msg += f" [{time.perf_counter() - _T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1121,7 +1154,7 @@ def check_joint(N: int, Hj: int, K: int, dtype_name: str, timed: bool,
         r = out[name]
         kernel, plain = runs[name]
         r["ms"] = cuda_ms(kernel, reps=reps, warmup=1)
-        r["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+        r["plain_ms"] = cuda_ms(plain, reps=1, warmup=1)
         r["bound_ms"], r["bound_by"] = bound_ms(*bounds[name], dtype_name)
         r["library_ms"] = cuda_ms(library[name], reps=reps, warmup=1)
         r["tflops"] = bounds[name][1] / r["ms"] / 1e9
@@ -3714,9 +3747,12 @@ def run_validation() -> dict:
 CLI_STEPS = 4
 CLI_NOISE_CLIPS, CLI_NOISE_S = 4, 3.0
 CLI_RESUME_RTOL = 1e-6    # only where a CUDA op proves non-deterministic (printed)
-# the short synthetic_e2e run: the mean loss of its last 20 logged steps
-# must be below E2E_BAR times that of its first 20
-E2E_STEPS, E2E_BAR = 500, 0.5
+# the short synthetic_e2e run (phase 15, and phase 19 (d) on the pruned
+# loss): the mean loss of its last 20 logged steps must be below E2E_BAR
+# times that of its first 20. 300 steps, not 500: with phase 19 the script
+# took 979.7-1,109.9 s of its 1,200 on an H100, and the later phases read
+# its step-100 checkpoint (its best dev WER in each run so far)
+E2E_STEPS, E2E_BAR = 300, 0.5
 
 
 def train_cli_argv(root: Path, out: Path, steps: int) -> list:
@@ -4099,8 +4135,10 @@ def state_sha256(state) -> str:
 
 
 def rank_worker(spec_path: str) -> int:
-    """One rank of a phase-16 launch: train.main on the spec's argv, probed;
-    writes the rank's record beside the spec."""
+    """One rank of a phase-16 or phase-19 launch: phase 19 (b) where the
+    spec has ``vp``, then train.main on each of the spec's runs (argv and
+    record) in turn, probed, in one process group; writes the rank's record
+    of each."""
     import os
 
     import torch
@@ -4111,29 +4149,40 @@ def rank_worker(spec_path: str) -> int:
 
     spec = json.loads(Path(spec_path).read_text())
     rank = int(os.environ["RANK"])
-    args = train.train_arg_parser().parse_args(spec["argv"])
-    ar_ms = []
-    real_reduce = mesh.all_reduce_flat
+    mesh.init_multihost(device="cuda")
+    if "vp" in spec:
+        vp = vp_check(spec["vp"])
+        Path(spec["vp"]["record"] + f".rank{rank}.json").write_text(json.dumps(vp))
+        torch.cuda.empty_cache()
+    for run in spec["runs"]:
+        args = train.train_arg_parser().parse_args(run["argv"])
+        ar_ms = []
+        real_reduce = mesh.all_reduce_flat
 
-    def timed_reduce(tensors, group=None):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_reduce(tensors, group)
-        torch.cuda.synchronize()
-        ar_ms.append(1e3 * (time.perf_counter() - t0))
-        return out
+        def timed_reduce(tensors, group=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_reduce(tensors, group)
+            torch.cuda.synchronize()
+            ar_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
 
-    reset_counts()
-    with cli_probes() as probe, mock.patch.object(mesh, "all_reduce_flat", timed_reduce):
-        t0 = time.perf_counter()
-        state, best = train.main(args)
-        wall = time.perf_counter() - t0
-    record = {"rank": rank, "world": int(os.environ["WORLD_SIZE"]), "step": state.step,
-              "sha256": state_sha256(state), "steps": probe["steps"], "evals": probe["evals"],
-              "saves": probe["saves"], "all_reduce_ms": ar_ms, "counts": read_counts(),
-              "wall_s": wall, "best_wer": best, "device": str(torch.cuda.current_device()),
-              "card": torch.cuda.get_device_name(torch.cuda.current_device())}
-    Path(spec["record"] + f".rank{rank}.json").write_text(json.dumps(record))
+        reset_counts()
+        with cli_probes() as probe, mock.patch.object(mesh, "all_reduce_flat", timed_reduce):
+            t0 = time.perf_counter()
+            state, best = train.main(args)
+            wall = time.perf_counter() - t0
+        record = {"rank": rank, "world": int(os.environ["WORLD_SIZE"]), "step": state.step,
+                  "sha256": state_sha256(state), "steps": probe["steps"],
+                  "evals": probe["evals"], "saves": probe["saves"], "all_reduce_ms": ar_ms,
+                  "counts": read_counts(), "wall_s": wall, "best_wer": best,
+                  "shard": list(state.params["joint_fc"]["w"].shape),
+                  "device": str(torch.cuda.current_device()),
+                  "card": torch.cuda.get_device_name(torch.cuda.current_device())}
+        Path(run["record"] + f".rank{rank}.json").write_text(json.dumps(record))
+        del state
+        torch.cuda.empty_cache()
+    mesh.shutdown()
     return 0
 
 
@@ -4142,11 +4191,24 @@ def launch_ranks(name: str, argv: list, work: Path, cards: str) -> dict:
     this script's rank worker on ``argv``, the cards ``cards``
     (CUDA_VISIBLE_DEVICES); returns the ranks' records and the launcher's
     output (its log under ``work``)."""
+    return launch_runs(name, {name: argv}, work, cards)[name]
+
+
+def launch_runs(name: str, runs: dict, work: Path, cards: str, vp: dict = None) -> dict:
+    """One launch of the ranks (as ``launch_ranks``) running train.main on
+    each argv of ``runs`` in turn, after phase 19 (b) on the shapes ``vp``
+    where it is given; returns each run's ranks' records, the launcher's
+    backend lines and the launch's wall seconds, and under ``vp`` the ranks'
+    records of (b)."""
     import os
 
     spec = work / f"{name}.spec.json"
-    record = work / f"{name}.record"
-    spec.write_text(json.dumps({"argv": argv + ["--multihost"], "record": str(record)}))
+    records = {run: work / f"{run}.record" for run in runs}
+    spec_d = {"runs": [{"argv": argv + ["--multihost"], "record": str(records[run])}
+                       for run, argv in runs.items()]}
+    if vp is not None:
+        spec_d["vp"] = dict(vp, record=str(work / f"{name}.vp.record"))
+    spec.write_text(json.dumps(spec_d))
     env = dict(os.environ, CUDA_VISIBLE_DEVICES=cards, OMP_NUM_THREADS="4",
                PYTHONPATH=str(REPO))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -4160,9 +4222,14 @@ def launch_ranks(name: str, argv: list, work: Path, cards: str) -> dict:
     if proc.returncode != 0:
         raise AssertionError(f"the {name} launch failed (rc {proc.returncode}):\n"
                              + proc.stdout[-6000:])
-    recs = [json.loads(Path(f"{record}.rank{r}.json").read_text()) for r in range(MH_RANKS)]
     backend = [ln for ln in proc.stdout.splitlines() if "torch.distributed: rank" in ln]
-    return {"ranks": recs, "backend_lines": backend, "wall_s": wall}
+    out = {run: {"ranks": [json.loads(Path(f"{records[run]}.rank{r}.json").read_text())
+                           for r in range(MH_RANKS)],
+                 "backend_lines": backend, "wall_s": wall} for run in runs}
+    if vp is not None:
+        out["vp"] = [json.loads(Path(f"{spec_d['vp']['record']}.rank{r}.json").read_text())
+                     for r in range(MH_RANKS)]
+    return out
 
 
 def one_process_validation(argv: list, ckpt: Path):
@@ -4299,10 +4366,16 @@ def run_multihost() -> dict:
     log(f"  tar shards: {len(train_tars)} train ({2 * N_UTTS} samples), {len(val_tars)} dev "
         f"({N_UTTS}), written by data/make_webdataset; {torch.cuda.device_count()} card(s)")
 
-    # (a) fp32 over manifests, against one process at B=16
-    out_a, out_1 = work / "a", work / "one"
+    # (a) fp32 over manifests, against one process at B=16; (b) bf16 on tar
+    # shards, RSP and packing, the base config's randomness, whose step-2
+    # checkpoint is where (c) resumes: one launch runs both
+    out_a, out_1, out_b, out_c = work / "a", work / "one", work / "b", work / "c"
+    cfg = REPO / VAL_CONFIG
     argv_a = mh_argv(root, out_a, config=plain, steps=MH_STEPS, rank_batch=MH_B, bf16=False)
-    a = launch_ranks("a", argv_a, work, "0")
+    argv_b = mh_argv(root, out_b, config=cfg, steps=MH_STEPS, rank_batch=MH_B, tar=tar,
+                     save_frequency=MH_STEPS // 2)
+    ab = launch_runs("ab", {"a": argv_a, "b": argv_b}, work, "0")
+    a, b = ab["a"], ab["b"]
     # (the one process's steps alone: its validation would be another model's)
     argv_1 = mh_argv(root, out_1, config=plain, steps=MH_STEPS, rank_batch=MH_RANKS * MH_B,
                      bf16=False, val_frequency=10 * MH_STEPS, save_frequency=10 * MH_STEPS)
@@ -4327,13 +4400,6 @@ def run_multihost() -> dict:
     res["a"].update(loss_rel=loss_err, grad_norm_rel=gn_err,
                     one_process_ms=[s["ms"] for s in probe1["steps"]])
 
-    # (b) bf16 on tar shards, RSP and packing, the base config's randomness;
-    # its step-2 checkpoint is where (c) resumes
-    out_b, out_c = work / "b", work / "c"
-    cfg = REPO / VAL_CONFIG
-    argv_b = mh_argv(root, out_b, config=cfg, steps=MH_STEPS, rank_batch=MH_B, tar=tar,
-                     save_frequency=MH_STEPS // 2)
-    b = launch_ranks("b", argv_b, work, "0")
     res["b"] = check_ranks("(b) bf16, tar shards", b, out_b, argv_b)
 
     # (c) (b)'s first 2 steps resumed to 4 by a new launch: equal to the bit
@@ -4787,7 +4853,7 @@ PAR_PROCS = 2             # --beam_parallel_procs
 PAR_UTTS = 2              # the shortest utterances: the host beam on a random base-85M is slow,
                           # and so is the quantized encoder and greedy loop on the CPU
 SWEEP_SCALES = ("0.0", "0.3", "0.6")
-# The quantized encoder on the card against the CPU, on the PAR_UTTS
+# The quantized encoder on the card against the CPU, on the QUANT_UTTS
 # shortest utterances. Its LSTM output lies on the brain-float grid: another
 # order of the fp32 sums breaks a tie the other way now and then, one
 # brain-float ulp, carried into later frames (on an H100: 99.9933% of the
@@ -4802,6 +4868,10 @@ QUANT_F_MAX_TOL, QUANT_F_MEAN_TOL = 2e-5, 1e-6
 # encoder that skipped the quantizers would read ~1e-7 here
 QUANT_VS_PLAIN_MIN_MEAN = 2e-5
 QUANT_GRAPH_B = 64         # the quantized serving engine's lanes
+# (d) on the shortest utterance of (b)'s two: its greedy loop costs 3.0-4.5
+# ms an iteration in its graphs and the CPU's reference minutes more, and
+# phase 19 brought the script past 1,100 s of its 1,200 with two
+QUANT_UTTS = 1
 
 
 def quantized_lstm_output(model, feats, feat_lens):
@@ -5072,7 +5142,9 @@ def run_lm_tools() -> dict:
     # (b)'s shortest utterances: all 16 took 47-79 s on an H100 (the greedy
     # loop's quantizers, 3.0-4.7 ms an iteration in its graphs), which
     # brought the script near its 1,200 s
-    greedy = ["--val_manifests", str(work / "par.json"), "--skip_ngram"]
+    (work / "quant.json").write_text(json.dumps(
+        json.loads((work / "par.json").read_text())[:QUANT_UTTS]))
+    greedy = ["--val_manifests", str(work / "quant.json"), "--skip_ngram"]
     # each layer's weights are quantized once after the load, whatever
     # runs them after: the encoder's scan, the greedy loop's graphs
     lstm_layers = enc_layers + cfg.rnnt.pred_rnn_layers
@@ -5089,15 +5161,15 @@ def run_lm_tools() -> dict:
     fres, fcounts, fwall = validate(base + greedy, "unquantized")
     same_f = sum(a == b for a, b in zip(qres.hyps, fres.hyps))
     qdec = qprobe["decode"]
-    log(f"  quantize: true, greedy, {PAR_UTTS} utterances: {qwall:.2f} s (unquantized "
+    log(f"  quantize: true, greedy, {QUANT_UTTS} utterance(s): {qwall:.2f} s (unquantized "
         f"{fwall:.2f} s), the decoder (encoder and greedy loop) "
         f"{sum(d['ms'] for d in qdec) / 1e3:.2f} s over {len(qdec)} batches, "
         f"{sum(d['symbols'] for d in qdec)} symbols; WER {qres.wer:.6f} (unquantized "
         f"{fres.wer:.6f}), {sum(map(bool, qres.hyps))} non-empty; launches {qcounts} "
         f"(predicted none: the quantized scan bypasses K1), unquantized {fcounts}; layers "
         f"quantized {len(quantized_layers)} (the model's {lstm_layers}, once each); "
-        f"hypotheses equal to the unquantized run's {same_f}/{PAR_UTTS}")
-    if qcounts or not any(qres.hyps) or len(qres.hyps) != PAR_UTTS:
+        f"hypotheses equal to the unquantized run's {same_f}/{QUANT_UTTS}")
+    if qcounts or not any(qres.hyps) or len(qres.hyps) != QUANT_UTTS:
         raise AssertionError(f"the quantized validation launched {qcounts}")
     if quantized_layers != [torch.float32] * lstm_layers:
         raise AssertionError(f"the validation quantized {quantized_layers}, not each of "
@@ -5113,7 +5185,7 @@ def run_lm_tools() -> dict:
         models[name] = m
     _, fp = builders.build_feature_pipelines(qcfg, builders.load_mel_stats(
         str(root / "mel_stats.npz")), device="cuda")
-    sel = json.loads((work / "par.json").read_text())[:PAR_UTTS]
+    sel = json.loads((work / "quant.json").read_text())
     from caiman_asr_tpu_torch.data.audio import read_audio
 
     waves = [read_audio(root / e["files"][0]["fname"], SR) for e in sel]
@@ -5156,7 +5228,7 @@ def run_lm_tools() -> dict:
     # distance counts ulps where the signs agree (else 2^15 or more)
     h_ulps = int(((hq >> 16) - (hc >> 16)).abs().max())
     same_cpu = sum(a == b for a, b in zip(toks["card"], toks["cpu"]))
-    log(f"  the quantized encoder on the card against the CPU ({PAR_UTTS} utterances, "
+    log(f"  the quantized encoder on the card against the CPU ({QUANT_UTTS} utterance(s), "
         f"{int(valid.sum())} frames): LSTM output {h_equal:.6f} of entries bit-equal (limit "
         f"{QUANT_LSTM_EQUAL_SHARE}), the rest within {h_ulps} brain-float ulps (limit "
         f"{QUANT_LSTM_MAX_ULPS}); "
@@ -5215,7 +5287,7 @@ def run_lm_tools() -> dict:
     del models
     torch.cuda.empty_cache()
     out["d"] = {"wer": qres.wer, "unquantized_wer": fres.wer, "launches": qcounts,
-                "hyps_equal_unquantized": same_f, "utterances": PAR_UTTS,
+                "hyps_equal_unquantized": same_f, "utterances": QUANT_UTTS,
                 "wall_s": qwall, "unquantized_wall_s": fwall,
                 "lstm_equal_share": h_equal, "lstm_max_bf_ulps": h_ulps,
                 "layers_quantized": len(quantized_layers),
@@ -5238,6 +5310,451 @@ def run_lm_tools() -> dict:
         f"{out['b']['seconds']:.1f}, (c) {out['c']['seconds']:.1f}, (d) "
         f"{out['d']['seconds']:.1f} on {card()}")
     return out
+
+
+# ---------------------------------------------------------------- phase 19
+# The pruned two-stage loss and the vocab-parallel (model-parallel) train
+# step, at base-85M's widths (Hj 768, K 8,704). (a) the pruned loss at phase
+# 4's batch (B=16, T'=134, U=64), band PR_S, bf16; (b) and (c) in one launch
+# of python -m torch.distributed.run --nproc_per_node 2 on one card (gloo),
+# this script's --rank-worker: (b) the vocab-parallel joint on two shards of
+# 4,352 classes, its slab forced to hold VP_KS columns of each so that K2
+# and K4 run beside K5; (c) train.main --model_parallel 2 three times in
+# the same ranks; (d) synthetic_e2e --pruned 4.
+PR_S = 5                  # the band of (a) and (c)
+VP_RANKS = MH_RANKS       # the launch's ranks, one model group
+VP_N = 16384              # (b)'s rows: the CLI's packed cap
+VP_KS = 2048              # the columns (b)'s slab holds of each 4,352-wide shard
+VP_REPS = 5
+TP_B = N_UTTS // 2        # (c): A=2 x 8 a data rank
+TP_STEPS = 2
+TP_FLAGS = ["--model_parallel", str(VP_RANKS), "--rsp_seq_len_freq", "1"]  # TP refuses RSP
+E2E_PRUNED = 4
+# (b) the vocab-parallel joint against one process's fused_joint_lse and
+# against its plain version: the log-probabilities 1e-5 relative; db (fp32)
+# 1e-3 of its largest magnitude (the bf16 slab and, on the recomputed
+# columns, the bf16 rounding of p and dz); dh and dW come back in the
+# inputs' bf16, so a rounding that falls the other way moves an entry by one
+# bf16 ulp: 2^-7 of the largest magnitude
+VP_LP_RTOL = 1e-5
+BF16_ULP = 2 ** -7  # one bf16 step of the largest magnitude
+VP_GRAD_RTOL = {"dh": BF16_ULP, "dw": BF16_ULP, "db": GRAD_RTOL}
+# (a) likewise: the loss 1e-5; a gradient GRAD_RTOL where it is fp32, one
+# bf16 step where it comes back in the bf16 of f, g and the weights. That a
+# bf16 gradient's difference is rounding and not the kernel is held apart:
+# in (a) and (b) the kernels' gradients and the plain path's (in (b) one
+# process's) are each compared with the same inputs run in fp32 end to end,
+# and the kernels' may be no farther from it than GRAD_RTOL past the other's
+
+
+def _timed(fn):
+    """(fn(), its ms between two synchronises)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _max_rel(got, want) -> float:
+    return float(((got.float() - want.float()).abs().max() / want.float().abs().max()).item())
+
+
+def run_pruned_loss() -> dict:
+    """Phase 19 (a): the pruned loss at base-85M bf16, B=16, band PR_S."""
+    import torch
+
+    from caiman_asr_tpu_torch.data.featurize import FeaturePipeline
+    from caiman_asr_tpu_torch.models.config import PipelineConfig
+    from caiman_asr_tpu_torch.ops import joint_kernel as jk
+    from caiman_asr_tpu_torch.ops import pruned_loss as pl
+    from caiman_asr_tpu_torch.ops.logmel import LogMelConfig
+    from caiman_asr_tpu_torch.ops.transducer_loss import (
+        LossModifiers, _lab_padded, rnnt_lattice, transducer_loss_from_fg,
+        _fused_joint_scores, _penalised_scores)
+    from caiman_asr_tpu_torch.training.optimizer import Lamb, OptimizerConfig
+    from caiman_asr_tpu_torch.training.step import (
+        _cast_compute, init_train_state, make_train_step)
+
+    name = "base-85M"
+    K = MODELS[name][1]
+    out = {}
+    model = build_model(name, "cuda")
+    fp = FeaturePipeline(PipelineConfig(logmel=LogMelConfig(dither=0.0)), device="cuda")
+    batch = train_batch(fp, K, SEED)
+    mb = {k: v[0] for k, v in batch.items()}
+    p, feats = _cast_compute(model.param_tree(), mb["feats"], torch.bfloat16)
+    with torch.no_grad():
+        (f, f_lens), (g, _), _ = model.enc_pred(feats, mb["feat_lens"], mb["txt"],
+                                                mb["txt_lens"], params=p)
+    heads = pl.init_simple_params(torch.Generator(device="cuda").manual_seed(SEED + 19),
+                                  f.shape[2], K)
+    base = [f, g, p["joint_fc"]["w"], p["joint_fc"]["b"]] + [
+        heads[k][n].detach().to(torch.bfloat16 if n == "w" else torch.float32)
+        for k in ("simple_am", "simple_lm") for n in ("w", "b")]
+    txt, u_lens = mb["txt"], mb["txt_lens"]
+    B, T, Hj = f.shape
+    U1 = g.shape[1]
+
+    def loss_and_grads(S, scale, dense=False, dtype=None):
+        leaves = [t.detach().clone().to(dtype or t.dtype).requires_grad_() for t in base]
+        fl, gl, w, b, aw, ab, lw, lb = leaves
+        if dense:
+            loss = transducer_loss_from_fg(fl, gl, w, b, txt, f_lens, u_lens, K - 1)
+            leaves = leaves[:4]
+        else:
+            loss = pl.pruned_transducer_loss_from_fg(
+                fl, gl, w, b, {"simple_am": {"w": aw, "b": ab}, "simple_lm": {"w": lw, "b": lb}},
+                txt, f_lens, u_lens, K - 1, prune_range=S, simple_scale=scale)
+        return loss.detach(), torch.autograd.grad(loss.sum(), leaves)
+
+    # the kernels against the plain path, and the full band against the dense loss
+    reset_counts()
+    got, got_g = loss_and_grads(PR_S, 0.5)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    with plain_path():
+        want, want_g = loss_and_grads(PR_S, 0.5)
+        # the same inputs in fp32 end to end: what both bf16 paths round
+        _, ref_g = loss_and_grads(PR_S, 0.5, dtype=torch.float32)
+    names = ["f", "g", "joint_fc.w", "joint_fc.b", "simple_am.w", "simple_am.b",
+             "simple_lm.w", "simple_lm.b"]
+    grad_tol = {n: BF16_ULP if t.dtype == torch.bfloat16 else GRAD_RTOL
+                for n, t in zip(names, base)}
+    grad_errs = {n: rel_err(a, e) for n, a, e in zip(names, got_g, want_g)}
+    to_fp32 = {path: {n: rel_err(a, e) for n, a, e in zip(names, gs, ref_g)}
+               for path, gs in (("kernels", got_g), ("plain", want_g))}
+    loss_err = _max_rel(got, want)
+    n_band, n_dense = B * T * PR_S, B * T * U1
+    log(f"  (a) pruned loss, base-85M bf16, B={B}, T'={T}, U={U1 - 1}, S={PR_S}: the banded "
+        f"joint on {n_band} rows against the dense {n_dense} ({n_band / n_dense:.1%}), its plan "
+        f"{jk.store_plan(n_band, Hj, K)['backward']}; kernels against the plain path: loss "
+        f"{loss_err:.3g} (tol {LOSS_RTOL}), gradients {grad_errs} (tol {grad_tol}); against "
+        f"the fp32 reference, the kernels' gradients {to_fp32['kernels']}, the plain path's "
+        f"{to_fp32['plain']} (tol: the plain path's + {GRAD_RTOL}); launches {counts}")
+    if loss_err > LOSS_RTOL or any(e > grad_tol[n] for n, e in grad_errs.items()):
+        raise AssertionError("(a): the pruned loss's kernels differ from the plain path")
+    if any(to_fp32["kernels"][n] > to_fp32["plain"][n] + GRAD_RTOL for n in names):
+        raise AssertionError("(a): the kernels' gradients are farther from the fp32 reference "
+                             "than the plain path's")
+    for k in ("joint_fwd_store", "joint_bwd_dh", "joint_bwd_dw"):
+        if not counts.get(k):
+            raise AssertionError(f"(a): the banded joint did not launch {k}: {counts}")
+    full, full_g = loss_and_grads(U1, 0.0)
+    dense, dense_g = loss_and_grads(0, 0.0, dense=True)
+    full_err = _max_rel(full, dense)
+    full_gerr = {n: rel_err(a, e) for n, a, e in zip(names, full_g, dense_g)}
+    log(f"  (a) the full band (S={U1}, simple scale 0) against the dense loss: loss {full_err:.3g}"
+        f" (tol {LOSS_RTOL}), gradients {full_gerr} (tol {grad_tol})")
+    if full_err > LOSS_RTOL or any(e > grad_tol[n] for n, e in full_gerr.items()):
+        raise AssertionError("(a): the full band differs from the dense loss")
+    del full_g, dense_g, got_g, want_g, ref_g
+    torch.cuda.empty_cache()
+    out.update(rows=n_band, dense_rows=n_dense, loss_rel=loss_err, grad_rel=grad_errs,
+               grad_rel_to_fp32=to_fp32, full_band_loss_rel=full_err, full_band_grad_rel=full_gerr, launches_loss=counts)
+
+    # one pruned step against one dense step, in turns, warm
+    opt = Lamb(OptimizerConfig(warmup_steps=0), model.param_lr_factors())
+    states = {"pruned": init_train_state(model, opt, device="cuda", pruned_loss=True, seed=SEED),
+              "dense": init_train_state(model, opt, device="cuda")}
+    steps = {kind: make_train_step(model, opt, K - 1, compute_dtype=torch.bfloat16,
+                                   pruned_range=PR_S if kind == "pruned" else 0,
+                                   device="cuda") for kind in states}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    ms, first_ms = {"pruned": [], "dense": []}, {}
+    launches = {}
+    for i, kind in enumerate(("pruned", "dense", "pruned", "dense", "dense", "pruned")):
+        reset_counts()
+        (states[kind], m), t = _timed(lambda: steps[kind](states[kind], batch, gen, SCALARS))
+        if m["skipped"] or not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"(a): the {kind} step skipped or not finite: {m}")
+        if i >= 2:
+            ms[kind].append(t)
+        else:
+            first_ms[kind] = t
+        launches[kind] = {k: v for k, v in read_counts().items() if v}
+    for k in LSTM_TRAIN_KERNELS + ("joint_fwd_store", "joint_bwd_dh", "joint_bwd_dw"):
+        if not launches["pruned"].get(k):
+            raise AssertionError(f"(a): the pruned step did not launch {k}")
+
+    # the pruned loss's stages, forward and backward each, against the dense loss's
+    fl, gl, w, b, aw, ab, lw, lb = [t.detach().clone().requires_grad_() for t in base]
+    mods = LossModifiers()
+    (simple, null_s, emit_s), t_sf = _timed(lambda: pl._simple_stage(
+        fl, gl, aw, ab, lw, lb, txt, f_lens, u_lens, K - 1, mods))
+    ranges, t_r = _timed(lambda: pl.simple_ranges(simple, null_s, emit_s, f_lens, u_lens, PR_S))
+    _, t_sb = _timed(lambda: torch.autograd.grad(simple.sum(), [fl, gl, aw, ab, lw, lb]))
+
+    def band_joint():
+        lab = _lab_padded(txt)
+        u_band = torch.clamp(ranges[:, :, None] + torch.arange(PR_S, device="cuda"), 0, U1 - 1)
+        lab_band = lab[:, None, :].expand(B, T, U1).gather(2, u_band)
+        rows = (torch.arange(B, device="cuda")[:, None] * U1 + u_band.reshape(B, -1)).reshape(-1)
+        h = torch.relu(fl[:, :, None, :].float() + gl.float().reshape(B * U1, Hj)[rows].reshape(
+            B, T, PR_S, Hj)).to(fl.dtype)
+        return jk.fused_joint_lse(h.reshape(-1, Hj), w.t(), b, lab_band.reshape(-1), K - 1)
+
+    (lp_b, lp_l), t_jf = _timed(band_joint)
+    _, t_jb = _timed(lambda: torch.autograd.grad(lp_b.sum() + lp_l.sum(), [fl, gl, w, b]))
+    nb, eb = (x.detach().reshape(B, T, PR_S).requires_grad_() for x in (lp_b, lp_l))
+    lat, t_lf = _timed(lambda: pl.banded_rnnt_lattice(nb, eb, ranges, f_lens, u_lens))
+    _, t_lb = _timed(lambda: torch.autograd.grad(lat.sum(), [nb, eb]))
+    (d_b, d_l), t_djf = _timed(lambda: _fused_joint_scores(fl, gl, w, b, txt, K - 1))
+    _, t_djb = _timed(lambda: torch.autograd.grad(d_b.sum() + d_l.sum(), [fl, gl, w, b]))
+    dn, de = (x.detach().requires_grad_() for x in _penalised_scores(d_b, d_l, txt, f_lens,
+                                                                      mods))
+    dlat, t_dlf = _timed(lambda: rnnt_lattice(dn, de, f_lens, u_lens))
+    _, t_dlb = _timed(lambda: torch.autograd.grad(dlat.sum(), [dn, de]))
+    breakdown = {"simple_fwd": t_sf, "simple_bwd": t_sb, "posteriors_and_ranges": t_r,
+                 "banded_joint_fwd": t_jf, "banded_joint_bwd": t_jb,
+                 "banded_lattice_fwd": t_lf, "banded_lattice_bwd": t_lb}
+    dense_bd = {"joint_fwd": t_djf, "joint_bwd": t_djb, "lattice_fwd": t_dlf,
+                "lattice_bwd": t_dlb}
+    log(f"  (a) one step, bf16, A=1 x B={B}: pruned {[round(x, 1) for x in ms['pruned']]} ms, "
+        f"dense {[round(x, 1) for x in ms['dense']]} ms (warm, in turns; the first of each "
+        f"{first_ms['pruned']:.1f} / {first_ms['dense']:.1f} ms); the pruned loss's "
+        f"stages (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in breakdown.items())
+        + "; the dense loss's: " + ", ".join(f"{k} {v:.1f}" for k, v in dense_bd.items())
+        + f"; launches a pruned step {launches['pruned']}, a dense step {launches['dense']}; "
+        f"on {card()}")
+    out.update(step_ms=ms, first_step_ms=first_ms, breakdown_ms=breakdown,
+               dense_breakdown_ms=dense_bd,
+               launches=launches["pruned"], launches_dense=launches["dense"])
+    return out
+
+
+def vp_check(spec: dict) -> dict:
+    """Phase 19 (b), in a rank of the phase-19 launch: the vocab-parallel
+    joint on this rank's shard against one process's fused_joint_lse on the
+    whole vocabulary and against vp_joint_lse_plain, counted and timed."""
+    import torch
+
+    from caiman_asr_tpu_torch.ops import joint_kernel as jk
+    from caiman_asr_tpu_torch.parallel import mesh
+    from caiman_asr_tpu_torch.parallel import vocab_parallel as vp
+
+    N, Hj, K = spec["N"], spec["Hj"], spec["K"]
+    mesh.init_model_parallel(VP_RANKS)
+    group, r = mesh.model_group(), mesh.model_rank()
+    Kl = K // VP_RANKS
+    h, wt, b, labels, cb, cl = joint_inputs(N, Hj, K, torch.bfloat16, SEED + 19)
+    w = wt.t().contiguous()
+    cols = slice(r * Kl, (r + 1) * Kl)
+    tp, kt = jk._tiles(Hj)[:2]
+    limit = VP_KS * jk._pad(N, tp) * 2
+
+    def run(fn, w_, b_, dtype=None):
+        leaves = [t.detach().clone().to(dtype or t.dtype).requires_grad_() for t in (h, w_, b_)]
+        lp_b, lp_l = fn(leaves[0], leaves[1], leaves[2], labels, K - 1)
+        grads = torch.autograd.grad((lp_b * cb).sum() + (lp_l * cl).sum(), leaves)
+        return (lp_b.detach(), lp_l.detach()), grads
+
+    vp_fn = lambda *a: vp.vp_joint_lse(*a, group)
+    with policy(Z_STORE_LIMIT_BYTES=limit, Z_STORE_PARTIAL=True):
+        ks = vp.store_cols(N, Hj, Kl)
+        reset_counts()
+        got, got_g = run(vp_fn, w[:, cols], b[cols])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        vp_ms = cuda_ms(lambda: run(vp_fn, w[:, cols], b[cols]), reps=VP_REPS)
+    plain, plain_g = run(lambda *a: vp.vp_joint_lse_plain(*a, group), w[:, cols], b[cols])
+    one, one_g = run(jk.fused_joint_lse, w, b)
+    one_ms = cuda_ms(lambda: run(jk.fused_joint_lse, w, b), reps=VP_REPS)
+    one_sh = (one_g[0], one_g[1][:, cols], one_g[2][cols])
+    with plain_path():  # the same inputs in fp32 end to end: what the bf16 gradients round
+        ref_g = run(jk.fused_joint_lse, w, b, torch.float32)[1]
+    ref_sh = (ref_g[0], ref_g[1][:, cols], ref_g[2][cols])
+    del ref_g
+    to_fp32 = {f"{n}_{path}": rel_err(x, y)
+               for path, gs in (("vp", got_g), ("one_process", one_sh))
+               for n, x, y in zip(("dh", "dw", "db"), gs, ref_sh)}
+    errs = {
+        "lp_vs_plain": max(_max_rel(x, y) for x, y in zip(got, plain)),
+        "lp_vs_one_process": max(_max_rel(x, y) for x, y in zip(got, one)),
+        **{f"{n}_vs_plain": rel_err(x, y) for n, x, y in zip(("dh", "dw", "db"), got_g, plain_g)},
+        **{f"{n}_vs_one_process": rel_err(x, y)
+           for n, x, y in zip(("dh", "dw", "db"), got_g, one_sh)}}
+    return {"ks": ks, "Kl": Kl, "K": K, "Hj": Hj, "counts": counts, "errs": errs,
+            "to_fp32": to_fp32, "vp_ms": vp_ms, "one_process_ms": one_ms}
+
+
+def run_pruned_and_tp() -> dict:
+    """Phase 19: (a) the pruned loss; (b) the vocab-parallel joint and (c)
+    train.main --model_parallel 2 in one two-rank launch; (d) synthetic_e2e
+    --pruned."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from caiman_asr_tpu_torch import synthetic_e2e, train
+
+    t_phase = time.perf_counter()
+    res = {"a": run_pruned_loss()}
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+
+    root = REPO / "build" / "smoke" / "train_cli"  # phase 15's workspace
+    work = REPO / "build" / "smoke" / "tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    plain = mh_plain_config(work / "base-plain.yaml")
+    cfg = REPO / VAL_CONFIG
+    outs = {n: work / n for n in ("fp32", "bf16", "pruned")}
+    # (c): fp32 with nothing random, validated at the end; bf16 with the
+    # base config's randomness and packing; the pruned loss, checkpointed
+    runs = {
+        "fp32": mh_argv(root, outs["fp32"], config=plain, steps=TP_STEPS, rank_batch=TP_B,
+                        bf16=False, val_frequency=TP_STEPS, save_frequency=TP_STEPS),
+        "bf16": mh_argv(root, outs["bf16"], config=cfg, steps=TP_STEPS, rank_batch=TP_B,
+                        val_frequency=10 * TP_STEPS, save_frequency=10 * TP_STEPS),
+        "pruned": mh_argv(root, outs["pruned"], config=cfg, steps=TP_STEPS, rank_batch=TP_B,
+                          val_frequency=10 * TP_STEPS, save_frequency=TP_STEPS)
+        + ["--pruned_loss_range", str(PR_S)],
+    }
+    vp_shapes = {"N": VP_N, "Hj": MODELS["base-85M"][0]["joint_n_hid"],
+                 "K": MODELS["base-85M"][1]}
+    launched = launch_runs("tp", {n: argv + TP_FLAGS for n, argv in runs.items()}, work, "0",
+                           vp=vp_shapes)
+    backend = launched["fp32"]["backend_lines"]
+    launch_s = launched["fp32"]["wall_s"]
+
+    # (b)
+    vp_kernels = ("joint_fwd", "joint_fwd_store", "joint_bwd_dh", "joint_bwd_dw",
+                  "joint_bwd_dh_recompute", "joint_bwd_dw_recompute")
+    for rank, v in enumerate(launched["vp"]):
+        log(f"  (b) rank {rank}: vocab-parallel joint, N={VP_N}, Hj={v['Hj']}, Kl="
+            f"{v['Kl']} of {v['K']}, bf16, the slab over [0, {v['ks']}) and the rest recomputed: "
+            f"errors {v['errs']} (tol lp {VP_LP_RTOL}, gradients {VP_GRAD_RTOL}); against the "
+            f"fp32 reference {v['to_fp32']} (tol: one process's + {GRAD_RTOL}); launches "
+            f"{v['counts']}; fwd+bwd {v['vp_ms']:.2f} ms against one process's fused_joint_lse "
+            f"on the whole vocabulary {v['one_process_ms']:.2f} ms (both ranks on the one card "
+            f"at once)")
+        if v["ks"] != VP_KS:
+            raise AssertionError(f"(b): the slab holds {v['ks']} columns, not {VP_KS}")
+        if any(e > (VP_LP_RTOL if n.startswith("lp") else VP_GRAD_RTOL[n.split("_")[0]])
+               for n, e in v["errs"].items()):
+            raise AssertionError(f"(b): rank {rank} differs: {v['errs']}")
+        if any(v["to_fp32"][f"{n}_vp"] > v["to_fp32"][f"{n}_one_process"] + GRAD_RTOL
+               for n in ("dh", "dw", "db")):
+            raise AssertionError(f"(b): rank {rank}'s gradients are farther from the fp32 "
+                                 f"reference than one process's: {v['to_fp32']}")
+        missing = [k for k in vp_kernels if not v["counts"].get(k)]
+        if missing:
+            raise AssertionError(f"(b): rank {rank} launched none of {missing}")
+    res["b"] = {"ranks": launched["vp"], "backend": backend}
+
+    # (c) fp32 against one process at the same global batch, and its
+    # validation (the EMA's vocab shards gathered) against one process's of
+    # the step-2 checkpoint
+    torch.cuda.empty_cache()
+    one_out = work / "one"
+    argv_one = mh_argv(root, one_out, config=plain, steps=TP_STEPS, rank_batch=TP_B, bf16=False,
+                       val_frequency=10 * TP_STEPS, save_frequency=10 * TP_STEPS) + [
+        "--rsp_seq_len_freq", "1"]
+    reset_counts()
+    with cli_probes() as probe1:
+        train.main(train.train_arg_parser().parse_args(argv_one))
+    got, want = train_log(outs["fp32"]), train_log(one_out)
+    if not sorted(got) == sorted(want) == list(range(1, TP_STEPS + 1)):
+        raise AssertionError(f"(c): steps {sorted(got)} against {sorted(want)}")
+    loss_err = max(abs(got[s][0] - want[s][0]) / abs(want[s][0]) for s in want)
+    gn_err = max(abs(got[s][1] - want[s][1]) / abs(want[s][1]) for s in want)
+    wer, hyps = mh_preds(outs["fp32"], TP_STEPS)
+    torch.cuda.empty_cache()
+    ref = one_process_validation(runs["fp32"], outs["fp32"] / "ckpts" / f"step{TP_STEPS}.npz")
+    same = wer == ref.wer and hyps == dict(zip(ref.fnames, ref.hyps))
+    torch.cuda.empty_cache()
+    # the pruned run's checkpoint (whole arrays) resumed by one process
+    resumed = work / "resumed"
+    argv_r = mh_argv(root, resumed, config=cfg, steps=TP_STEPS + 1, rank_batch=TP_B,
+                     val_frequency=10 * TP_STEPS, save_frequency=10 * TP_STEPS) + [
+        "--rsp_seq_len_freq", "1", "--pruned_loss_range", str(PR_S), "--resume", "--ckpt",
+        str(outs["pruned"] / "ckpts" / f"step{TP_STEPS}.npz")]
+    reset_counts()
+    with cli_probes() as probe_r:
+        state, _ = train.main(train.train_arg_parser().parse_args(argv_r))
+    resumed_log = train_log(resumed)
+    resumed_ok = state.step == TP_STEPS + 1 and sorted(resumed_log) == [TP_STEPS + 1] and all(
+        math.isfinite(x) for x in resumed_log[TP_STEPS + 1])
+    del state
+    torch.cuda.empty_cache()
+    runs_c = {}
+    for name in runs:
+        per = launched[name]["ranks"]
+        steps_ms = [[round(s["ms"], 1) for s in r["steps"]] for r in per]
+        per_step = [r["steps"][-1]["launches"] for r in per]
+        runs_c[name] = {"steps_ms": steps_ms, "launches_a_step": per_step,
+                        "counts": [r["counts"] for r in per], "pack_to": [
+                            s["pack_to"] for s in per[0]["steps"]],
+                        "shard": per[0]["shard"], "wall_s": [r["wall_s"] for r in per],
+                        "loss": train_log(outs[name])}
+        log(f"  (c) {name}: train.main --model_parallel 2 on two ranks of one card "
+            f"({backend}): shard {per[0]['shard']}, ms a step per rank {steps_ms}, pack_to "
+            f"{runs_c[name]['pack_to']}, (loss, grad norm) {train_log(outs[name])}, launches a "
+            f"step per rank {per_step}, wall {[round(r['wall_s'], 1) for r in per]} s")
+        for r, steps in enumerate(per):
+            for i, s in enumerate(steps["steps"]):
+                need = LSTM_TRAIN_KERNELS + MH_K5
+                missing = [k for k in need if not s["launches"].get(k)]
+                if missing:
+                    raise AssertionError(f"(c) {name}: rank {r} step {i + 1} launched none "
+                                         f"of {missing}")
+        if any(not math.isfinite(x) for v in train_log(outs[name]).values() for x in v):
+            raise AssertionError(f"(c) {name}: a step is not finite")
+    if runs_c["bf16"]["pack_to"][0] is None or runs_c["pruned"]["pack_to"][0] is not None:
+        raise AssertionError(f"(c): packing {runs_c['bf16']['pack_to']} / "
+                             f"{runs_c['pruned']['pack_to']}")
+    log(f"  (c) fp32: two ranks (one model group) against one process at B={TP_B} a "
+        f"microbatch: losses {[got[s][0] for s in sorted(got)]} / "
+        f"{[want[s][0] for s in sorted(want)]} (largest relative difference {loss_err:.3g}, "
+        f"tol {MH_LOSS_RTOL}), gradient norms {gn_err:.3g} (tol {MH_GRAD_RTOL}); one "
+        f"process's ms a step {[round(s['ms'], 1) for s in probe1['steps']]}; the ranks' dev "
+        f"WER {wer:.6f} (the EMA's vocab shards gathered), one process's validation of their "
+        f"step-{TP_STEPS} checkpoint {ref.wer:.6f}, hypotheses identical {same}; the pruned "
+        f"run's step-{TP_STEPS} checkpoint resumed by one process: step {TP_STEPS + 1} "
+        f"{resumed_log} ({'finite' if resumed_ok else 'FAILED'}), "
+        f"{[round(s['ms'], 1) for s in probe_r['steps']]} ms; launch wall {launch_s:.1f} s")
+    if loss_err > MH_LOSS_RTOL or gn_err > MH_GRAD_RTOL or not same or not resumed_ok:
+        raise AssertionError("(c): the model-parallel runs differ from one process")
+    res["c"] = {"runs": runs_c, "loss_rel": loss_err, "grad_norm_rel": gn_err,
+                "one_process_ms": [s["ms"] for s in probe1["steps"]], "dev_wer": wer,
+                "one_process_wer": ref.wer, "hyps_identical": same,
+                "resumed": resumed_log, "launch_s": launch_s}
+    t_bc = time.perf_counter() - t_phase - t_a
+
+    # (d) synthetic_e2e --pruned
+    e2e_root = REPO / "build" / "smoke" / "e2e_pruned"
+    shutil.rmtree(e2e_root, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    e2e = synthetic_e2e.run(e2e_root, steps=E2E_STEPS, log_frequency=1, pruned=E2E_PRUNED)
+    e2e_s = time.perf_counter() - t0
+    e2e_counts = {k: v for k, v in read_counts().items() if v}
+    losses = [e2e["losses"][k] for k in sorted(e2e["losses"])]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    log(f"  (d) synthetic_e2e --pruned {E2E_PRUNED}, {E2E_STEPS} steps: mean loss of the first "
+        f"20 steps {first:.4f}, of the last 20 {last:.4f} ({last / first:.3f}; bar "
+        f"{E2E_BAR}); greedy best dev WER {e2e['greedy_best_wer']:.4f}, fast beam "
+        f"{e2e['beam_wer']:.4f}; training {e2e['train_s']:.1f} s "
+        f"({1e3 * e2e['train_s'] / E2E_STEPS:.1f} ms a step with validation), {e2e_s:.1f} s in "
+        f"all; launches {e2e_counts}")
+    if not last < E2E_BAR * first:
+        raise AssertionError(f"(d): the pruned synthetic task's loss did not fall: {first} -> "
+                             f"{last}")
+    for k in LSTM_TRAIN_KERNELS:
+        if not e2e_counts.get(k):
+            raise AssertionError(f"(d): synthetic_e2e --pruned never launched {k}")
+    res["d"] = {"steps": E2E_STEPS, "first20": first, "last20": last,
+                "greedy_best_wer": e2e["greedy_best_wer"], "beam_wer": e2e["beam_wer"],
+                "train_s": e2e["train_s"], "wall_s": e2e_s, "launches": e2e_counts}
+    res["card"] = card()
+    res["wall_s"] = {"a": t_a, "b_c": t_bc, "d": e2e_s, "all": time.perf_counter() - t_phase}
+    log(f"  phase 19 took {res['wall_s']['all']:.1f} s ((a) {t_a:.1f}, (b)+(c) {t_bc:.1f}, "
+        f"(d) {e2e_s:.1f}) on {res['card']}")
+    return res
 
 
 def main() -> int:
@@ -5461,6 +5978,14 @@ def main() -> int:
         f"val.py --beam_parallel_procs {PAR_PROCS}, sweep_scale_factor, quantize: true "
         "(greedy validation, the CPU, the serving tick's CUDA graph)")
     lm_tools = run_lm_tools()
+    torch.cuda.empty_cache()
+
+    # 19. the pruned loss and the model-parallel train step
+    log(f"== pruned and model-parallel: the pruned loss (base-85M bf16, B=16, S={PR_S}); the "
+        f"vocab-parallel joint and train.main --model_parallel {VP_RANKS} in one "
+        "torch.distributed.run launch of two ranks on one card over gloo (a smoke reading, not "
+        f"a scaling one); synthetic_e2e --pruned {E2E_PRUNED}")
+    pruned_tp = run_pruned_and_tp()
 
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
@@ -5599,6 +6124,28 @@ def main() -> int:
                     f"{PAR_UTTS} utterances (the parent's encoder, 8); sweep_scale_factor over "
                     f"{len(SWEEP_SCALES)} scales on the synthetic_e2e model; quantize: true "
                     "greedy validation (none: the quantized scan bypasses K1)")})
+        pruned_launches = pruned_tp["a"]["launches"]
+        if pruned_launches.get(wrapper):  # phase 19 (a)'s pruned step
+            kernels[-1].update({
+                "launches_pruned": pruned_launches[wrapper],
+                "launches_pruned_per": (
+                    f"phase 19 (a): one bf16 train step of base-85M on the pruned loss, A=1 x "
+                    f"B={N_UTTS}, band {PR_S}: the banded joint on {pruned_tp['a']['rows']} rows "
+                    f"(the dense {pruned_tp['a']['dense_rows']})")})
+        vp_ranks = [r["counts"].get(wrapper, 0) for r in pruned_tp["b"]["ranks"]]
+        tp_runs = pruned_tp["c"]["runs"]
+        if any(vp_ranks) or any(c.get(wrapper) for run in tp_runs.values()
+                                for c in run["counts"]):
+            kernels[-1].update({
+                "launches_tp": {"vp_joint": vp_ranks,
+                                **{name: [c.get(wrapper, 0) for c in run["counts"]]
+                                   for name, run in tp_runs.items()}},
+                "launches_tp_per": (
+                    f"phase 19: each of {VP_RANKS} ranks on one card; vp_joint: one forward and "
+                    f"backward of the vocab-parallel joint at N={VP_N}, 4,352 classes a shard, "
+                    f"the slab over {VP_KS} columns; fp32 / bf16 / pruned: train.main "
+                    f"--model_parallel {VP_RANKS}, {TP_STEPS} steps of A=2 x B={TP_B} each (fp32 "
+                    "with a validation, bf16 packed, the pruned loss unpacked)")})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -5674,6 +6221,7 @@ def main() -> int:
     log("multihost summary: " + json.dumps(multihost))
     log("latency tools summary: " + json.dumps(latency))
     log("lm tools summary: " + json.dumps(lm_tools, default=str))
+    log("pruned and model-parallel summary: " + json.dumps(pruned_tp, default=str))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},
@@ -5688,6 +6236,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":  # a rank of phase 16
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":  # a rank of phase 16 or 19
         sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

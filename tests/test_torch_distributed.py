@@ -50,13 +50,19 @@ import torch
 from caiman_asr_tpu_torch.parallel import mesh
 got_rank, got_world = mesh.init_multihost(store, world, rank, device="cpu")
 """
+# the tail: every rank leaves the group together (a gloo rank that exits
+# with its groups alive can abort in their destructors)
+RANK_TAIL = """
+mesh.barrier()
+mesh.shutdown()
+"""
 
 
 def spawn_ranks(body: str, tmp_path, world: int = 2, name: str = "rank"):
     """Run ``RANK_HEAD + body`` as ``world`` processes joined through a
     file store under ``tmp_path``; returns each rank's output path (``out``
     in the program). Fails with the ranks' output if one fails."""
-    prog = RANK_HEAD.format(repo=str(REPO)) + body
+    prog = RANK_HEAD.format(repo=str(REPO)) + body + RANK_TAIL
     store = f"file://{tmp_path / (name + '_store')}"
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",

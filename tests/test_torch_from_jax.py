@@ -39,10 +39,42 @@ def test_keys_match_the_reference_export(batch_norm):
 
 
 def test_unknown_leaf_raises():
+    """A leaf the mapping does not know raises; the pruned loss's heads are
+    known, and left out of the module's state_dict."""
     params = jax.tree.map(np.asarray, JaxRNNT(JaxConfig(**TINY), K).init(jax.random.PRNGKey(0)))
-    params["simple_am"] = {"w": np.zeros((K, 16), np.float32)}
-    with pytest.raises(ValueError, match="simple_am"):
+    params["extra_head"] = {"w": np.zeros((K, 16), np.float32)}
+    with pytest.raises(ValueError, match="extra_head"):
         state_dict_from_jax(params)
+    del params["extra_head"]
+    params["simple_am"] = {"w": np.zeros((K, 16), np.float32)}
+    assert not any(k.startswith("simple") for k in state_dict_from_jax(params))
+
+
+def test_the_simple_heads_cross_with_a_pruned_train_state():
+    """A JAX pruned-loss train state (``init_train_state(..., pruned_loss=True)``)
+    carried into the port: the heads join the state's tree, with their EMA
+    and both moments, value for value; the tree's key set is JAX's."""
+    from caiman_asr_tpu.ops.pruned_loss import init_simple_params
+    from caiman_asr_tpu_torch.export.from_jax import train_state_from_jax
+    from caiman_asr_tpu_torch.training.tree import tree_items
+
+    params = jax.tree.map(np.asarray, JaxRNNT(JaxConfig(**TINY), K).init(jax.random.PRNGKey(0)))
+    params.update(jax.tree.map(np.asarray, init_simple_params(jax.random.PRNGKey(3), 16, K)))
+    scaled = lambda c: jax.tree.map(lambda a: a * c, params)
+    model = RNNT(RNNTModelConfig(**TINY), K, device="cpu")
+    state = train_state_from_jax(model, params, scaled(0.5), scaled(0.25), scaled(2.0), 3, 4)
+    flat = lambda tree: {"/".join(p): v for p, v in tree_items(tree)}
+    jax_keys = {"/".join(str(getattr(k, "key", k)) for k in path)
+                for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]}
+    for tree, c in ((state.params, 1.0), (state.ema_params, 0.5), (state.opt_state.mu, 0.25),
+                    (state.opt_state.nu, 2.0)):
+        got = flat(tree)
+        assert set(got) == jax_keys
+        for top in ("simple_am", "simple_lm"):
+            for leaf in ("w", "b"):
+                np.testing.assert_array_equal(got[f"{top}/{leaf}"].detach().numpy(),
+                                              params[top][leaf] * c)
+    assert state.params["simple_am"]["w"].requires_grad
 
 
 def test_shape_mismatch_fails_the_strict_load():

@@ -22,6 +22,7 @@ mid-epoch interrupt and at an epoch boundary past a partial group.
 """
 
 import json
+import pickle
 import signal
 import subprocess
 import sys
@@ -371,7 +372,21 @@ train.main(Namespace(**json.loads(open({str(spec)!r}).read())), device="cpu")
     ("model_parallel", 2), ("pruned_loss_range", 4),
     ("noise_dataset", "Myrtle/CAIMAN-ASR-BackgroundNoise")])
 def test_what_is_not_ported_raises_and_names_the_roadmap(workspace, tmp_path, flag, value):
+    """A hub noise dataset is the one flag still to port, and raises naming
+    its ROADMAP.md item. ``--model_parallel`` and ``--pruned_loss_range`` are
+    ported (the tests below): the first raises on one process, whose world
+    is no multiple of 2 (the JAX trainer drops devices there instead); the
+    second takes its steps."""
     args = augmented_args(workspace, tmp_path, **{flag: value})
+    if flag == "pruned_loss_range":
+        state, _ = _port_main(_set(args, workspace, "augmented.yaml", tmp_path,
+                                   training_steps=2))
+        assert state.step == 2 and "simple_am" in state.params
+        return
+    if flag == "model_parallel":
+        with pytest.raises(ValueError, match="multiple of it"):
+            _port_main(args)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _port_main(args)
 
@@ -392,3 +407,145 @@ def test_an_epoch_shorter_than_a_step_raises(workspace, tmp_path):
     with pytest.raises(ValueError, match="fewer than --grad_accumulation_batches"):
         _port_main(augmented_args(workspace, tmp_path, global_batch_size=10,
                                   grad_accumulation_batches=5))
+
+
+# --------------------------------------------------------------- pruned, TP
+# a 48-class variant of the plain config (47 pieces and the blank): two
+# vocab shards need an even vocabulary
+PRUNED = 3
+
+
+@pytest.fixture(scope="module")
+def pruned_workspace(workspace):
+    """``even.yaml`` (the plain config over a 47-piece tokenizer) and
+    ``init_pruned.npz``: a JAX-initialised checkpoint of it with the pruned
+    loss's heads, which every pruned run below fine-tunes from."""
+    import jax
+
+    from caiman_asr_tpu.models.config import load_config as jax_load_config
+    from caiman_asr_tpu.ops.pruned_loss import init_simple_params
+    from caiman_asr_tpu.setup.builders import build_model as jax_build_model
+    from caiman_asr_tpu.setup.builders import build_tokenizer as jax_build_tokenizer
+
+    root = workspace
+    tok = root / "tok47.json"
+    save_tokenizer_json(tok, train_tokenizer(TEXTS * 4, vocab_size=47))
+    (root / "even.yaml").write_text(MINI_CONFIG.format(tok=tok, sampling=0.0, dither=0.0,
+                                                       dropout=0.0, train_extra=""))
+    cfg = jax_load_config(root / "even.yaml").cfg
+    model, _ = jax_build_model(cfg, jax_build_tokenizer(cfg))
+    assert model.n_classes == 48
+    params = model.init(jax.random.PRNGKey(5))
+    params.update(init_simple_params(jax.random.PRNGKey(6), 16, model.n_classes))
+    params = jax.tree.map(np.asarray, params)
+    jax_save_checkpoint(root / "init_pruned.npz", params, params, None, {"step": 0})
+    return root
+
+
+def pruned_args(parser, root, out, **kw):
+    """The JAX-parity settings on ``even.yaml`` with the pruned loss of band
+    3, random state passing off (the tensor-parallel step refuses it)."""
+    return _set(parser().parse_args([]), root, "even.yaml", out,
+                **{**dict(no_amp=True, fine_tune=True, ckpt=str(root / "init_pruned.npz"),
+                          pruned_loss_range=PRUNED, rsp_seq_len_freq=[1]), **kw})
+
+
+@pytest.fixture(scope="module")
+def jax_pruned_run(pruned_workspace, tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_pruned")
+    _jax_main(pruned_args(jax_train_arg_parser, pruned_workspace, out))
+    return out
+
+
+# the pruned loss's heads take bf16 operands, so the part of f's and g's
+# gradients through them is rounded to bf16 on both sides, and an element at
+# a rounding boundary can fall the other way (tests/test_torch_tp_step.py)
+PRUNED_STATE_TOL = dict(atol=5e-5, rtol=1e-4)
+# the JAX step over a model group rounds each vocab shard's part to bf16
+# before the sum, its one-device step the sum: the two differ by up to 2^-8
+# of that part, and the tensor-parallel state is held against the
+# one-device one at the JAX package's own bound for that comparison
+# (tests/parallel/test_tp_pruned.py)
+TP_VS_ONE_TOL = dict(atol=5e-4, rtol=5e-3)
+
+
+def assert_pruned_run_close(got_out, want_out, steps, ckpt="last.npz", tol=PRUNED_STATE_TOL):
+    got, _ = read_log(got_out)
+    want, _ = read_log(want_out)
+    assert sorted(got) == steps
+    assert_steps_close(got, want, steps)
+    got_p, got_e, got_o, _ = load_checkpoint(got_out / "ckpts" / ckpt)
+    want_p, want_e, want_o, _ = jax_load_checkpoint(want_out / "ckpts" / ckpt)
+    for g_tree, w_tree in ((got_p, want_p), (got_e, want_e)):
+        g_flat, w_flat = flatten_named(g_tree), flatten_named(w_tree)
+        assert g_flat.keys() == w_flat.keys() and "simple_am/w" in g_flat
+        for k in g_flat:
+            np.testing.assert_allclose(g_flat[k], w_flat[k], err_msg=k, **tol)
+    assert len(got_o) == len(want_o)
+    assert int(got_o[0]) == int(want_o[0]) and int(got_o[-1]) == int(want_o[-1])
+    for i, (g, w) in enumerate(zip(got_o[1:-1], want_o[1:-1])):
+        np.testing.assert_allclose(g, w, err_msg=f"opt/{i + 1}", **tol)
+
+
+def test_pruned_steps_and_checkpoints_match_jax(pruned_workspace, jax_pruned_run, tmp_path):
+    """``--pruned_loss_range 3``: each step's loss and gradient norm, and the
+    last checkpoint with the heads, their EMA and both moments."""
+    state, _ = _port_main(pruned_args(train_arg_parser, pruned_workspace, tmp_path))
+    assert state.step == 4
+    assert_pruned_run_close(tmp_path, jax_pruned_run, [1, 2, 3, 4])
+
+
+TP_RANK = """
+import caiman_asr_tpu_torch.ops.joint_kernel as jk
+from caiman_asr_tpu_torch import train
+jk.Z_STORE_LIMIT_BYTES = 0  # no slab: K2 and K4, exact fp32 as JAX's plain route here
+args = pickle.load(open(SPEC, "rb"))
+train.main(args, device="cpu")
+"""
+
+
+def _tp_main(args, tmp_path, name):
+    """``train.main`` with ``--model_parallel 2`` over two gloo CPU ranks."""
+    from tests.test_torch_distributed import spawn_ranks
+
+    spec = tmp_path / f"{name}.pkl"
+    spec.write_bytes(pickle.dumps(args))
+    spawn_ranks(TP_RANK.replace("SPEC", repr(str(spec))), tmp_path, 2, name=name)
+
+
+def test_model_parallel_runs_resume_across_layouts_and_packages(
+        pruned_workspace, jax_pruned_run, tmp_path):
+    """``--model_parallel 2 --pruned_loss_range 3`` on two ranks (one model
+    group: one data rank, the global batch of one process) equals JAX's one
+    process, the store budget 0 so that the vocab-parallel joint is exact
+    fp32 as JAX's plain route is here. Its checkpoints hold whole arrays:
+    one port process resumes its step 2, and JAX does, each giving JAX's
+    steps 3 and 4; and the two ranks resume JAX's step 2 likewise. Losses
+    and gradient norms at the CLI gates; the state, where one side ran over
+    the model group and the other on one device, at ``TP_VS_ONE_TOL``."""
+    tp = tmp_path / "tp"
+    _tp_main(pruned_args(train_arg_parser, pruned_workspace, tp, model_parallel=2), tmp_path,
+             "tp")
+    assert_pruned_run_close(tp, jax_pruned_run, [1, 2, 3, 4], tol=TP_VS_ONE_TOL)
+    with np.load(tp / "ckpts" / "step2.npz") as z:
+        assert z["params/joint_fc/w"].shape == (48, 16)
+        assert z["params/simple_lm/b"].shape == (48,)
+
+    one = tmp_path / "one"
+    _port_main(pruned_args(train_arg_parser, pruned_workspace, one, fine_tune=False,
+                           resume=True, ckpt=str(tp / "ckpts" / "step2.npz")))
+    assert_pruned_run_close(one, jax_pruned_run, [3, 4], tol=TP_VS_ONE_TOL)
+
+    jax_out = tmp_path / "jax"
+    _jax_main(pruned_args(jax_train_arg_parser, pruned_workspace, jax_out, fine_tune=False,
+                          resume=True, ckpt=str(tp / "ckpts" / "step2.npz")))
+    got, _ = read_log(jax_out)
+    want, _ = read_log(jax_pruned_run)
+    assert sorted(got) == [3, 4]
+    assert_steps_close(got, want, [3, 4])
+
+    tp2 = tmp_path / "tp_resumed"
+    _tp_main(pruned_args(train_arg_parser, pruned_workspace, tp2, model_parallel=2,
+                         fine_tune=False, resume=True,
+                         ckpt=str(jax_pruned_run / "ckpts" / "step2.npz")), tmp_path, "tp2")
+    assert_pruned_run_close(tp2, jax_pruned_run, [3, 4], tol=TP_VS_ONE_TOL)

@@ -181,5 +181,8 @@ def test_compare_decoders_equals_jax(workspace, tmp_path):  # noqa: F811
             "--mel_stats_path", str(work / "mel_stats.npz"),
         ] + [a.format(lm=str(tmp_path / "jax_lm" / "ngram.arpa")) for a in extra])
         assert got["wer"][name] == jax_validate(va).wer, name
-    with pytest.raises(NotImplementedError, match="pruned"):
-        synthetic_e2e.main(["--pruned", "4", "--compare_decoders"])
+    # --pruned S trains on the pruned loss, as the JAX script's flag does
+    argv = synthetic_e2e.train_argv(work, work / "cfg.yaml", 100, 2e-3, 1, pruned=4)
+    assert argv[argv.index("--pruned_loss_range") + 1] == "4"
+    assert "--pruned_loss_range" not in synthetic_e2e.train_argv(work, work / "cfg.yaml", 100,
+                                                                 2e-3, 1)

@@ -306,11 +306,17 @@ def test_lr_schedule_matches_jax(cfg):
 
 
 def test_the_pruned_loss_raises_as_not_ported():
-    """The pruned loss is the one option of the JAX step still to port;
-    random state passing, gradient noise, layer statistics and batch-norm
-    training are ported (tests/test_torch_rsp.py, test_torch_layer_stats.py,
-    test_torch_batch_norm_train.py)."""
+    """Every option of the JAX step is ported, the pruned loss too
+    (tests/test_torch_pruned_loss.py, test_torch_tp_step.py): a pruned step
+    on a state without the pruned loss's heads raises, and one on a state
+    made with them takes its step."""
     model = RNNT(RNNTModelConfig(**TINY), N_CLASSES, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
     opt = Lamb(OptimizerConfig())
-    with pytest.raises(NotImplementedError, match="pruned"):
-        make_train_step(model, opt, BLANK, device="cpu", pruned_range=4)
+    step = make_train_step(model, opt, BLANK, device="cpu", pruned_range=4)
+    batch = to_torch(make_batch(np.random.default_rng(1)))
+    with pytest.raises(ValueError, match="pruned"):
+        step(init_train_state(model, opt, device="cpu"), batch, None, SCALARS)
+    state, m = step(init_train_state(model, opt, device="cpu", pruned_loss=True), batch, None,
+                    SCALARS)
+    assert m["skipped"] == 0 and np.isfinite(float(m["loss"])) and state.step == 1

@@ -139,11 +139,15 @@ def test_joint_dropout_in_the_loss_needs_a_generator(fg):
     assert torch.isfinite(a).all() and not torch.equal(a, c)
 
 
-@pytest.mark.parametrize("kw", [dict(vocab_axis="model")])
+@pytest.mark.parametrize("kw", [dict(model_group="model")])
 def test_routes_not_ported_raise(fg, kw):
+    """The vocab-parallel route (JAX's ``vocab_axis``) is ported: outside an
+    initialised process group it raises rather than run as one process
+    (``tests/test_torch_vocab_parallel.py`` holds it against JAX over gloo
+    ranks)."""
     f, g, w, b, labels, t_lens, u_lens, blank = fg
     args = [torch.from_numpy(a) for a in (f, g, w, b, labels, t_lens, u_lens)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         tl.transducer_loss_from_fg(*args, blank, **kw)
 
 
