@@ -9,9 +9,10 @@ Over several processes (``parallel/mesh.py``) every loader is this rank's
 shard: the manifest samplers' ``batch[rank::world]`` of each global batch,
 the tar reader's every ``world``-th sample pair, rank and world being the
 data rank and the data world (under ``--model_parallel`` the ranks of a
-model group load the same rows). The HuggingFace source and
-parallel beam decoding raise, naming the ``ROADMAP.md`` item that will port
-them.
+model group load the same rows). The HuggingFace source
+(``data/hugging_face.py``, validation over local files) is built here; the
+host beam over worker processes (``--beam_parallel_procs``) is built in
+``val.py`` over ``decoding/parallel.py``.
 """
 
 from __future__ import annotations

@@ -322,19 +322,25 @@ def make_train_step(
                 grads[i] = g
             total = summed[-1].reshape(())
         good = bool(torch.isfinite(total))
-        # every leaf gets a gradient, zero where the loss does not reach it
-        # (the batch-norm running stats), then nan_to_num and the noise
-        g32 = {path: torch.nan_to_num(g) if g is not None else torch.zeros_like(leaf,
-                                                                               dtype=torch.float32)
-               for path, g, leaf in zip(paths, grads, leaves)}
-        if grad_noise:
-            g32 = add_grad_noise(g32, float(scalars["grad_noise_std"]),
-                                 noise_generator if noise_generator is not None else generator)
+        # the optimizer takes the gradients as they are (None where the loss
+        # does not reach a leaf: the batch-norm running stats) and makes
+        # them finite on the fly (training/fused_finish.py); they are cleaned
+        # here only where the noise or the layer statistics read them first
+        # (the JAX step's fused path, step.py:303-306)
+        g32 = dict(zip(paths, grads))
+        if grad_noise or collect_layer_stats:
+            clean = {path: torch.nan_to_num(g) if g is not None
+                     else torch.zeros_like(leaf, dtype=torch.float32)
+                     for path, g, leaf in zip(paths, grads, leaves)}
+            if grad_noise:
+                clean = g32 = add_grad_noise(
+                    clean, float(scalars["grad_noise_std"]),
+                    noise_generator if noise_generator is not None else generator)
         metrics = {}
         if collect_layer_stats:
             # on the whole tensors, as the JAX step's GSPMD takes them
             metrics["layer_stats"] = layer_stats_vec(gather_tree(state.params, model_group),
-                                                     gather_tree(_nested(g32), model_group))
+                                                     gather_tree(_nested(clean), model_group))
         overwrite = None
         if has_bn:
             overwrite = {path: stat for pair_paths, pair in zip(

@@ -144,7 +144,7 @@ Phases:
      MB and save ms; the step-4 checkpoint through create_serving_bundle,
      the server built from the bundle and from --ckpt + --mel_stats_path
      (equal weights and statistics, identical streamed transcripts of the
-     16 utterances); a 300-step synthetic_e2e whose mean loss over its last
+     16 utterances); a 200-step synthetic_e2e whose mean loss over its last
      20 steps falls below half that of its first 20;
   16. training over several processes (python -m torch.distributed.run
      --standalone --nproc_per_node 2 running this script's rank worker,
@@ -222,8 +222,24 @@ Phases:
      EMA's vocab shards gathered) equal in WER and hypotheses to one
      process's of its checkpoint; bf16 packed; the pruned loss, whose
      checkpoint (whole arrays) one process resumes for a step; (d)
-     synthetic_e2e --pruned 4 for phase 15's 300 steps, its loss falling
-     below half.
+     synthetic_e2e --pruned 4 for phase 15's 200 steps, its loss falling
+     below half;
+  20. the fused LAMB finish (F0, F1, F2: ops/csrc/lamb_finish.cu, the three
+     passes of training/fused_finish.py) at base-85M's and large-196M's 47
+     leaves from a seeded generator: 3 finishes in a row of the kernels
+     beside their plain versions, each pass on the same inputs, the moments
+     equal to the bit, the norms within 1e-6 relative, the parameters and
+     EMA within 1e-6 of each leaf's largest magnitude; each pass and the
+     whole finish (Lamb.update, 3 launches) timed warm as the median of 20,
+     kernels and plain versions, beside the bound (52 bytes a parameter at
+     the HBM rate) and torch.optim.Adam(fused=True)'s step over the same
+     leaves (Adam, one pass, not LAMB).
+
+The train steps of phases 4, 7, 13, 15, 16 and 19 also count the finish:
+each pass once a taken step, pass 0 alone on a skipped one. Phase 2 holds
+the finish's passes against their plain versions at leaves of 1, 3, 4,097
+and 2^20 + 5 elements (one without a gradient, one overwritten, NaN and inf
+entries), with and without the clip.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -354,12 +370,37 @@ KERNELS = [
      "caiman_asr_tpu/ops/pallas_wavefront.py:85"),
     ("K8-bwd lstm_wavefront_bwd", "wavefront_kernel", "lstm_wavefront_bwd",
      "lstm_wavefront_bwd.cu", "caiman_asr_tpu/ops/pallas_wavefront.py:234"),
+    # the fused LAMB finish's passes 0, 1, 2: no Pallas site, their JAX
+    # counterpart is XLA's fusion of training/fused_finish.py:96's passes
+    ("F0 lamb_finish_norms (no Pallas site)", "finish_kernel", "lamb_finish_norms",
+     "lamb_finish.cu", "caiman_asr_tpu/training/fused_finish.py:127"),
+    ("F1 lamb_finish_moments (no Pallas site)", "finish_kernel", "lamb_finish_moments",
+     "lamb_finish.cu", "caiman_asr_tpu/training/fused_finish.py:151"),
+    ("F2 lamb_finish_apply (no Pallas site)", "finish_kernel", "lamb_finish_apply",
+     "lamb_finish.cu", "caiman_asr_tpu/training/fused_finish.py:178"),
 ]
 # Wrappers counted and swapped for their plain versions like those above,
 # with no row of their own: K8-fwd storing its gates (the K8-fwd row reports
 # it beside the plain forward, as one Pallas kernel does both).
 MORE_WRAPPERS = (("wavefront_kernel", "lstm_wavefront_sg"),)
 LSTM_TRAIN_KERNELS = ("lstm_recurrence_sg", "lstm_recurrence_bwd")
+# The fused LAMB finish: each pass launches once a taken step (a skipped
+# step runs pass 0 alone, for the gradient norm)
+FINISH_KERNELS = ("lamb_finish_norms", "lamb_finish_moments", "lamb_finish_apply")
+FINISH_STEP = dict.fromkeys(FINISH_KERNELS, 1)
+FINISH_SKIPPED = {"lamb_finish_norms": 1}
+# Phases 2 and 20: the finish's passes against their plain versions. Phase
+# 2's leaves (unaligned, one without a gradient, one overwritten, NaN and
+# inf entries); the tolerances: the moments equal to the bit (the plain
+# version's operation order, no FMA contraction); the norms 1e-6 relative
+# (sums in another order); the parameters and EMA 1e-6 of each leaf's
+# largest magnitude (the trust ratio from those norms). Phase 20: 3 finishes in a row at each model's leaves,
+# timed warm as the median of 20; 52 bytes a parameter (pass 0 reads 4,
+# pass 1 reads 16 and writes 8, pass 2 reads 16 and writes 8).
+FINISH_SIZES = (1, 3, 4097, 2 ** 20 + 5)
+FINISH_RTOL = 1e-6
+FINISH_STEPS, FINISH_REPS = 3, 20
+FINISH_BYTES = {"lamb_finish_norms": 4, "lamb_finish_moments": 24, "lamb_finish_apply": 24}
 # Phase 9, the wavefront at full width: (G, H, I0, B, T; None is the smoke
 # batch's encoder T after stacking). The post-stacks of base-85M and
 # large-196M (input 2H after stacking by 2), and the JAX A/B script's
@@ -480,10 +521,10 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def module(name: str):
-    from caiman_asr_tpu_torch.ops import joint_kernel, lstm_kernel, wavefront_kernel
+    from caiman_asr_tpu_torch.ops import finish_kernel, joint_kernel, lstm_kernel, wavefront_kernel
 
     return {"lstm_kernel": lstm_kernel, "joint_kernel": joint_kernel,
-            "wavefront_kernel": wavefront_kernel}[name]
+            "wavefront_kernel": wavefront_kernel, "finish_kernel": finish_kernel}[name]
 
 
 def wrapper_names() -> list:
@@ -1380,8 +1421,19 @@ def run_train(batch, dtype_name: str, name: str = "base-85M", steps: int = TRAIN
     counts = rows[-1]["launches"]
     log(f"  train {tag}: launches per step {counts}; peak memory {peak / 2**30:.2f} GiB")
     check_route(counts, store, tag)
+    for i, r in enumerate(rows):
+        check_finish_launches(r["launches"], f"{tag} step {i + 1}")
     return {"rows": rows, "model": model, "opt": opt, "state": state, "gen": gen,
             "compute": compute, "peak_bytes": peak, "step": step}
+
+
+def check_finish_launches(counts: dict, tag: str, taken: bool = True) -> None:
+    """The fused LAMB finish's launches in one step's ``counts``: each pass
+    once (a skipped step: pass 0 alone)."""
+    got = {k: counts.get(k, 0) for k in FINISH_KERNELS}
+    want = {k: (FINISH_STEP if taken else FINISH_SKIPPED).get(k, 0) for k in FINISH_KERNELS}
+    if got != want:
+        raise AssertionError(f"{tag}: the LAMB finish launched {got}, expected {want}")
 
 
 def check_route(counts: dict, store, tag: str, lstm: bool = True) -> None:
@@ -3207,7 +3259,7 @@ def run_default_train() -> dict:
     per_call = joint_launches_per_call(cap, Hj, K)
     expected = {"lstm_recurrence_sg": DEFAULT_A * LSTM_LAYERS,
                 "lstm_recurrence_bwd": DEFAULT_A * LSTM_LAYERS,
-                **{k: DEFAULT_A * v for k, v in per_call.items()}}
+                **{k: DEFAULT_A * v for k, v in per_call.items()}, **FINISH_STEP}
 
     model = build_model(name, "cuda")
     opt = Lamb(OptimizerConfig(warmup_steps=0), model.param_lr_factors())
@@ -3288,8 +3340,10 @@ def run_default_train() -> dict:
                                      run["state"].opt_state.mu, run["state"].opt_state.nu)
               for _, t in tree_items(tree)]
     counts0 = run["state"].opt_state.count, run["state"].step
+    reset_counts()
     st, m, rs_bad = step(run["state"], batch, gen, scalars, rs, np.ones(DEFAULT_A, np.float32),
                          pack_to=max(host) - 1)
+    check_finish_launches(read_counts(), "the overflow step", taken=False)
     after = [t for tree in (st.params, st.ema_params, st.opt_state.mu, st.opt_state.nu)
              for _, t in tree_items(tree)]
     same = all(torch.equal(a, b) for a, b in zip(before, after))
@@ -3369,6 +3423,8 @@ def run_default_train() -> dict:
         f"stat moved: {moved}")
     if any(r["skipped"] or not math.isfinite(r["loss"]) for r in bn_rows) or not moved:
         raise AssertionError(f"batch-norm steps: {bn_rows}, moved {moved}")
+    for i, r in enumerate(bn_rows):  # the running stats overwritten through pass 2
+        check_finish_launches(r["launches"], f"batch-norm step {i + 1}")
     bn_ref = RNNT(dataclasses.replace(bn_cfg, enc_dropout=0.0, pred_dropout=0.0,
                                       joint_dropout=0.0), K, device="cuda")
     bn_ref.load_state_dict(bn_model.state_dict())
@@ -3749,10 +3805,12 @@ CLI_NOISE_CLIPS, CLI_NOISE_S = 4, 3.0
 CLI_RESUME_RTOL = 1e-6    # only where a CUDA op proves non-deterministic (printed)
 # the short synthetic_e2e run (phase 15, and phase 19 (d) on the pruned
 # loss): the mean loss of its last 20 logged steps must be below E2E_BAR
-# times that of its first 20. 300 steps, not 500: with phase 19 the script
-# took 979.7-1,109.9 s of its 1,200 on an H100, and the later phases read
-# its step-100 checkpoint (its best dev WER in each run so far)
-E2E_STEPS, E2E_BAR = 300, 0.5
+# times that of its first 20. 200 steps, not 500 or 300: with phase 19 the
+# script took 979.7-1,109.9 s of its 1,200 on an H100, with phase 20
+# 934.4-1,179.1 s at 300; the loss of the last 20 was 0.20-0.22 of the first
+# 20's at 300 steps, and the later phases read its step-100 checkpoint (its
+# best dev WER in each run so far)
+E2E_STEPS, E2E_BAR = 200, 0.5
 
 
 def train_cli_argv(root: Path, out: Path, steps: int) -> list:
@@ -3996,6 +4054,9 @@ def run_train_cli() -> dict:
     if any(r["probe"]["steps"][i]["launches"].get(k, 0) == 0 for r in (a, b1, b2)
            for i in range(len(r["probe"]["steps"])) for k in LSTM_TRAIN_KERNELS):
         raise AssertionError("a train step of the CLI did not launch K3a and K3b")
+    for run_name, r in (("4 steps", a), ("2 steps", b1), ("resumed", b2)):
+        for i, st in enumerate(r["probe"]["steps"]):
+            check_finish_launches(st["launches"], f"the CLI's {run_name} run, step {i + 1}")
 
     serving = serving_check(root, out_a / "ckpts" / f"step{CLI_STEPS}.npz")
     torch.cuda.empty_cache()
@@ -4289,6 +4350,7 @@ def check_ranks(name: str, run: dict, out: Path, argv: list) -> dict:
                        if not launches.get(k)]
             if missing or not any(v for k, v in launches.items() if k.startswith("joint_")):
                 raise AssertionError(f"{name}: rank {r} step {i + 1} launched none of {missing}")
+            check_finish_launches(launches, f"{name}: rank {r} step {i + 1}")
     wer, hyps = mh_preds(out, MH_STEPS)
     torch.cuda.empty_cache()
     ref = one_process_validation(argv, out / "ckpts" / f"step{MH_STEPS}.npz")
@@ -5478,6 +5540,8 @@ def run_pruned_loss() -> dict:
     for k in LSTM_TRAIN_KERNELS + ("joint_fwd_store", "joint_bwd_dh", "joint_bwd_dw"):
         if not launches["pruned"].get(k):
             raise AssertionError(f"(a): the pruned step did not launch {k}")
+    for kind, counts_k in launches.items():
+        check_finish_launches(counts_k, f"(a): the {kind} step")
 
     # the pruned loss's stages, forward and backward each, against the dense loss's
     fl, gl, w, b, aw, ab, lw, lb = [t.detach().clone().requires_grad_() for t in base]
@@ -5702,6 +5766,7 @@ def run_pruned_and_tp() -> dict:
                 if missing:
                     raise AssertionError(f"(c) {name}: rank {r} step {i + 1} launched none "
                                          f"of {missing}")
+                check_finish_launches(s["launches"], f"(c) {name}: rank {r} step {i + 1}")
         if any(not math.isfinite(x) for v in train_log(outs[name]).values() for x in v):
             raise AssertionError(f"(c) {name}: a step is not finite")
     if runs_c["bf16"]["pack_to"][0] is None or runs_c["pruned"]["pack_to"][0] is not None:
@@ -5755,6 +5820,245 @@ def run_pruned_and_tp() -> dict:
     log(f"  phase 19 took {res['wall_s']['all']:.1f} s ((a) {t_a:.1f}, (b)+(c) {t_bc:.1f}, "
         f"(d) {e2e_s:.1f}) on {res['card']}")
     return res
+
+
+# ---------------------------------------------------------------- phase 20
+def _rel_each(got, want) -> float:
+    """The largest |got - want| / |want| over the entries (equal entries,
+    infinities too, count 0)."""
+    import torch
+
+    got, want = got.double(), want.double()
+    diff = torch.where(got == want, torch.zeros_like(got), (got - want).abs())
+    return float((diff / want.abs().clamp_min(1e-300)).max()) if diff.numel() else 0.0
+
+
+def finish_inputs(shapes, factor, seed: int):
+    """The finish's leaves on the card from a seeded generator: parameters
+    N(0, 0.05^2), the EMA a perturbed copy, the moments of a few steps'
+    scale; and a function drawing one finish's gradients, N(0, 1e-4)."""
+    import torch
+
+    from caiman_asr_tpu_torch.ops import finish_kernel as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda shape, scale: torch.randn(shape, generator=gen, device="cuda") * scale
+    p = [rnd(sh, 0.05) for sh in shapes]
+    leaves = fk.Leaves(p=tuple(p), e=tuple(x + rnd(x.shape, 1e-3) for x in p),
+                       m=tuple(rnd(sh, 1e-3) for sh in shapes),
+                       v=tuple(rnd(sh, 1e-3) ** 2 for sh in shapes), factor=tuple(factor),
+                       sharded=(False,) * len(shapes))
+    return leaves, lambda: [rnd(sh, 1e-2) for sh in shapes], gen
+
+
+def clone_leaves(leaves):
+    from caiman_asr_tpu_torch.ops import finish_kernel as fk
+
+    return fk.Leaves(*(tuple(t.clone() for t in ts) for ts in (leaves.p, leaves.e, leaves.m,
+                                                             leaves.v)),
+                     leaves.factor, leaves.sharded)
+
+
+def finish_consts(count: int, clip_norm=1.0):
+    import numpy as np
+
+    from caiman_asr_tpu_torch.ops import finish_kernel as fk
+
+    f32 = np.float32
+    return fk.Consts(clip_norm=clip_norm, beta1=0.9, beta2=0.999,
+                     bc1=float(f32(1) - f32(0.9) ** f32(count)),
+                     bc2=float(f32(1) - f32(0.999) ** f32(count)), eps=1e-9, weight_decay=1e-2)
+
+
+def check_finish(shapes, factor, tag: str, seed: int, none=(), overwrite=(),
+                 nonfinite: bool = False, clip_norm=1.0) -> dict:
+    """FINISH_STEPS finishes in a row of the three kernels and, beside them,
+    of their plain versions, each pass given the same inputs (passes 1 and
+    2 take the plain route's gradient norm and squared norms, after those
+    are held against the kernels'): the norms within FINISH_RTOL, the
+    moments equal to the bit, the parameters and EMA within FINISH_RTOL of
+    each leaf's largest magnitude. ``none``: leaves without a gradient;
+    ``overwrite``: leaves overwritten in pass 2; ``nonfinite``: NaN, inf and
+    -inf entries in the last two leaves' gradients."""
+    import torch
+
+    from caiman_asr_tpu_torch.ops import finish_kernel as fk
+
+    init, grads, gen = finish_inputs(shapes, factor, seed)
+    kern, plain = clone_leaves(init), clone_leaves(init)
+    del init
+    worst = {"norm_rel": 0.0, "p_norm_rel": 0.0, "u_norm_rel": 0.0, "p_rel": 0.0, "ema_rel": 0.0,
+             "moments_unequal": 0, "max_abs_err": 0.0}
+    for step in range(FINISH_STEPS):
+        g = [None if i in none else t for i, t in enumerate(grads())]
+        if nonfinite:
+            g[-2].view(-1)[5], g[-2].view(-1)[-1] = float("nan"), float("inf")
+            g[-1].view(-1)[-1] = -float("inf")
+        src = [torch.randn(sh, generator=gen, device="cuda") if i in overwrite else None
+               for i, sh in enumerate(shapes)]
+        c = finish_consts(step + 1, clip_norm)
+        sq_k, gsq_k = fk.lamb_finish_norms(kern, g)
+        sq_q, gsq_q = fk.lamb_finish_norms_plain(plain, g)
+        norm_rel = max(_rel_each(torch.sqrt(sq_k), torch.sqrt(sq_q)),
+                       _rel_each(torch.sqrt(gsq_k), torch.sqrt(gsq_q)))
+        norm = torch.sqrt(gsq_q)
+        pu_k = fk.lamb_finish_moments(kern, g, norm, c)
+        pu_q = fk.lamb_finish_moments_plain(plain, g, norm, c)
+        unequal = sum(int((a != b).sum()) for a, b in zip(kern.m + kern.v, plain.m + plain.v))
+        p_norm_rel = _rel_each(torch.sqrt(pu_k[:, 0]), torch.sqrt(pu_q[:, 0]))
+        u_norm_rel = _rel_each(torch.sqrt(pu_k[:, 1]), torch.sqrt(pu_q[:, 1]))
+        fk.lamb_finish_apply(kern, pu_q, c, 4e-3, 0.999, src)
+        fk.lamb_finish_apply_plain(plain, pu_q, c, 4e-3, 0.999, src)
+        torch.cuda.synchronize()
+        p_rel = max(rel_err(a, b) for a, b in zip(kern.p, plain.p))
+        e_rel = max(rel_err(a, b) for a, b in zip(kern.e, plain.e))
+        finite = all(bool(torch.isfinite(t).all()) for t in kern.p + kern.e)
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(kern.p, plain.p))
+        for key, val in (("norm_rel", norm_rel), ("p_norm_rel", p_norm_rel),
+                         ("u_norm_rel", u_norm_rel), ("p_rel", p_rel), ("ema_rel", e_rel),
+                         ("max_abs_err", abs_err)):
+            worst[key] = max(worst[key], val)
+        worst["moments_unequal"] += unequal
+        if (max(norm_rel, p_norm_rel, u_norm_rel, p_rel, e_rel) > FINISH_RTOL or unequal
+                or not finite):
+            raise AssertionError(f"{tag}, finish {step + 1}: the kernels differ from the plain "
+                                 f"versions: norms {norm_rel}, ||p|| {p_norm_rel}, ||u|| "
+                                 f"{u_norm_rel}, p {p_rel}, EMA {e_rel}, {unequal} moment "
+                                 f"entries unequal, finite {finite}")
+        for i in overwrite:
+            if not torch.equal(kern.p[i], src[i]):
+                raise AssertionError(f"{tag}: leaf {i} did not take its overwrite source")
+    log(f"  finish {tag}: {FINISH_STEPS} finishes, kernels against plain versions: norms "
+        f"{worst['norm_rel']:.3g}, ||p|| {worst['p_norm_rel']:.3g}, ||u|| "
+        f"{worst['u_norm_rel']:.3g}, p {worst['p_rel']:.3g}, EMA {worst['ema_rel']:.3g} "
+        f"(tol {FINISH_RTOL}); moments unequal in {worst['moments_unequal']} entries")
+    return worst
+
+
+def median_ms(fn, reps: int = FINISH_REPS, warmup: int = 3, hide_host: bool = False) -> float:
+    """The median time of one fn() call over reps between two CUDA events
+    on an idle card: the host's work in the call included; or, with
+    ``hide_host``, each call queued behind a device sleep twice as long as
+    a call takes, so that the events time the device's work alone."""
+    import statistics
+
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # torch.cuda._sleep spins for a number of cycles: at most ~2 GHz
+    cycles = int(2 * 2e6 * 1e3 * (time.perf_counter() - t0)) + 1
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(cycles)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def run_finish() -> dict:
+    """Phase 20: the fused LAMB finish at base-85M's and large-196M's 47
+    leaves: check_finish, then each pass and the whole finish (Lamb.update)
+    timed warm as the median of FINISH_REPS calls, kernels and plain
+    versions, beside the bound and torch.optim.Adam(fused=True)'s step over
+    the same leaves (Adam, one pass, not LAMB: a yardstick, not the same
+    function)."""
+    import torch
+
+    from caiman_asr_tpu_torch.models.rnnt import RNNT
+    from caiman_asr_tpu_torch.ops import finish_kernel as fk
+    from caiman_asr_tpu_torch.training.optimizer import Lamb, LambState, OptimizerConfig
+    from caiman_asr_tpu_torch.training.step import _nested
+    from caiman_asr_tpu_torch.training.tree import tree_items
+
+    t_phase = time.perf_counter()
+    out = {}
+    for k, name in enumerate(MODELS):
+        model = RNNT(model_config(name), MODELS[name][1], device="cuda")
+        items = [(path, tuple(leaf.shape)) for path, leaf in tree_items(model.param_tree())]
+        lr_factors = model.param_lr_factors()
+        del model
+        paths, shapes = zip(*items)
+        factor = [float(lr_factors.get(path[0], 1.0)) for path in paths]
+        n = sum(math.prod(sh) for sh in shapes)
+        errs = check_finish(shapes, factor, f"{name} ({len(shapes)} leaves, {n} parameters)",
+                            SEED + 50 + k)
+        torch.cuda.empty_cache()
+
+        leaves, grads, _ = finish_inputs(shapes, factor, SEED + 60 + k)
+        g = grads()
+        c = finish_consts(1)
+        norm = torch.sqrt(fk.lamb_finish_norms(leaves, g)[1])
+        pu = fk.lamb_finish_moments(leaves, g, norm, c)
+        src = [None] * len(shapes)
+        calls = {"lamb_finish_norms": lambda f: f(leaves, g),
+                 "lamb_finish_moments": lambda f: f(leaves, g, norm, c),
+                 "lamb_finish_apply": lambda f: f(leaves, pu, c, 4e-3, 0.999, src)}
+        passes = {}
+        for wrapper, call in calls.items():
+            run_k = lambda: call(getattr(fk, wrapper))
+            run_q = lambda: call(getattr(fk, wrapper + "_plain"))
+            bound, by = bound_ms(FINISH_BYTES[wrapper] * n, 0.0, "float32")
+            passes[wrapper] = {
+                "ms": median_ms(run_k, hide_host=True),
+                "plain_ms": median_ms(run_q, hide_host=True), "bound_ms": bound, "bound_by": by,
+                "library_ms": None, "max_abs_err": errs["max_abs_err"],
+                "ms_from_idle": median_ms(run_k), "plain_ms_from_idle": median_ms(run_q)}
+        opt = Lamb(OptimizerConfig(warmup_steps=0), lr_factors)
+        nest = lambda ts: _nested(dict(zip(paths, ts)))
+        params, ema = nest(leaves.p), nest(leaves.e)
+        state = LambState(nest(leaves.m), nest(leaves.v), 0, 0)
+        gmap = dict(zip(paths, g))
+        finish = lambda: opt.update(params, ema, state, gmap, True, 0.999)
+        reset_counts()
+        finish()
+        torch.cuda.synchronize()
+        launches = {w: v for w, v in read_counts().items() if v}
+        check_finish_launches(launches, f"{name}: one finish")
+        finish_ms, finish_device_ms = median_ms(finish), median_ms(finish, hide_host=True)
+        with plain_path():
+            finish_plain_ms = median_ms(finish)
+            finish_plain_device_ms = median_ms(finish, hide_host=True)
+        del params, ema, state, gmap, leaves, pu
+        torch.cuda.empty_cache()
+        adam_params = [torch.nn.Parameter(torch.zeros_like(t)) for t in g]
+        for p_, g_ in zip(adam_params, g):
+            p_.grad = g_
+        adam = torch.optim.Adam(adam_params, lr=4e-3, fused=True)
+        adam_ms = median_ms(adam.step, hide_host=True)
+        del adam, adam_params, g
+        torch.cuda.empty_cache()
+        bound, _ = bound_ms(52 * n, 0.0, "float32")
+        out[name] = {"leaves": len(shapes), "params": n, "bytes": 52 * n, "bound_ms": bound,
+                     "finish_ms": finish_ms, "finish_plain_ms": finish_plain_ms,
+                     "finish_device_ms": finish_device_ms,
+                     "finish_plain_device_ms": finish_plain_device_ms,
+                     "launches_a_finish": launches, "passes": passes,
+                     "adam_fused_ms (Adam, one pass, not LAMB)": adam_ms, "checks": errs}
+        log(f"  finish {name}: {len(shapes)} leaves, {n} parameters, {52 * n} bytes (bound "
+            f"{bound:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s); a finish (Lamb.update) from an "
+            f"idle card {finish_ms:.3f} ms with the kernels, {finish_plain_ms:.3f} ms plain "
+            f"(the device's work {finish_device_ms:.3f} / {finish_plain_device_ms:.3f}); "
+            f"launches a finish {launches}; passes, the device's work (from an idle card) ms, "
+            "kernels / plain / bound: "
+            + "; ".join(f"{w} {r['ms']:.3f} ({r['ms_from_idle']:.3f}) / {r['plain_ms']:.3f} "
+                        f"({r['plain_ms_from_idle']:.3f}) / {r['bound_ms']:.3f}"
+                        for w, r in passes.items())
+            + f"; torch.optim.Adam(fused=True).step (Adam, one pass, not LAMB) {adam_ms:.3f} "
+            f"ms; {card()}")
+    out["card"] = card()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 20 took {out['wall_s']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -5814,6 +6118,13 @@ def main() -> int:
                     check_wavefront(11, 5, 136, G, dtype, hard, with_masks)
         check_wavefront(5, 33, 1536, 3, dtype, False, True)  # large-196M's width, 3 batch tiles
         check_wavefront(3, 16, 1024, 6, dtype, False, True)  # base's post-stack: rows stream
+    log("== the LAMB finish's kernels vs plain versions (F0, F1, F2)")
+    for clip_norm in (1.0, None):
+        for nonfinite in (False, True):
+            check_finish([(n,) for n in FINISH_SIZES], (1.0, 2.0, 0.5, 0.243),
+                         f"leaves of {FINISH_SIZES} (leaf 1 no gradient, leaf 0 overwritten), "
+                         f"clip {clip_norm}, NaN and inf {nonfinite}", SEED + 40, none=(1,),
+                         overwrite=(0,), nonfinite=nonfinite, clip_norm=clip_norm)
     log(f"== joint kernels past 2^31 slab elements ({BIG_N} x {BIG_K} = {BIG_N * BIG_K})")
     for dtype in ("float32", "bfloat16"):
         check_joint(BIG_N, BIG_HJ, BIG_K, dtype, timed=False)
@@ -5986,6 +6297,12 @@ def main() -> int:
         "torch.distributed.run launch of two ranks on one card over gloo (a smoke reading, not "
         f"a scaling one); synthetic_e2e --pruned {E2E_PRUNED}")
     pruned_tp = run_pruned_and_tp()
+    torch.cuda.empty_cache()
+
+    # 20. the fused LAMB finish at the models' leaves
+    log("== the fused LAMB finish: its three passes at base-85M's and large-196M's leaves, "
+        "kernels against plain versions, timed")
+    finish = run_finish()
 
     train_counts = runs["bfloat16"]["rows"][-1]["launches"]
     counts32 = cells[sorted(cells)[1]]["bfloat16"]["rows"][-1]["launches"]
@@ -6036,6 +6353,9 @@ def main() -> int:
                            wf_per),
         "lstm_wavefront_bwd": (k8["K8-bwd"], wavefront["launches"]["lstm_wavefront_bwd"],
                                wf_shape, wf_per),
+        **{w: (finish["base-85M"]["passes"][w], train_counts[w],
+               f"{finish['base-85M']['leaves']} leaves, {finish['base-85M']['params']} "
+               "parameters (base-85M), fp32", base_step) for w in FINISH_KERNELS},
     }
     if wavefront["launches"]["lstm_wavefront_sg"] == 0:
         raise AssertionError(f"K8-fwd storing its gates was not launched ({wf_per})")
@@ -6146,6 +6466,14 @@ def main() -> int:
                     f"the slab over {VP_KS} columns; fp32 / bf16 / pruned: train.main "
                     f"--model_parallel {VP_RANKS}, {TP_STEPS} steps of A=2 x B={TP_B} each (fp32 "
                     "with a validation, bf16 packed, the pruned loss unpacked)")})
+        if wrapper in FINISH_KERNELS:  # phase 20 at large-196M's leaves
+            lg = finish["large-196M"]
+            kernels[-1].update({
+                "ms_large": lg["passes"][wrapper]["ms"],
+                "plain_ms_large": lg["passes"][wrapper]["plain_ms"],
+                "bound_ms_large": lg["passes"][wrapper]["bound_ms"],
+                "shape_large": f"{lg['leaves']} leaves, {lg['params']} parameters (large-196M), "
+                               "fp32"})
         if wrapper == "lstm_wavefront":  # the same kernel storing its gates
             sg = k8["K8-fwd-sg"]
             kernels[-1].update({
@@ -6222,6 +6550,7 @@ def main() -> int:
     log("latency tools summary: " + json.dumps(latency))
     log("lm tools summary: " + json.dumps(lm_tools, default=str))
     log("pruned and model-parallel summary: " + json.dumps(pruned_tp, default=str))
+    log("finish summary: " + json.dumps(finish))
     log("transcription summary: " + json.dumps({
         "base-85M": {d: sl[d] for d in ("float32", "bfloat16")},
         "large-196M": {d: large["slice"][d] for d in ("float32", "bfloat16")},

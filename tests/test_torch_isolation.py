@@ -51,6 +51,9 @@ for name in ("train", "args.train", "data.noise", "data.generate_mel_stats", "da
 for name in ("lm.train_ngram", "lm.kenlm_binary", "lm.kenlm_trie", "lm.sweep_scale_factor",
              "decoding.parallel", "ops.quantize"):
     assert "caiman_asr_tpu_torch." + name in names, name
+# the fused LAMB finish under every train step
+for name in ("training.fused_finish", "ops.finish_kernel"):
+    assert "caiman_asr_tpu_torch." + name in names, name
 from caiman_asr_tpu_torch.models.config import load_config
 assert load_config("configs/base-8703sp.yaml").rnnt.enc_n_hid == 1024
 """

@@ -14,7 +14,10 @@ derivation alone on each of theirs (``csrc/joint_prod_sm90.cuh``), and the
 wavefront multi-layer LSTM's
 forward, without and with stored gates (K8-fwd), and backward (K8-bwd)
 (``csrc/lstm_wavefront.cu``, ``csrc/lstm_wavefront_bwd.cu``); K1 also at the
-serving tick's batch of 8,192, where it runs once per batch slice.
+serving tick's batch of 8,192, where it runs once per batch slice; the
+fused LAMB finish's three passes (``csrc/lamb_finish.cu``) at unaligned
+leaves, with a None gradient, an overwrite leaf and NaN and inf entries,
+and ``Lamb.update`` on the card through them.
 
 A CUDA kernel has no interpret mode, so these tests need a GPU and nvcc and
 skip elsewhere; run them on the card with
@@ -38,7 +41,11 @@ the kernel's product and the plain version's). K6-fused with bf16 inputs:
 1e-3 of the result's scale, since u and dz are rounded to bf16 inside from
 values that differ in their last fp32 bits, and a rounding that falls the
 other way moves one term by 2^-8; the same for K6-derive-a, K4-A and K4-B,
-which round what they derive to bf16 for their second product.
+which round what they derive to bf16 for their second product. The LAMB
+finish: the moments equal to the bit (the plain version's operation order,
+no FMA contraction), the squared norms 1e-6 relative (sums in another
+order), the parameters and EMA 1e-6 of each leaf's largest magnitude (the
+trust ratio from norms summed in another order).
 """
 
 import ctypes
@@ -47,6 +54,7 @@ import numpy as np
 import pytest
 import torch
 
+from caiman_asr_tpu_torch.ops import finish_kernel as fk
 from caiman_asr_tpu_torch.ops import joint_kernel as jk
 from caiman_asr_tpu_torch.ops import lstm_kernel
 from caiman_asr_tpu_torch.ops import wavefront_kernel as wk
@@ -1329,3 +1337,125 @@ def test_wavefront_kernels_reject_a_plan_that_does_not_fit(cuda):
     with pytest.raises(ValueError, match="refused"):
         wk._launch_bwd(*bwd_args, plan=dict(bplan, types=[
             bplan["types"][0], dict(bplan["types"][1], pairs=wk.MAX_PAIRS + 1)]))
+
+
+# ------------------------------------------------------------- the LAMB finish
+FINISH_SIZES = (1, 3, 4097, 2 ** 20 + 5)
+
+
+def _finish_inputs(device, nonfinite, seed=30):
+    """Leaves of FINISH_SIZES elements (parameters, EMA, moments), their
+    gradients (leaf 1 none; NaN and inf entries where asked) and an
+    overwrite source for leaf 0."""
+    rng = np.random.default_rng(seed)
+    mk = lambda n, s=1.0: torch.from_numpy((rng.normal(size=n) * s).astype(np.float32)).to(device)
+    leaves = fk.Leaves(p=tuple(mk(n) for n in FINISH_SIZES), e=tuple(mk(n) for n in FINISH_SIZES),
+                       m=tuple(mk(n, 0.1) for n in FINISH_SIZES),
+                       v=tuple(mk(n, 0.01).abs() for n in FINISH_SIZES),
+                       factor=(1.0, 2.0, 0.5, 0.243), sharded=(False,) * len(FINISH_SIZES))
+    grads = [mk(n) for n in FINISH_SIZES]
+    grads[1] = None
+    if nonfinite:
+        grads[2][5], grads[2][4096], grads[3][-1] = float("nan"), float("inf"), -float("inf")
+    return leaves, grads, [mk(1), None, None, None]
+
+
+def _clone_leaves(leaves):
+    return fk.Leaves(*(tuple(t.clone() for t in ts) for ts in (leaves.p, leaves.e, leaves.m,
+                                                             leaves.v)),
+                     leaves.factor, leaves.sharded)
+
+
+FINISH_CONSTS = dict(beta1=0.9, beta2=0.999, bc1=float(1 - np.float32(0.9) ** 3),
+                     bc2=float(1 - np.float32(0.999) ** 3), eps=1e-9, weight_decay=1e-2)
+
+
+@pytest.mark.parametrize("clip_norm", [1.0, None])
+@pytest.mark.parametrize("nonfinite", [False, True])
+def test_lamb_finish_kernels_match_plain(cuda, clip_norm, nonfinite):
+    leaves, grads, sources = _finish_inputs(cuda, nonfinite)
+    got, want = _clone_leaves(leaves), _clone_leaves(leaves)
+    c = fk.Consts(clip_norm=clip_norm, **FINISH_CONSTS)
+    before = [fk.lamb_finish_norms.launches, fk.lamb_finish_moments.launches,
+              fk.lamb_finish_apply.launches]
+    sq, grad_sq = fk.lamb_finish_norms(got, grads)
+    sq_w, grad_sq_w = fk.lamb_finish_norms_plain(want, grads)
+    torch.testing.assert_close(sq, sq_w, rtol=1e-6, atol=0)
+    torch.testing.assert_close(grad_sq, grad_sq_w, rtol=1e-6, atol=0)
+    assert sq[1] == 0  # no gradient
+    norm = torch.sqrt(grad_sq_w)
+    pu = fk.lamb_finish_moments(got, grads, norm, c)
+    pu_w = fk.lamb_finish_moments_plain(want, grads, norm, c)
+    for a, b in zip(got.m + got.v, want.m + want.v):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(pu, pu_w, rtol=1e-6, atol=0)
+    fk.lamb_finish_apply(got, pu_w, c, 4e-3, 0.999, sources)
+    fk.lamb_finish_apply_plain(want, pu_w, c, 4e-3, 0.999, sources)
+    for a, b in zip(got.p + got.e, want.p + want.e):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+    assert torch.equal(got.p[0], sources[0])  # the overwrite leaf
+    assert [fk.lamb_finish_norms.launches, fk.lamb_finish_moments.launches,
+            fk.lamb_finish_apply.launches] == [n + 1 for n in before]
+
+
+def test_lamb_finish_kernels_are_deterministic(cuda):
+    runs = []
+    for _ in range(2):
+        leaves, grads, sources = _finish_inputs(cuda, False, seed=31)
+        c = fk.Consts(clip_norm=1.0, **FINISH_CONSTS)
+        sq, grad_sq = fk.lamb_finish_norms(leaves, grads)
+        pu = fk.lamb_finish_moments(leaves, grads, torch.sqrt(grad_sq), c)
+        fk.lamb_finish_apply(leaves, pu, c, 4e-3, 0.999, sources)
+        runs.append([sq, grad_sq, pu, *leaves.p, *leaves.e, *leaves.m, *leaves.v])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_lamb_finish_kernels_reject_what_they_do_not_take(cuda):
+    leaves, grads, _ = _finish_inputs(cuda, False, seed=32)
+    with pytest.raises(TypeError, match="float32"):
+        fk.lamb_finish_norms(leaves, [None if g is None else g.bfloat16() for g in grads])
+    with pytest.raises(ValueError, match="elements"):
+        fk.lamb_finish_norms(leaves, [grads[0], None, grads[2][:-1], grads[3]])
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(FINISH_SIZES[2], 2, device=cuda)[:, 0]
+        fk.lamb_finish_norms(leaves, [grads[0], None, wide, grads[3]])
+    half = fk.Leaves(tuple(t.half() for t in leaves.p), leaves.e, leaves.m, leaves.v,
+                     leaves.factor, leaves.sharded)
+    with pytest.raises(TypeError, match="float32"):
+        fk.lamb_finish_norms(half, grads)
+
+
+def test_lamb_update_on_the_card_takes_the_kernels(cuda, monkeypatch):
+    """Lamb.update on CUDA tensors launches each pass once and never its
+    plain version, and agrees with the same update on the CPU."""
+    from caiman_asr_tpu_torch.training.optimizer import Lamb, OptimizerConfig
+
+    rng = np.random.default_rng(33)
+    tree = lambda s=1.0: {"encoder": {"w": torch.from_numpy(
+        (rng.normal(size=(64, 130)) * s).astype(np.float32))}, "joint_fc": {
+        "b": torch.from_numpy((rng.normal(size=4099) * s).astype(np.float32))}}
+    params, grads = tree(), tree()
+    grads["joint_fc"]["b"][7] = float("nan")
+    opt = Lamb(OptimizerConfig(warmup_steps=0), {"encoder": 2.0})
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = {k: {n: t.to(dev).clone() for n, t in d.items()} for k, d in params.items()}
+        e = {k: {n: t.clone() for n, t in d.items()} for k, d in p.items()}
+        g = {(k, n): t.to(dev) for k, d in grads.items() for n, t in d.items()}
+        state = opt.init(p)
+        if dev != "cpu":
+            for name in ("lamb_finish_norms_plain", "lamb_finish_moments_plain",
+                         "lamb_finish_apply_plain"):
+                monkeypatch.setattr(fk, name, None)
+            before = fk.lamb_finish_apply.launches
+        for _ in range(2):
+            state, norm = opt.update(p, e, state, g, True, 0.999)
+        runs[str(dev)] = (p, e, state, norm)
+    assert fk.lamb_finish_apply.launches == before + 2
+    (p0, e0, s0, n0), (p1, e1, s1, n1) = runs["cpu"], runs[str(cuda)]
+    torch.testing.assert_close(n1.cpu(), n0, rtol=1e-6, atol=0)
+    for k in params:
+        for n in params[k]:
+            for a, b in ((p1, p0), (e1, e0), (s1.mu, s0.mu), (s1.nu, s0.nu)):
+                torch.testing.assert_close(a[k][n].cpu(), b[k][n], rtol=1e-5, atol=1e-6)

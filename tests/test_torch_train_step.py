@@ -305,7 +305,7 @@ def test_lr_schedule_matches_jax(cfg):
         np.testing.assert_allclose(got(step), float(want(step)), rtol=1e-6)
 
 
-def test_the_pruned_loss_raises_as_not_ported():
+def test_a_pruned_step_needs_the_heads():
     """Every option of the JAX step is ported, the pruned loss too
     (tests/test_torch_pruned_loss.py, test_torch_tp_step.py): a pruned step
     on a state without the pruned loss's heads raises, and one on a state
