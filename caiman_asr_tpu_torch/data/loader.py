@@ -82,6 +82,9 @@ class AudioDataLoader:
         self.babble_noise = babble_noise
         self.prob_narrowband = prob_narrowband
         self.inspect_audio_dir = inspect_audio_dir
+        # the noise's SNR schedule (data/noise.NoiseSchedule, set by the
+        # trainer): a batch made for a step takes that step's SNR ranges
+        self.noise_schedule = None
         self._inspect_n = 0
         self._token_cache: Dict[int, List[int]] = {}
         max_dur = pipeline.dataset.max_duration or max(
@@ -163,7 +166,14 @@ class AudioDataLoader:
             audio = narrowband_resim(audio, self.sr)
         return audio
 
-    def make_batch(self, idxs: Sequence[int]) -> Batch:
+    def make_batch(self, idxs: Sequence[int], step: Optional[int] = None) -> Batch:
+        """The batch of utterances ``idxs``; with ``step`` and a noise
+        schedule, its noise at that step's SNR ranges."""
+        if step is not None and self.noise_schedule is not None:
+            # set here, where batches are made one at a time in order, so
+            # that the ranges a batch takes do not hang on when the trainer
+            # gets to it (batches are made ahead)
+            self.noise_schedule.adjust_snrs(step)
         rngs = [
             np.random.default_rng((int(self.rng.integers(2**31)), i))
             for i in range(len(idxs))
@@ -239,20 +249,26 @@ class AudioDataLoader:
             host_rng=self.host_rng_state() if self.train else None,
         )
 
-    def epoch(self, epoch: int, resume_step: int = 0) -> Iterator[Batch]:
-        """Yield this rank's batches for an epoch, with prefetch."""
+    def epoch(self, epoch: int, resume_step: int = 0, first_step: Optional[int] = None,
+              accum: int = 1) -> Iterator[Batch]:
+        """Yield this rank's batches for an epoch, with prefetch. With
+        ``first_step``, batch j serves step ``first_step + j // accum`` and
+        is made at that step's noise SNR ranges."""
         batches = self.sampler.epoch_batches(epoch, resume_step)
         # a last global batch shorter than the ranks may leave a rank nothing
         idx_lists = [i for i in (self.sampler.shard(b, self.rank) for b in batches) if len(i)]
         if not idx_lists:
             return
+        steps = [None if first_step is None else first_step + j // accum
+                 for j in range(len(idx_lists))]
         futures: List[cf.Future] = []
         pool = cf.ThreadPoolExecutor(max_workers=1)
-        for idxs in idx_lists[: self.prefetch]:
-            futures.append(pool.submit(self.make_batch, idxs))
+        for j in range(min(self.prefetch, len(idx_lists))):
+            futures.append(pool.submit(self.make_batch, idx_lists[j], steps[j]))
         n = len(idx_lists)
         for i in range(n):
             if i + self.prefetch < n:
-                futures.append(pool.submit(self.make_batch, idx_lists[i + self.prefetch]))
+                j = i + self.prefetch
+                futures.append(pool.submit(self.make_batch, idx_lists[j], steps[j]))
             yield futures[i].result()
         pool.shutdown(wait=False)

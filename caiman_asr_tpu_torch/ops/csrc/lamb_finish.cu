@@ -14,33 +14,40 @@
 //
 // The leaf table (Leaf, cached on the device while the parameters' storage
 // is unchanged) holds each leaf's pointers, its element count, its first
-// chunk and its lr factor; a second table (Dyn, copied from pinned host
-// memory on the stream every call) holds the gradient (null: no gradient,
-// taken as zeros) and the overwrite source (null: none; else p' is that
-// value, a batch-norm running statistic, before the EMA). Block b takes
-// chunk b of kChunk elements of the leaf whose chunks hold it.
+// chunk of kChunk elements and its lr factor. What changes from call to call
+// is passed by value as a kernel parameter (Ptrs, read in place through
+// __grid_constant__): each leaf's gradient in passes 0 and 1 (null: no
+// gradient, taken as zeros) and its overwrite source in pass 2 (null: none;
+// else p' is that value, a batch-norm running statistic, before the EMA), so
+// that a call copies nothing to the card before its launch. In passes 1
+// and 2 block b takes chunk b of the leaf whose chunks hold it; pass 0 runs
+// a persistent grid over the same chunks (below).
 //
-// No atomics in any result: each block reduces its chunk in a fixed order
-// and writes one partial; the last block of a leaf to finish (found by the
-// leaf's ticket, which it resets for the next launch) sums the leaf's
+// No atomics in any result: each chunk is reduced in a fixed order into one
+// partial; in passes 1 and 2 the last block of a leaf to finish (found by
+// the leaf's ticket, which it resets for the next launch) sums the leaf's
 // partials in a fixed order, in double, and the last leaf to finish (the
-// grid's ticket) takes the sum over the leaves, so two runs give the same
-// bits and only the last leaf's sum waits for the rest of the grid. mu' and
-// nu' are formed in the plain version's operation order with explicit
+// grid's ticket) takes the sum over the leaves; in pass 0 the last block of
+// the grid does both. So two runs give the same bits. mu' and nu' are
+// formed in the plain version's operation order with explicit
 // round-to-nearest intrinsics (no FMA contraction), so that they equal it to
 // the bit; u divides by the bias corrections as the plain version does on
 // the card, by multiplying with their fp32 reciprocals.
 //
 // What bounds it: 52 bytes a parameter in fp32 (pass 0 reads 4, pass 1
 // reads 16 and writes 8, pass 2 reads 16 and writes 8) against a few dozen
-// operations: the bytes. Design: one block per 4,096 elements of a leaf,
-// each thread 16 of them with neighbouring threads on neighbouring
-// addresses; the table is read once per block.
+// operations: the bytes. Passes 1 and 2: one block per 4,096 elements of a
+// leaf, each thread 16 of them with neighbouring threads on neighbouring
+// addresses. Pass 0, whose blocks had too little to do to hide their
+// set-up: a persistent grid whose warps each reduce whole chunks with
+// 16-byte loads, 4 KB a warp in flight.
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -61,11 +68,16 @@ struct Leaf {
 };
 static_assert(sizeof(Leaf) == 64, "the host builds this layout");
 
-struct Dyn {
-  const float* g;    // null: no gradient
-  const float* src;  // null: no overwrite
+// Each leaf's gradient (passes 0 and 1) or overwrite source (pass 2), null
+// for none: a kernel parameter of kCap entries, the first L set.
+template <int kCap>
+struct Ptrs {
+  const float* p[kCap];
 };
-static_assert(sizeof(Dyn) == 16, "the host builds this layout");
+// the two capacities instantiated: up to kSmallCap leaves a 2 KB parameter,
+// up to kLargeCap the 32 KB that CUDA 12.1 allows from Volta on
+constexpr int kSmallCap = 256;
+constexpr int kLargeCap = 4000;
 
 __device__ __forceinline__ long long chunks_of(long long n) { return (n + kChunk - 1) / kChunk; }
 
@@ -88,12 +100,12 @@ __device__ __forceinline__ float direction(float m2, float v2, float p, float ib
 // entries and its chunk's first element, in shared memory.
 struct Block {
   Leaf lf;
-  Dyn dy;
+  const float* ptr;  // the leaf's entry of the call's Ptrs
   long long base;
   int leaf;
 };
 
-__device__ void find_block(const Leaf* leaves, const Dyn* dyn, int L, Block* blk) {
+__device__ void find_block(const Leaf* leaves, const float* const* ptrs, int L, Block* blk) {
   if (threadIdx.x == 0) {
     const long long b = blockIdx.x;
     int lo = 0, hi = L - 1;
@@ -102,7 +114,7 @@ __device__ void find_block(const Leaf* leaves, const Dyn* dyn, int L, Block* blk
       if (leaves[mid].chunk0 <= b) lo = mid; else hi = mid - 1;
     }
     blk->lf = leaves[lo];
-    blk->dy = dyn[lo];
+    blk->ptr = ptrs[lo];
     blk->base = (b - blk->lf.chunk0) * kChunk;
     blk->leaf = lo;
   }
@@ -166,53 +178,154 @@ __device__ bool leaf_sums(const Block& blk, const float* part, float* out, unsig
   return last_of(tickets + L, static_cast<unsigned>(live));
 }
 
-__global__ void __launch_bounds__(kThreads)
-norms_kernel(const Leaf* __restrict__ leaves, const Dyn* __restrict__ dyn, int L, int live,
-             float* part, float* leaf_sq, float* __restrict__ grad_sq,
-             unsigned* __restrict__ tickets) {
-  __shared__ Block blk;
-  __shared__ float red[kWarps];
-  find_block(leaves, dyn, L, &blk);
-  const float* g = blk.dy.g;
-  const long long n = blk.lf.n, base = blk.base;
-  float acc = 0.f;
-  if (g) {
+// ------------------------------------------------------------------ pass 0
+// A persistent grid (kNormBlocksPerSM blocks of kNormThreads on each SM, as
+// the occupancy API allows): block b walks the fixed, contiguous run of
+// chunks [C b / G, C (b + 1) / G), its warps taking the run's chunks in
+// turn, and a warp reduces a whole chunk with no barrier. A chunk's
+// elements are read as 16-byte vectors, kNormVec of them a lane in flight
+// before the first is used; a leaf may start at any 4-byte address (a view
+// into the all-reduced flat buffer), so its elements before the first
+// 16-byte boundary (0-3) belong to its chunk 0 and are read one by one, as
+// is the tail past its last whole vector. Each chunk's sum lands in part[c];
+// the last block to finish (one ticket a block) sums each leaf's partials in
+// double in chunk order, a warp a leaf, then the grid total. The partial of a
+// chunk does not depend on the grid, so neither do the bits of any sum.
+
+constexpr int kNormThreads = 512;
+constexpr int kNormWarps = kNormThreads / 32;
+constexpr int kNormBlocksPerSM = 2;
+constexpr int kNormVec = 8;  // 16-byte loads a lane issues before the first use
+constexpr int kNormRounds = static_cast<int>(kChunk / (32 * 4 * kNormVec));
+static_assert(kChunk == 32LL * 4 * kNormVec * kNormRounds, "a chunk is whole rounds of a warp");
+
+// A leaf as pass 0 reads it, in shared memory.
+struct NormLeaf {
+  const float* g;
+  long long n;
+  long long chunk0;
+  long long sharded;
+};
+
+// nan_to_num(x)^2: NaN -> 0, +-inf -> FLT_MAX^2 (inf in fp32, as the plain
+// version's square)
+__device__ __forceinline__ float sq_finite(float x) {
+  const float a = x == x ? fminf(fabsf(x), FLT_MAX) : 0.f;
+  return __fmul_rn(a, a);
+}
+
+__device__ __forceinline__ float sq4(float4 x) {
+  return __fadd_rn(__fadd_rn(sq_finite(x.x), sq_finite(x.y)),
+                   __fadd_rn(sq_finite(x.z), sq_finite(x.w)));
+}
+
+// Chunk k of a leaf of n elements at g, reduced by one warp: its sum of
+// nan_to_num(g)^2, in every lane. A round's 32 squares a lane are summed
+// pairwise before they join the lane's sum.
+__device__ float chunk_sq(const float* __restrict__ g, long long n, long long k, int lane) {
+  const int head = static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(g) & 15u)) & 15u) >> 2);
+  const long long s0 = head < n ? head : n;  // the body starts 16-byte aligned
+  const long long lo = s0 + k * kChunk, hi = lo + kChunk < n ? lo + kChunk : n;
+  float acc = k == 0 && lane < s0 ? sq_finite(__ldg(g + lane)) : 0.f;
+  if (hi - lo == kChunk) {
+    const float4* v = reinterpret_cast<const float4*>(g + lo) + lane;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const long long j = base + k * kThreads + threadIdx.x;
-      if (j < n) {
-        const float x = finite(g[j]);
-        acc = __fadd_rn(acc, __fmul_rn(x, x));
-      }
+    for (int r = 0; r < kNormRounds; ++r) {
+      float4 x[kNormVec];
+#pragma unroll
+      for (int u = 0; u < kNormVec; ++u) x[u] = __ldg(v + (r * kNormVec + u) * 32);
+      float t[kNormVec];
+#pragma unroll
+      for (int u = 0; u < kNormVec; ++u) t[u] = sq4(x[u]);
+#pragma unroll
+      for (int w = 1; w < kNormVec; w *= 2)
+#pragma unroll
+        for (int u = 0; u < kNormVec; u += 2 * w) t[u] = __fadd_rn(t[u], t[u + w]);
+      acc = __fadd_rn(acc, t[0]);
     }
+  } else if (hi > lo) {  // the leaf's last chunk
+    const long long nv = (hi - lo) >> 2;
+    const float4* v = reinterpret_cast<const float4*>(g + lo);
+    for (long long q = lane; q < nv; q += 32) acc = __fadd_rn(acc, sq4(__ldg(v + q)));
+    const long long t = lo + 4 * nv + lane;  // the 0-3 elements past the last vector
+    if (t < hi) acc = __fadd_rn(acc, sq_finite(__ldg(g + t)));
   }
-  const float s = block_sum(acc, red);
-  if (threadIdx.x == 0) part[blockIdx.x] = s;
-  if (!leaf_sums<1>(blk, part, leaf_sq, tickets, L, live)) return;
+  return warp_sum(acc);
+}
+
+template <int kCap>
+__global__ void __launch_bounds__(kNormThreads, kNormBlocksPerSM)
+norms_kernel(const Leaf* __restrict__ leaves, const __grid_constant__ Ptrs<kCap> grads, int L,
+             long long chunks, float* part, float* leaf_sq, float* __restrict__ grad_sq,
+             unsigned* __restrict__ ticket) {
+  extern __shared__ NormLeaf tab[];  // [L]
+  for (int l = threadIdx.x; l < L; l += kNormThreads)
+    tab[l] = {grads.p[l], leaves[l].n, leaves[l].chunk0, leaves[l].sharded};
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long end = chunks * (blockIdx.x + 1) / gridDim.x;
+  long long c = chunks * blockIdx.x / gridDim.x + warp;
+  if (c < end) {
+    int lo = 0, hi = L - 1;  // the leaf of the first chunk: the last to start at or before it
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (tab[mid].chunk0 <= c) lo = mid; else hi = mid - 1;
+    }
+    for (int l = lo; c < end; c += kNormWarps) {
+      while (l + 1 < L && tab[l + 1].chunk0 <= c) ++l;
+      const float s = tab[l].g ? chunk_sq(tab[l].g, tab[l].n, c - tab[l].chunk0, lane) : 0.f;
+      if (lane == 0) part[c] = s;
+    }
+    if (lane == 0) __threadfence();
+  }
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) *ticket = 0u;  // zero for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int l = warp; l < L; l += kNormWarps) {  // each leaf's partials in chunk order
+    const float* p = part + tab[l].chunk0;
+    const long long nc = chunks_of(tab[l].n);
+    double acc[4] = {0.0, 0.0, 0.0, 0.0};
+    for (long long i = lane; i < nc; i += 32 * kNormVec) {
+      float x[kNormVec];
+#pragma unroll
+      for (int u = 0; u < kNormVec; ++u) x[u] = i + 32 * u < nc ? __ldcg(p + i + 32 * u) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kNormVec; ++u) acc[u & 3] += static_cast<double>(x[u]);
+    }
+    const double s = warp_sum((acc[0] + acc[1]) + (acc[2] + acc[3]));
+    if (lane == 0) leaf_sq[l] = static_cast<float>(s);  // 0 for a leaf without elements
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
     double t = 0.0;  // the leaves not sharded, in leaf order
-    for (int l = 0; l < L; ++l) {
-      if (leaves[l].n == 0) leaf_sq[l] = 0.f;
-      else if (!leaves[l].sharded) t += static_cast<double>(__ldcg(leaf_sq + l));
-    }
+    for (int l = 0; l < L; ++l)
+      if (!tab[l].sharded) t += static_cast<double>(__ldcg(leaf_sq + l));
     *grad_sq = static_cast<float>(t);
   }
 }
 
+template <int kCap>
 __global__ void __launch_bounds__(kThreads)
-moments_kernel(const Leaf* __restrict__ leaves, const Dyn* __restrict__ dyn, int L, int live,
+moments_kernel(const Leaf* __restrict__ leaves, const __grid_constant__ Ptrs<kCap> grads, int L,
+               int live,
                const float* __restrict__ grad_norm, int has_clip, float clip, float b1, float c1,
                float b2, float c2, float ib1, float ib2, float eps, float wd,
                float* part, float* leaf_pu, unsigned* __restrict__ tickets) {
   __shared__ Block blk;
   __shared__ float red[kWarps];
-  find_block(leaves, dyn, L, &blk);
+  find_block(leaves, grads.p, L, &blk);
   float cs = 1.f;  // the clip's scale
   if (has_clip) {
     const float nrm = *grad_norm;
     cs = nrm < clip ? 1.f : __fdiv_rn(clip, nrm);
   }
-  const float* g = blk.dy.g;
+  const float* g = blk.ptr;
   float* m = blk.lf.m;
   float* v = blk.lf.v;
   const float* p = blk.lf.p;
@@ -245,18 +358,19 @@ moments_kernel(const Leaf* __restrict__ leaves, const Dyn* __restrict__ dyn, int
       if (leaves[l].n == 0) leaf_pu[2 * l] = leaf_pu[2 * l + 1] = 0.f;
 }
 
+template <int kCap>
 __global__ void __launch_bounds__(kThreads)
-apply_kernel(const Leaf* __restrict__ leaves, const Dyn* __restrict__ dyn, int L,
+apply_kernel(const Leaf* __restrict__ leaves, const __grid_constant__ Ptrs<kCap> sources, int L,
              const float* __restrict__ leaf_pu, double lr, float ib1, float ib2, float eps,
              float wd, float ce) {
   __shared__ Block blk;
-  find_block(leaves, dyn, L, &blk);
+  find_block(leaves, sources.p, L, &blk);
   const float pn = __fsqrt_rn(leaf_pu[2 * blk.leaf]);
   const float un = __fsqrt_rn(leaf_pu[2 * blk.leaf + 1]);
   const float trust = (pn == 0.f || un == 0.f) ? 1.f : __fdiv_rn(pn, un);
   // (-lr * factor) in double, rounded to fp32, times the trust ratio
   const float s = __fmul_rn(static_cast<float>(-lr * blk.lf.factor), trust);
-  const float* src = blk.dy.src;
+  const float* src = blk.ptr;
   float* p = blk.lf.p;
   float* e = blk.lf.e;
   const float* m = blk.lf.m;
@@ -279,6 +393,82 @@ apply_kernel(const Leaf* __restrict__ leaves, const Dyn* __restrict__ dyn, int L
 
 int launched() { return static_cast<int>(cudaGetLastError()); }
 
+// Pass 0's grid: blocks of kNormThreads, as many as fit on the card's SMs
+// at once with L leaves in shared memory (at most kNormBlocksPerSM each).
+// Returns 0 and sets *blocks, or a CUDA error.
+template <int kCap>
+int norms_grid(int L, int* blocks) {
+  static int cached_dev = -1, cached_L = -1, cached_blocks = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev != cached_dev || L != cached_L) {
+    const size_t smem = sizeof(NormLeaf) * static_cast<size_t>(L);
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(norms_kernel<kCap>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess)
+      return static_cast<int>(err);
+    int per_sm = 0, sms = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, norms_kernel<kCap>,
+                                                             kNormThreads, smem)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    cached_dev = dev, cached_L = L, cached_blocks = per_sm * sms;
+  }
+  *blocks = cached_blocks;
+  return 0;
+}
+
+// The call's pointers (L of them, from the host) as a kernel parameter.
+template <int kCap>
+Ptrs<kCap> ptrs_of(const void* host, int L) {
+  Ptrs<kCap> out{};
+  std::memcpy(out.p, host, sizeof(const float*) * static_cast<size_t>(L));
+  return out;
+}
+
+template <int kCap>
+int launch_norms(const Leaf* leaves, const void* grads, int L, long long chunks, float* part,
+                 float* leaf_sq, float* grad_sq, unsigned* ticket, cudaStream_t stream) {
+  int blocks = 0;
+  const int err = norms_grid<kCap>(L, &blocks);
+  if (err != 0) return err;
+  if (blocks > chunks) blocks = static_cast<int>(chunks);
+  norms_kernel<kCap><<<blocks, kNormThreads, sizeof(NormLeaf) * static_cast<size_t>(L), stream>>>(
+      leaves, ptrs_of<kCap>(grads, L), L, chunks, part, leaf_sq, grad_sq, ticket);
+  return launched();
+}
+
+template <int kCap>
+int launch_moments(const Leaf* leaves, const void* grads, int L, int live, long long chunks,
+                   const float* grad_norm, int has_clip, float clip, float b1, float c1, float b2,
+                   float c2, float ib1, float ib2, float eps, float wd, float* part,
+                   float* leaf_pu, unsigned* tickets, cudaStream_t stream) {
+  moments_kernel<kCap><<<static_cast<unsigned>(chunks), kThreads, 0, stream>>>(
+      leaves, ptrs_of<kCap>(grads, L), L, live, grad_norm, has_clip, clip, b1, c1, b2, c2, ib1,
+      ib2, eps, wd, part, leaf_pu, tickets);
+  return launched();
+}
+
+template <int kCap>
+int launch_apply(const Leaf* leaves, const void* sources, int L, long long chunks,
+                 const float* leaf_pu, double lr, float ib1, float ib2, float eps, float wd,
+                 float ce, cudaStream_t stream) {
+  apply_kernel<kCap><<<static_cast<unsigned>(chunks), kThreads, 0, stream>>>(
+      leaves, ptrs_of<kCap>(sources, L), L, leaf_pu, lr, ib1, ib2, eps, wd, ce);
+  return launched();
+}
+
+// f(the capacity) for the smallest Ptrs that holds L leaves
+template <typename F>
+int by_cap(int L, F&& f) {
+  if (L <= kSmallCap) return f(std::integral_constant<int, kSmallCap>{});
+  if (L <= kLargeCap) return f(std::integral_constant<int, kLargeCap>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -287,45 +477,62 @@ extern "C" {
 // first chunks with it.
 long long lamb_finish_chunk() { return kChunk; }
 
-// Pass 0 over `chunks` blocks, `live` of the L leaves with elements: part
-// [chunks] scratch; leaf_sq [L] the leaves' sums of nan_to_num(g)^2;
-// grad_sq [1] their sum over the leaves not sharded; tickets: L + 1 uint32,
-// zero (left zero).
-int lamb_finish_norms(const void* leaves, const void* dyn, int L, int live, long long chunks,
-                      void* part, void* leaf_sq, void* grad_sq, void* tickets, void* stream) {
-  norms_kernel<<<static_cast<unsigned>(chunks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Leaf*>(leaves), static_cast<const Dyn*>(dyn), L, live,
-      static_cast<float*>(part), static_cast<float*>(leaf_sq), static_cast<float*>(grad_sq),
-      static_cast<unsigned*>(tickets));
-  return launched();
+// The most leaves a call takes (the larger Ptrs).
+int lamb_finish_max_leaves() { return kLargeCap; }
+
+// Pass 0's grid for L leaves (blocks of its persistent grid; 0 where the
+// launch would be refused).
+int lamb_finish_norms_grid(int L) {
+  int blocks = 0;
+  const int err = by_cap(L, [&](auto cap) { return norms_grid<decltype(cap)::value>(L, &blocks); });
+  return err == 0 ? blocks : 0;
 }
 
-// Pass 1: mu, nu updated in place with the gradients clipped by the global
-// norm *grad_norm (when has_clip); part [chunks, 2] scratch; leaf_pu [L, 2]
-// each leaf's ||p||^2 and ||u||^2. c1 = 1 - b1, c2 = 1 - b2, ib1 = 1 / bc1
-// and ib2 = 1 / bc2 as fp32; tickets as pass 0's.
-int lamb_finish_moments(const void* leaves, const void* dyn, int L, int live, long long chunks,
+// Pass 0 over `chunks` chunks of kChunk elements (the Leaf table's); grads:
+// L host pointers (null: no gradient); part [chunks] scratch; leaf_sq [L]
+// the leaves' sums of nan_to_num(g)^2 (0 for one without elements or
+// gradient); grad_sq [1] their sum over the leaves not sharded; ticket: one
+// uint32, zero (left zero).
+int lamb_finish_norms(const void* leaves, const void* grads, int L, long long chunks, void* part,
+                      void* leaf_sq, void* grad_sq, void* ticket, void* stream) {
+  return by_cap(L, [&](auto cap) {
+    return launch_norms<decltype(cap)::value>(
+        static_cast<const Leaf*>(leaves), grads, L, chunks, static_cast<float*>(part),
+        static_cast<float*>(leaf_sq), static_cast<float*>(grad_sq),
+        static_cast<unsigned*>(ticket), static_cast<cudaStream_t>(stream));
+  });
+}
+
+// Pass 1: mu, nu updated in place with the gradients (grads: L host
+// pointers, as pass 0's) clipped by the global norm *grad_norm (when
+// has_clip); part [chunks, 2] scratch; leaf_pu [L, 2] each leaf's ||p||^2
+// and ||u||^2. c1 = 1 - b1, c2 = 1 - b2, ib1 = 1 / bc1 and ib2 = 1 / bc2 as
+// fp32; tickets: L + 1 uint32, zero (left zero).
+int lamb_finish_moments(const void* leaves, const void* grads, int L, int live, long long chunks,
                         const void* grad_norm, int has_clip, float clip, float b1, float c1,
                         float b2, float c2, float ib1, float ib2, float eps, float wd, void* part,
                         void* leaf_pu, void* tickets, void* stream) {
-  moments_kernel<<<static_cast<unsigned>(chunks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Leaf*>(leaves), static_cast<const Dyn*>(dyn), L, live,
-      static_cast<const float*>(grad_norm), has_clip, clip, b1, c1, b2, c2, ib1, ib2, eps, wd,
-      static_cast<float*>(part), static_cast<float*>(leaf_pu), static_cast<unsigned*>(tickets));
-  return launched();
+  return by_cap(L, [&](auto cap) {
+    return launch_moments<decltype(cap)::value>(
+        static_cast<const Leaf*>(leaves), grads, L, live, chunks,
+        static_cast<const float*>(grad_norm), has_clip, clip, b1, c1, b2, c2, ib1, ib2, eps, wd,
+        static_cast<float*>(part), static_cast<float*>(leaf_pu),
+        static_cast<unsigned*>(tickets), static_cast<cudaStream_t>(stream));
+  });
 }
 
 // Pass 2: p and the EMA updated in place from leaf_pu [L, 2] (the sharded
 // leaves' rows all-reduced), the learning rate lr and ce = 1 - decay as
-// fp32.
-int lamb_finish_apply(const void* leaves, const void* dyn, int L, long long chunks,
+// fp32; sources: L host pointers, each leaf's overwrite source (null: none).
+int lamb_finish_apply(const void* leaves, const void* sources, int L, long long chunks,
                       const void* leaf_pu, double lr, float ib1, float ib2, float eps, float wd,
                       float ce, void* stream) {
-  apply_kernel<<<static_cast<unsigned>(chunks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Leaf*>(leaves), static_cast<const Dyn*>(dyn), L,
-      static_cast<const float*>(leaf_pu), lr, ib1, ib2, eps, wd, ce);
-  return launched();
+  return by_cap(L, [&](auto cap) {
+    return launch_apply<decltype(cap)::value>(
+        static_cast<const Leaf*>(leaves), sources, L, chunks,
+        static_cast<const float*>(leaf_pu), lr, ib1, ib2, eps, wd, ce,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -19,7 +19,16 @@ What bounds them on an H100: 52 bytes a parameter in fp32 (pass 0 reads 4,
 pass 1 reads 16 and writes 8, pass 2 reads 16 and writes 8) against a few
 dozen operations, so the bytes. ``training/fused_finish.py`` runs the
 passes; the plain versions are the per-leaf PyTorch code of
-``Lamb.update`` split at the same two points.
+``Lamb.update`` split at the same two points. Pass 0 runs a persistent grid
+whose warps each reduce whole chunks with 16-byte loads, a leaf's first
+elements before a 16-byte boundary apart (a gradient may be a view at any
+4-byte offset into the all-reduced flat buffer).
+
+The host's part of a call: the leaf table is found once for a ``Leaves``
+(keyed by every pointer, built and checked once while they stay), the
+gradients are checked once for passes 0 and 1, and each call's pointers go
+to the kernel as a parameter, so nothing is copied to the card before a
+launch and nothing waits for it.
 
 Every wrapper launches its kernel for CUDA tensors and uses the plain
 version only for CPU tensors; it never falls back from one to the other.
@@ -32,30 +41,35 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from dataclasses import dataclass
+import itertools
+import operator
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from caiman_asr_tpu_torch.ops.cuda_build import I, P, check, counted, load, stream_of
+from caiman_asr_tpu_torch.ops.cuda_build import I, P, check, counted, load
 
 Grads = Sequence[Optional[torch.Tensor]]
 F, D, LL = ctypes.c_float, ctypes.c_double, ctypes.c_longlong
 
 SIGNATURES = {
     "lamb_finish_chunk": ([], LL),
-    "lamb_finish_norms": ([P, P, I, I, LL, P, P, P, P, P], I),
+    "lamb_finish_max_leaves": ([], I),
+    "lamb_finish_norms_grid": ([I], I),
+    "lamb_finish_norms": ([P, P, I, LL, P, P, P, P, P], I),
     "lamb_finish_moments": ([P, P, I, I, LL, P, I] + [F] * 9 + [P, P, P, P], I),
     "lamb_finish_apply": ([P, P, I, LL, P, D] + [F] * 5 + [P], I),
 }
 # the elements a block takes (kChunk of the kernels)
 CHUNK = 4096
-# the kernels' leaf tables (Leaf and Dyn of csrc/lamb_finish.cu)
+# the kernels' leaf table (Leaf of csrc/lamb_finish.cu)
 LEAF = np.dtype([("p", "<u8"), ("m", "<u8"), ("v", "<u8"), ("e", "<u8"), ("n", "<i8"),
                  ("chunk0", "<i8"), ("factor", "<f8"), ("sharded", "<i8")])
-DYN = np.dtype([("g", "<u8"), ("src", "<u8")])
 LAYOUTS_KEPT = 8
+# the most leaves a call takes: its pointers are a kernel parameter (Ptrs)
+MAX_LEAVES = 4000
 
 
 @dataclass(frozen=True, eq=False)
@@ -71,6 +85,10 @@ class Leaves:
     v: Tuple[torch.Tensor, ...]
     factor: Tuple[float, ...]
     sharded: Tuple[bool, ...]
+    # what the kernels' wrappers found for these leaves (the leaf table, the
+    # last gradients' pointers), kept for the next pass of the same finish:
+    # a finish builds one Leaves and leaves its tensors' storage alone
+    tables: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 class Consts(NamedTuple):
@@ -90,9 +108,10 @@ class Consts(NamedTuple):
 @functools.cache
 def _lib():
     lib = load("lamb_finish", SIGNATURES)
-    if lib.lamb_finish_chunk() != CHUNK:
-        raise RuntimeError(f"lamb_finish.cu takes {lib.lamb_finish_chunk()} elements a block, "
-                           f"the host {CHUNK}")
+    if lib.lamb_finish_chunk() != CHUNK or lib.lamb_finish_max_leaves() != MAX_LEAVES:
+        raise RuntimeError(f"lamb_finish.cu takes {lib.lamb_finish_chunk()} elements a block "
+                           f"and {lib.lamb_finish_max_leaves()} leaves, the host {CHUNK} and "
+                           f"{MAX_LEAVES}")
     return lib
 
 
@@ -158,10 +177,13 @@ def lamb_finish_apply_plain(leaves: Leaves, pu: torch.Tensor, c: Consts, lr: flo
 # ------------------------------------------------------------------ kernels
 class _Layout(NamedTuple):
     table: torch.Tensor    # the Leaf table on the device
-    tickets: torch.Tensor  # pass 0's and pass 1's L + 1 tickets, zero between launches
-    chunks: int            # blocks a pass
+    tickets: torch.Tensor  # pass 0's ticket and pass 1's L + 1, zero between launches
+    part: torch.Tensor     # passes 0 and 1's partials, [chunks, 2] fp32 scratch
+    chunks: int            # chunks of CHUNK elements: blocks of passes 1 and 2
     live: int              # leaves with elements
     n: Tuple[int, ...]     # each leaf's elements
+    device: torch.device
+    index: int             # the device's index
 
 
 _LAYOUTS: "collections.OrderedDict[tuple, _Layout]" = collections.OrderedDict()
@@ -184,15 +206,24 @@ def _check_fp32(t: torch.Tensor, ref: torch.Tensor, n: int, what: str) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def _layout(leaves: Leaves) -> _Layout:
+_data_ptr, _numel = torch.Tensor.data_ptr, torch.Tensor.numel
+
+
+def _fp32_ok(t: torch.Tensor, dev: int, n: int) -> bool:
+    """_check_fp32 would pass for a tensor on CUDA device ``dev`` (a quick
+    test, before the one that names the fault)."""
+    return (t.dtype is torch.float32 and t.get_device() == dev and t.numel() == n
+            and t.is_contiguous())
+
+
+def _find_layout(leaves: Leaves) -> _Layout:
     """The leaf table for these tensors, built once while their storage is
     unchanged (the key is every pointer and size), checked when built."""
     ref = leaves.p[0]
     if ref.device.type != "cuda":
         raise ValueError(f"unsupported device {ref.device}")
-    key = (ref.device, leaves.factor, leaves.sharded,
-           tuple((p.data_ptr(), e.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel())
-                 for p, e, m, v in zip(leaves.p, leaves.e, leaves.m, leaves.v)))
+    key = (ref.device, leaves.factor, leaves.sharded, tuple(map(_numel, leaves.p)),
+           tuple(map(_data_ptr, itertools.chain(leaves.p, leaves.e, leaves.m, leaves.v))))
     if key in _LAYOUTS:
         _LAYOUTS.move_to_end(key)
         return _LAYOUTS[key]
@@ -208,34 +239,62 @@ def _layout(leaves: Leaves) -> _Layout:
         chunk0 += -(-n // CHUNK)
     if chunk0 >= 2 ** 31:
         raise ValueError(f"{chunk0} chunks of {CHUNK} elements: more than a grid takes")
+    if len(leaves.p) > MAX_LEAVES:
+        raise ValueError(f"{len(leaves.p)} leaves: the kernels take at most {MAX_LEAVES}")
     tickets = torch.zeros(2 * (len(leaves.p) + 1), dtype=torch.int32, device=ref.device)
-    _LAYOUTS[key] = lay = _Layout(_to_device(arr, ref.device), tickets, chunk0,
-                                  int((arr["n"] > 0).sum()), tuple(int(x) for x in arr["n"]))
+    part = torch.empty((chunk0, 2), dtype=torch.float32, device=ref.device)
+    _LAYOUTS[key] = lay = _Layout(_to_device(arr, ref.device), tickets, part, chunk0,
+                                  int((arr["n"] > 0).sum()), tuple(int(x) for x in arr["n"]),
+                                  ref.device, ref.get_device())
     while len(_LAYOUTS) > LAYOUTS_KEPT:
         _LAYOUTS.popitem(last=False)
     return lay
 
 
-def _ptrs(ts: Grads, leaves: Leaves, lay: _Layout, what: str) -> Tuple[int, ...]:
-    """Each leaf's tensor's pointer (0: none), checked."""
+def _layout(leaves: Leaves) -> _Layout:
+    """The leaf table, found once for a Leaves and kept for its other
+    passes."""
+    lay = leaves.tables.get("layout")
+    if lay is None:
+        lay = leaves.tables["layout"] = _find_layout(leaves)
+    return lay
+
+
+def _pointers(leaves: Leaves, lay: _Layout, ts: Grads, what: str) -> np.ndarray:
+    """Each leaf's tensor's pointer (0: none), checked, as the kernels take
+    them (Ptrs of csrc/lamb_finish.cu, from the host). The gradients' are
+    kept for the next pass given the same tensors (passes 0 and 1 of a
+    finish)."""
+    keep = what == "gradient"
+    kept = leaves.tables.get("grads") if keep else None
+    if kept is not None and len(kept[0]) == len(ts) and all(map(operator.is_, kept[0], ts)):
+        return kept[1]
+    L = len(leaves.p)
     if not ts:
-        return (0,) * len(leaves.p)
-    if len(ts) != len(leaves.p):
-        raise ValueError(f"{len(ts)} {what}s for {len(leaves.p)} leaves")
-    ref = leaves.p[0]
-    for i, t in enumerate(ts):
-        if t is not None:
-            _check_fp32(t, ref, lay.n[i], f"leaf {i}'s {what}")
-    return tuple(0 if t is None else t.data_ptr() for t in ts)
+        ptrs = (0,) * L
+    elif len(ts) != L:
+        raise ValueError(f"{len(ts)} {what}s for {L} leaves")
+    elif any(t is None for t in ts):
+        for i, t in enumerate(ts):
+            if t is not None and not _fp32_ok(t, lay.index, lay.n[i]):
+                _check_fp32(t, leaves.p[0], lay.n[i], f"leaf {i}'s {what}")
+        ptrs = tuple(0 if t is None else t.data_ptr() for t in ts)
+    else:
+        if not all(map(_fp32_ok, ts, itertools.repeat(lay.index), lay.n)):
+            for i, t in enumerate(ts):
+                _check_fp32(t, leaves.p[0], lay.n[i], f"leaf {i}'s {what}")
+        ptrs = tuple(map(_data_ptr, ts))
+    arr = np.array(ptrs, dtype=np.uint64)
+    if keep:
+        leaves.tables["grads"] = (tuple(ts), arr)
+    return arr
 
 
-def _dyn(leaves: Leaves, lay: _Layout, grads: Grads = (), sources: Grads = ()) -> torch.Tensor:
-    """The per-call table of each leaf's gradient and overwrite source (0:
-    none), checked."""
-    arr = np.zeros(len(leaves.p), DYN)
-    arr["g"] = _ptrs(grads, leaves, lay, "gradient")
-    arr["src"] = _ptrs(sources, leaves, lay, "overwrite source")
-    return _to_device(arr, leaves.p[0].device)
+def _stream(lay: _Layout) -> int:
+    """The current stream on the layout's device (as
+    ``torch.cuda.current_stream(dev).cuda_stream``, with no Stream object
+    made a call)."""
+    return torch._C._cuda_getCurrentRawStream(lay.index)
 
 
 def _use_plain(leaves: Leaves) -> bool:
@@ -260,17 +319,16 @@ def lamb_finish_norms(leaves: Leaves, grads: Grads):
     if _use_plain(leaves):
         return lamb_finish_norms_plain(leaves, grads)
     lay = _layout(leaves)
-    dyn = _dyn(leaves, lay, grads=grads)
-    L, dev = len(leaves.p), leaves.p[0].device
+    ptrs = _pointers(leaves, lay, grads, "gradient")
+    L, dev = len(leaves.p), lay.device
     if lay.chunks == 0:
         return (torch.zeros(L, dtype=torch.float32, device=dev),
                 torch.zeros((), dtype=torch.float32, device=dev))
     leaf_sq = torch.empty(L, dtype=torch.float32, device=dev)
     grad_sq = torch.empty((), dtype=torch.float32, device=dev)
-    part = torch.empty(lay.chunks, dtype=torch.float32, device=dev)
     err = _lib().lamb_finish_norms(
-        lay.table.data_ptr(), dyn.data_ptr(), L, lay.live, lay.chunks, part.data_ptr(),
-        leaf_sq.data_ptr(), grad_sq.data_ptr(), lay.tickets.data_ptr(), stream_of(leaf_sq))
+        lay.table.data_ptr(), ptrs.ctypes.data, L, lay.chunks, lay.part.data_ptr(),
+        leaf_sq.data_ptr(), grad_sq.data_ptr(), lay.tickets.data_ptr(), _stream(lay))
     check(err, "lamb_finish_norms")
     lamb_finish_norms.launches += 1
     return leaf_sq, grad_sq
@@ -284,19 +342,19 @@ def lamb_finish_moments(leaves: Leaves, grads: Grads, grad_norm: torch.Tensor,
     if _use_plain(leaves):
         return lamb_finish_moments_plain(leaves, grads, grad_norm, c)
     lay = _layout(leaves)
-    dyn = _dyn(leaves, lay, grads=grads)
-    L, dev = len(leaves.p), leaves.p[0].device
-    _check_fp32(grad_norm, leaves.p[0], 1, "the gradient norm")
+    ptrs = _pointers(leaves, lay, grads, "gradient")
+    L, dev = len(leaves.p), lay.device
+    if not _fp32_ok(grad_norm, lay.index, 1):
+        _check_fp32(grad_norm, leaves.p[0], 1, "the gradient norm")
     if lay.chunks == 0:
         return torch.zeros((L, 2), dtype=torch.float32, device=dev)
     pu = torch.empty((L, 2), dtype=torch.float32, device=dev)
-    part = torch.empty((lay.chunks, 2), dtype=torch.float32, device=dev)
     clip = c.clip_norm is not None
     err = _lib().lamb_finish_moments(
-        lay.table.data_ptr(), dyn.data_ptr(), L, lay.live, lay.chunks, grad_norm.data_ptr(),
+        lay.table.data_ptr(), ptrs.ctypes.data, L, lay.live, lay.chunks, grad_norm.data_ptr(),
         int(clip), c.clip_norm if clip else 0.0, c.beta1, 1.0 - c.beta1, c.beta2, 1.0 - c.beta2,
-        _reciprocal(c.bc1), _reciprocal(c.bc2), c.eps, c.weight_decay, part.data_ptr(),
-        pu.data_ptr(), lay.tickets[L + 1:].data_ptr(), stream_of(pu))
+        _reciprocal(c.bc1), _reciprocal(c.bc2), c.eps, c.weight_decay, lay.part.data_ptr(),
+        pu.data_ptr(), lay.tickets.data_ptr() + 4 * (L + 1), _stream(lay))
     check(err, "lamb_finish_moments")
     lamb_finish_moments.launches += 1
     return pu
@@ -310,14 +368,15 @@ def lamb_finish_apply(leaves: Leaves, pu: torch.Tensor, c: Consts, lr: float, em
     if _use_plain(leaves):
         return lamb_finish_apply_plain(leaves, pu, c, lr, ema_decay, overwrite)
     lay = _layout(leaves)
-    dyn = _dyn(leaves, lay, sources=overwrite)
-    _check_fp32(pu, leaves.p[0], 2 * len(leaves.p), "the squared norms")
+    ptrs = _pointers(leaves, lay, overwrite, "overwrite source")
+    if not _fp32_ok(pu, lay.index, 2 * len(leaves.p)):
+        _check_fp32(pu, leaves.p[0], 2 * len(leaves.p), "the squared norms")
     if lay.chunks == 0:
         return None
     err = _lib().lamb_finish_apply(
-        lay.table.data_ptr(), dyn.data_ptr(), len(leaves.p), lay.chunks, pu.data_ptr(), lr,
+        lay.table.data_ptr(), ptrs.ctypes.data, len(leaves.p), lay.chunks, pu.data_ptr(), lr,
         _reciprocal(c.bc1), _reciprocal(c.bc2), c.eps, c.weight_decay, 1.0 - ema_decay,
-        stream_of(pu))
+        _stream(lay))
     check(err, "lamb_finish_apply")
     lamb_finish_apply.launches += 1
     return None

@@ -139,13 +139,14 @@ def copy_tree(dst, src) -> None:
         t.copy_(src_items[path])
 
 
-def _make_epoch_tail(loader, epoch: int, accum: int) -> None:
+def _make_epoch_tail(loader, epoch: int, accum: int, step: int) -> None:
     """Make, and drop, the batches of ``epoch`` past its last whole group of
     ``accum``: a run that went through that epoch made them, drawing from
-    the host random streams, before it began the next."""
+    the host random streams, before it began the next, as for ``step`` (the
+    next epoch's first)."""
     batches = loader.sampler.epoch_batches(epoch)
     for b in batches[len(batches) - len(batches) % accum:]:
-        loader.make_batch(loader.sampler.shard(b, loader.rank))
+        loader.make_batch(loader.sampler.shard(b, loader.rank), step)
 
 
 def _rsp_state_from_leaves(template, leaves):
@@ -324,6 +325,9 @@ def main(args=None, *, device="cuda"):
             args.noise_delay_steps, args.noise_ramp_steps, args.noise_initial_low,
             args.noise_initial_high, background=background[1] if background else None,
             babble=babble)
+        # the loader sets each batch's SNR ranges for the step it serves,
+        # in the thread that makes it
+        train_loader.noise_schedule = noise_snr_sched
     # validation, the decoder and the user tokens use a tokenizer of their
     # own, without subword sampling: the train loader's thread samples from
     # the train tokenizer's stream meanwhile
@@ -456,7 +460,7 @@ def main(args=None, *, device="cuda"):
         epoch = start_step // spe
         resume_batches = (start_step % spe) * accum
         if restored and resume_batches == 0 and epoch > 0:
-            _make_epoch_tail(train_loader, epoch - 1, accum)
+            _make_epoch_tail(train_loader, epoch - 1, accum, start_step)
     elif start_step and data_pos is not None:
         # a stream of unknown length: the position the checkpoint recorded
         epoch, resume_batches = (int(x) for x in data_pos)
@@ -503,7 +507,10 @@ def main(args=None, *, device="cuda"):
     while step < args.training_steps and not preempted["flag"]:
         micro_group = []
         micro_nvalid = []
-        batch_iter = iter(train_loader.epoch(epoch, resume_step=resume_batches))
+        # microbatch j of the epoch's batches serves step + j // accum (the
+        # loader makes it at that step's noise SNR ranges)
+        steps_kw = {} if noise_snr_sched is None else {"first_step": step, "accum": accum}
+        batch_iter = iter(train_loader.epoch(epoch, resume_step=resume_batches, **steps_kw))
         whole_epoch, epoch_start_step = resume_batches == 0, step
         stopped = False
         resume_batches = 0  # only the first resumed epoch is partial
@@ -516,8 +523,6 @@ def main(args=None, *, device="cuda"):
                     mesh.all_reduce_ints([0, 0, 1])
                 break
             host_rng = batch.host_rng
-            if noise_snr_sched is not None:
-                noise_snr_sched.adjust_snrs(step)
             ratio = mel_ramp.ratio(step) if mel_ramp else 0.0
             gen = derived_generator(rng_seed, step * (accum + 1) + len(micro_group), dev,
                                     data_rank)

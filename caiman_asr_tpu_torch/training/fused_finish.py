@@ -44,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from caiman_asr_tpu_torch.ops import finish_kernel as fk
-from caiman_asr_tpu_torch.training.tree import Tree, tree_items
+from caiman_asr_tpu_torch.training.tree import Tree
 
 INT32_MAX = 2 ** 31 - 1  # optax's safe_increment saturates the int32 counts
 
@@ -58,6 +58,26 @@ def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+def _flatten(params: Tree, *alike: Tree):
+    """The parameters' paths and leaves in tree order, and the leaves of
+    trees of the same structure (EMA, moments) at those paths, in one walk
+    (the finish's host work a step)."""
+    paths: list = []
+    cols: Tuple[list, ...] = tuple([] for _ in range(1 + len(alike)))
+
+    def walk(nodes, at):
+        for key, value in nodes[0].items():
+            if isinstance(value, dict):
+                walk([value] + [n[key] for n in nodes[1:]], at + (key,))
+            else:
+                paths.append(at + (key,))
+                for col, n in zip(cols, nodes):
+                    col.append(n[key])
+
+    walk([params, *alike], ())
+    return (paths, *map(tuple, cols))
 
 
 @torch.no_grad()
@@ -76,13 +96,9 @@ def fused_lamb_ema_update(params: Tree, ema_params: Tree, state,
     overwrite = overwrite or {}
     sharded = frozenset(sharded) if group is not None else frozenset()
     lr_factors = lr_factors or {}
-    items = list(tree_items(params))
-    paths = [path for path, _ in items]
-    by_path = lambda tree: tuple(map(dict(tree_items(tree)).__getitem__, paths))
+    paths, p, e, m, v = _flatten(params, ema_params, state.mu, state.nu)
     leaves = fk.Leaves(
-        p=tuple(leaf for _, leaf in items), e=by_path(ema_params), m=by_path(state.mu),
-        v=by_path(state.nu),
-        factor=tuple(float(lr_factors.get(path[0], 1.0)) for path in paths),
+        p=p, e=e, m=m, v=v, factor=tuple(float(lr_factors.get(path[0], 1.0)) for path in paths),
         sharded=tuple(path in sharded for path in paths))
     g = [_contiguous(grads.get(path)) for path in paths]
     rows = [i for i, s in enumerate(leaves.sharded) if s]
@@ -111,7 +127,7 @@ def fused_lamb_ema_update(params: Tree, ema_params: Tree, state,
     # pass 2: the parameters (the schedule at the count before the increment)
     # and the EMA
     sources = [None if path not in overwrite else
-               _contiguous(overwrite[path].to(leaf.dtype)) for path, leaf in items]
+               _contiguous(overwrite[path].to(leaf.dtype)) for path, leaf in zip(paths, p)]
     fk.lamb_finish_apply(leaves, pu, consts, schedule(state.sched_count), ema_decay, sources)
     new = state._replace(count=count_inc, sched_count=min(state.sched_count + 1, INT32_MAX))
     return new, grad_norm

@@ -230,16 +230,21 @@ Phases:
      beside their plain versions, each pass on the same inputs, the moments
      equal to the bit, the norms within 1e-6 relative, the parameters and
      EMA within 1e-6 of each leaf's largest magnitude; each pass and the
-     whole finish (Lamb.update, 3 launches) timed warm as the median of 20,
-     kernels and plain versions, beside the bound (52 bytes a parameter at
-     the HBM rate) and torch.optim.Adam(fused=True)'s step over the same
-     leaves (Adam, one pass, not LAMB).
+     whole finish (Lamb.update, 3 launches) timed warm as the median of 20
+     (the plain versions of 5), the device's work alone, from an idle card
+     and the host's alone, beside the bound (52 bytes a parameter at
+     the HBM rate), torch.optim.Adam(fused=True)'s step over the same
+     leaves (Adam, one pass, not LAMB) and, for pass 0,
+     torch._foreach_norm over the same gradients (per-leaf norms, no
+     nan_to_num); pass 0 twice on the same gradients equal to the bit.
 
 The train steps of phases 4, 7, 13, 15, 16 and 19 also count the finish:
 each pass once a taken step, pass 0 alone on a skipped one. Phase 2 holds
 the finish's passes against their plain versions at leaves of 1, 3, 4,097
 and 2^20 + 5 elements (one without a gradient, one overwritten, NaN and inf
-entries), with and without the clip.
+entries), with and without the clip, and with the gradients views at 4-byte
+offsets into one flat buffer, as the all-reduce of several processes hands
+them over.
 
 Prints the kernels line and, last, {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without a GPU it exits non-zero at once.
@@ -395,11 +400,14 @@ FINISH_SKIPPED = {"lamb_finish_norms": 1}
 # version's operation order, no FMA contraction); the norms 1e-6 relative
 # (sums in another order); the parameters and EMA 1e-6 of each leaf's
 # largest magnitude (the trust ratio from those norms). Phase 20: 3 finishes in a row at each model's leaves,
-# timed warm as the median of 20; 52 bytes a parameter (pass 0 reads 4,
+# timed warm as the median of 20 (the plain versions of FINISH_PLAIN_REPS);
+# 52 bytes a parameter (pass 0 reads 4,
 # pass 1 reads 16 and writes 8, pass 2 reads 16 and writes 8).
 FINISH_SIZES = (1, 3, 4097, 2 ** 20 + 5)
 FINISH_RTOL = 1e-6
 FINISH_STEPS, FINISH_REPS = 3, 20
+# the plain versions, 10-50x slower, are timed as the median of fewer calls
+FINISH_PLAIN_REPS = 5
 FINISH_BYTES = {"lamb_finish_norms": 4, "lamb_finish_moments": 24, "lamb_finish_apply": 24}
 # Phase 9, the wavefront at full width: (G, H, I0, B, T; None is the smoke
 # batch's encoder T after stacking). The post-stacks of base-85M and
@@ -5870,8 +5878,29 @@ def finish_consts(count: int, clip_norm=1.0):
                      bc2=float(f32(1) - f32(0.999) ** f32(count)), eps=1e-9, weight_decay=1e-2)
 
 
+def flat_views(ts, offset: int = 1):
+    """Copies of ``ts`` (None kept) as contiguous views into one flat fp32
+    buffer, the first ``offset`` elements in: each starts at a 4-byte
+    offset from a 16-byte boundary, as parallel/mesh.all_reduce_flat's
+    outputs may."""
+    import torch
+
+    n = sum(t.numel() for t in ts if t is not None)
+    flat = torch.empty(offset + n, dtype=torch.float32, device=next(
+        t for t in ts if t is not None).device)
+    out, at = [], offset
+    for t in ts:
+        if t is None:
+            out.append(None)
+            continue
+        out.append(flat[at:at + t.numel()].view(t.shape))
+        out[-1].copy_(t)
+        at += t.numel()
+    return out
+
+
 def check_finish(shapes, factor, tag: str, seed: int, none=(), overwrite=(),
-                 nonfinite: bool = False, clip_norm=1.0) -> dict:
+                 nonfinite: bool = False, clip_norm=1.0, flat: bool = False) -> dict:
     """FINISH_STEPS finishes in a row of the three kernels and, beside them,
     of their plain versions, each pass given the same inputs (passes 1 and
     2 take the plain route's gradient norm and squared norms, after those
@@ -5879,7 +5908,8 @@ def check_finish(shapes, factor, tag: str, seed: int, none=(), overwrite=(),
     moments equal to the bit, the parameters and EMA within FINISH_RTOL of
     each leaf's largest magnitude. ``none``: leaves without a gradient;
     ``overwrite``: leaves overwritten in pass 2; ``nonfinite``: NaN, inf and
-    -inf entries in the last two leaves' gradients."""
+    -inf entries in the last two leaves' gradients; ``flat``: the gradients
+    views at 4-byte offsets into one buffer (``flat_views``)."""
     import torch
 
     from caiman_asr_tpu_torch.ops import finish_kernel as fk
@@ -5894,6 +5924,10 @@ def check_finish(shapes, factor, tag: str, seed: int, none=(), overwrite=(),
         if nonfinite:
             g[-2].view(-1)[5], g[-2].view(-1)[-1] = float("nan"), float("inf")
             g[-1].view(-1)[-1] = -float("inf")
+        if flat:
+            g = flat_views(g)
+            if not any(t is not None and t.data_ptr() % 16 for t in g):
+                raise AssertionError(f"{tag}: no gradient at a 4-byte offset")
         src = [torch.randn(sh, generator=gen, device="cuda") if i in overwrite else None
                for i, sh in enumerate(shapes)]
         c = finish_consts(step + 1, clip_norm)
@@ -5965,6 +5999,26 @@ def median_ms(fn, reps: int = FINISH_REPS, warmup: int = 3, hide_host: bool = Fa
     return statistics.median(times)
 
 
+def host_ms(fn, reps: int = FINISH_REPS) -> float:
+    """The median host time of one fn() call over reps while the card is
+    kept busy (each call queued behind a device sleep of ~5 ms), so that no
+    call waits for the card: the host's work alone."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(10_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def run_finish() -> dict:
     """Phase 20: the fused LAMB finish at base-85M's and large-196M's 47
     leaves: check_finish, then each pass and the whole finish (Lamb.update)
@@ -6010,9 +6064,30 @@ def run_finish() -> dict:
             bound, by = bound_ms(FINISH_BYTES[wrapper] * n, 0.0, "float32")
             passes[wrapper] = {
                 "ms": median_ms(run_k, hide_host=True),
-                "plain_ms": median_ms(run_q, hide_host=True), "bound_ms": bound, "bound_by": by,
-                "library_ms": None, "max_abs_err": errs["max_abs_err"],
-                "ms_from_idle": median_ms(run_k), "plain_ms_from_idle": median_ms(run_q)}
+                "plain_ms": median_ms(run_q, FINISH_PLAIN_REPS, 1, hide_host=True),
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "max_abs_err": errs["max_abs_err"], "ms_from_idle": median_ms(run_k),
+                "plain_ms_from_idle": median_ms(run_q, FINISH_PLAIN_REPS, 1),
+                "host_ms": host_ms(run_k)}
+        # pass 0: its yardstick, its grid, the same bits twice, and the
+        # gradients as views at 4-byte offsets into one buffer
+        f0 = passes["lamb_finish_norms"]
+        f0["library_ms"] = median_ms(lambda: torch._foreach_norm(g), hide_host=True)
+        f0["library"] = "torch._foreach_norm over the same gradients (per-leaf norms, no nan_to_num)"
+        f0["grid_blocks"] = fk._lib().lamb_finish_norms_grid(len(shapes))
+        twice = [fk.lamb_finish_norms(leaves, g) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*twice)):
+            raise AssertionError(f"{name}: pass 0 twice on the same gradients differs")
+        g_flat = flat_views(g)
+        sq_flat, gsq_flat = fk.lamb_finish_norms(leaves, g_flat)
+        f0["rel_err_offset_vs_aligned"] = max(
+            _rel_each(torch.sqrt(sq_flat), torch.sqrt(twice[0][0])),
+            _rel_each(torch.sqrt(gsq_flat), torch.sqrt(twice[0][1])))
+        if f0["rel_err_offset_vs_aligned"] > FINISH_RTOL:
+            raise AssertionError(f"{name}: pass 0 on offset views differs by "
+                                 f"{f0['rel_err_offset_vs_aligned']}")
+        f0["ms_offset"] = median_ms(lambda: fk.lamb_finish_norms(leaves, g_flat), hide_host=True)
+        del g_flat, twice
         opt = Lamb(OptimizerConfig(warmup_steps=0), lr_factors)
         nest = lambda ts: _nested(dict(zip(paths, ts)))
         params, ema = nest(leaves.p), nest(leaves.e)
@@ -6025,9 +6100,10 @@ def run_finish() -> dict:
         launches = {w: v for w, v in read_counts().items() if v}
         check_finish_launches(launches, f"{name}: one finish")
         finish_ms, finish_device_ms = median_ms(finish), median_ms(finish, hide_host=True)
+        finish_host_ms = host_ms(finish)
         with plain_path():
-            finish_plain_ms = median_ms(finish)
-            finish_plain_device_ms = median_ms(finish, hide_host=True)
+            finish_plain_ms = median_ms(finish, FINISH_PLAIN_REPS, 1)
+            finish_plain_device_ms = median_ms(finish, FINISH_PLAIN_REPS, 1, hide_host=True)
         del params, ema, state, gmap, leaves, pu
         torch.cuda.empty_cache()
         adam_params = [torch.nn.Parameter(torch.zeros_like(t)) for t in g]
@@ -6040,21 +6116,24 @@ def run_finish() -> dict:
         bound, _ = bound_ms(52 * n, 0.0, "float32")
         out[name] = {"leaves": len(shapes), "params": n, "bytes": 52 * n, "bound_ms": bound,
                      "finish_ms": finish_ms, "finish_plain_ms": finish_plain_ms,
-                     "finish_device_ms": finish_device_ms,
+                     "finish_device_ms": finish_device_ms, "finish_host_ms": finish_host_ms,
                      "finish_plain_device_ms": finish_plain_device_ms,
                      "launches_a_finish": launches, "passes": passes,
                      "adam_fused_ms (Adam, one pass, not LAMB)": adam_ms, "checks": errs}
         log(f"  finish {name}: {len(shapes)} leaves, {n} parameters, {52 * n} bytes (bound "
             f"{bound:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s); a finish (Lamb.update) from an "
             f"idle card {finish_ms:.3f} ms with the kernels, {finish_plain_ms:.3f} ms plain "
-            f"(the device's work {finish_device_ms:.3f} / {finish_plain_device_ms:.3f}); "
+            f"(the device's work {finish_device_ms:.3f} / {finish_plain_device_ms:.3f}; the "
+            f"host's {finish_host_ms:.3f} with the kernels); "
             f"launches a finish {launches}; passes, the device's work (from an idle card) ms, "
             "kernels / plain / bound: "
             + "; ".join(f"{w} {r['ms']:.3f} ({r['ms_from_idle']:.3f}) / {r['plain_ms']:.3f} "
                         f"({r['plain_ms_from_idle']:.3f}) / {r['bound_ms']:.3f}"
                         for w, r in passes.items())
             + f"; torch.optim.Adam(fused=True).step (Adam, one pass, not LAMB) {adam_ms:.3f} "
-            f"ms; {card()}")
+            f"ms; pass 0: {f0['grid_blocks']} blocks, on offset views {f0['ms_offset']:.3f} ms "
+            f"(within {f0['rel_err_offset_vs_aligned']:.3g} of the aligned), "
+            f"torch._foreach_norm {f0['library_ms']:.3f} ms; {card()}")
     out["card"] = card()
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"  phase 20 took {out['wall_s']:.1f} s")
@@ -6125,6 +6204,10 @@ def main() -> int:
                          f"leaves of {FINISH_SIZES} (leaf 1 no gradient, leaf 0 overwritten), "
                          f"clip {clip_norm}, NaN and inf {nonfinite}", SEED + 40, none=(1,),
                          overwrite=(0,), nonfinite=nonfinite, clip_norm=clip_norm)
+    check_finish([(n,) for n in FINISH_SIZES], (1.0, 2.0, 0.5, 0.243),
+                 f"leaves of {FINISH_SIZES}, the gradients views at 4-byte offsets into one "
+                 "flat buffer (leaf 1 none), NaN and inf", SEED + 41, none=(1,), nonfinite=True,
+                 flat=True)
     log(f"== joint kernels past 2^31 slab elements ({BIG_N} x {BIG_K} = {BIG_N * BIG_K})")
     for dtype in ("float32", "bfloat16"):
         check_joint(BIG_N, BIG_HJ, BIG_K, dtype, timed=False)

@@ -17,7 +17,9 @@ forward, without and with stored gates (K8-fwd), and backward (K8-bwd)
 serving tick's batch of 8,192, where it runs once per batch slice; the
 fused LAMB finish's three passes (``csrc/lamb_finish.cu``) at unaligned
 leaves, with a None gradient, an overwrite leaf and NaN and inf entries,
-and ``Lamb.update`` on the card through them.
+pass 0's persistent grid at layouts that cross its runs, hold many tiny
+leaves, empty leaves and gradients at 4-byte offsets, and ``Lamb.update``
+on the card through them.
 
 A CUDA kernel has no interpret mode, so these tests need a GPU and nvcc and
 skip elsewhere; run them on the card with
@@ -1397,6 +1399,97 @@ def test_lamb_finish_kernels_match_plain(cuda, clip_norm, nonfinite):
     assert torch.equal(got.p[0], sources[0])  # the overwrite leaf
     assert [fk.lamb_finish_norms.launches, fk.lamb_finish_moments.launches,
             fk.lamb_finish_apply.launches] == [n + 1 for n in before]
+
+
+def _norms_leaves(sizes, device, seed, offset=0, none=(), nonfinite=False):
+    """Leaves of ``sizes`` elements and their gradients (None at ``none``),
+    each gradient a contiguous view ``offset`` elements into one flat
+    buffer past the one before it (offset 0: a tensor of its own)."""
+    rng = np.random.default_rng(seed)
+    zeros = lambda n: torch.zeros(n, device=device)
+    leaves = fk.Leaves(*(tuple(zeros(n) for n in sizes) for _ in range(4)),
+                       factor=(1.0,) * len(sizes), sharded=(False,) * len(sizes))
+    vals = [torch.from_numpy(rng.normal(size=n).astype(np.float32)) for n in sizes]
+    if nonfinite:
+        big = max(range(len(sizes)), key=lambda i: sizes[i])
+        vals[big][[3, sizes[big] // 2, -1]] = torch.tensor([float("nan"), float("inf"),
+                                                            -float("inf")])
+    if offset:
+        flat = torch.zeros(sum(sizes) + offset * len(sizes) + 1, device=device)
+        grads, at = [], offset
+        for v in vals:
+            grads.append(flat[at:at + v.numel()])
+            grads[-1].copy_(v.to(device))
+            at += v.numel() + offset
+    else:
+        grads = [v.to(device) for v in vals]
+    return leaves, [None if i in none else g for i, g in enumerate(grads)]
+
+
+def _runs(sizes, blocks):
+    """Pass 0's runs of chunks: (first, past the last) for each block."""
+    chunks = sum(-(-n // fk.CHUNK) for n in sizes)
+    blocks = min(blocks, chunks)
+    return [(chunks * b // blocks, chunks * (b + 1) // blocks) for b in range(blocks)]
+
+
+NORMS_CASES = {
+    # a leaf over many runs, and leaves on both sides of run boundaries
+    "leaves_cross_runs": ([5, 3 * fk.CHUNK * 264 + 3, fk.CHUNK, 1, 2 ** 20 + 5], {}),
+    # 2,000 leaves of 1-7 elements (their table past 48 KB of shared memory)
+    # and one of a chunk and one element: several tiny leaves a run
+    "many_tiny_leaves": ([1 + i % 7 for i in range(2000)] + [fk.CHUNK + 1], {}),
+    # leaves without elements or without a gradient
+    "empty_and_none": ([0, fk.CHUNK + 1, 0, 3, fk.CHUNK, 0], dict(none=(3,))),
+    # gradients at 4-byte offsets, as the all-reduce's flat buffer hands them
+    "offset_views": ([1, 3, fk.CHUNK + 1, 2 ** 20 + 5, 7 * fk.CHUNK - 1], dict(offset=1)),
+    "offset_views_3": ([2, fk.CHUNK + 2, 5 * fk.CHUNK + 7, 1], dict(offset=3, none=(3,))),
+    "nan_and_inf": ([fk.CHUNK + 1, 3 * fk.CHUNK + 2], dict(nonfinite=True, offset=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NORMS_CASES))
+def test_lamb_finish_norms_matches_plain_at_awkward_layouts(cuda, case):
+    """Pass 0's persistent grid: each leaf's sum and the total against the
+    plain version, and two launches equal to the bit."""
+    sizes, kw = NORMS_CASES[case]
+    leaves, grads = _norms_leaves(sizes, cuda, seed=40, **kw)
+    blocks = fk._lib().lamb_finish_norms_grid(len(sizes))
+    assert blocks > 0
+    runs = _runs(sizes, blocks)
+    if case == "leaves_cross_runs":
+        first = np.cumsum([0] + [-(-n // fk.CHUNK) for n in sizes])
+        cut = [i for i in range(len(sizes)) if any(first[i] < lo < first[i + 1]
+                                                   for lo, _ in runs)]
+        assert 1 in cut and len(cut) >= 2, cut
+    if case == "many_tiny_leaves":
+        first = np.cumsum([0] + [-(-n // fk.CHUNK) for n in sizes])
+        assert max(sum(lo <= f < hi for f in first[:-1]) for lo, hi in runs) >= 4
+    if "offset" in kw:
+        assert any(g is not None and g.data_ptr() % 16 for g in grads)
+    before = fk.lamb_finish_norms.launches
+    sq, grad_sq = fk.lamb_finish_norms(leaves, grads)
+    sq2, grad_sq2 = fk.lamb_finish_norms(leaves, list(grads))
+    assert fk.lamb_finish_norms.launches == before + 2
+    want_sq, want_grad_sq = fk.lamb_finish_norms_plain(leaves, grads)
+    torch.testing.assert_close(sq, want_sq, rtol=1e-6, atol=0)
+    torch.testing.assert_close(grad_sq, want_grad_sq, rtol=1e-6, atol=0)
+    assert torch.equal(sq, sq2) and torch.equal(grad_sq, grad_sq2)
+    for i, n in enumerate(sizes):
+        if n == 0 or grads[i] is None:
+            assert sq[i] == 0
+    if kw.get("nonfinite"):
+        assert torch.isinf(grad_sq)
+
+
+def test_lamb_finish_refuses_more_leaves_than_its_parameter_holds(cuda):
+    """The pointers a call takes are one kernel parameter of at most
+    MAX_LEAVES entries (the library agrees); one leaf more raises."""
+    assert fk._lib().lamb_finish_max_leaves() == fk.MAX_LEAVES
+    sizes = [1] * (fk.MAX_LEAVES + 1)
+    leaves, grads = _norms_leaves(sizes, cuda, seed=41)
+    with pytest.raises(ValueError, match="at most"):
+        fk.lamb_finish_norms(leaves, grads)
 
 
 def test_lamb_finish_kernels_are_deterministic(cuda):

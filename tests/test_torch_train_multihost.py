@@ -81,7 +81,11 @@ def start_ranks(args, tmp_path, world: int = 2, name: str = "ranks"):
     spec_path.write_text(json.dumps(spec))
     env = {k: v for k, v in os.environ.items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
-    env.update(OMP_NUM_THREADS="2", PYTHONPATH=str(REPO))
+    # one intra-op thread a rank: two runs are held equal to the bit, and
+    # with two, the first multithreaded call of a CPU kernel in a process
+    # can sum part of its output in another order under load (a race in
+    # the library's first call, not in the port)
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
     prog = RANK_PROG.format(repo=str(REPO))
     procs = [subprocess.Popen([sys.executable, "-u", "-c", prog, str(spec_path), str(r)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
